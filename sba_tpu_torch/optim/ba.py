@@ -1,0 +1,563 @@
+"""Bundle adjustment: Levenberg-Marquardt with an explicit Schur step.
+
+Port of the single-device part of ``sba_tpu/optim/ba.py``:
+
+- `BAProblem` is a NamedTuple of tensors: poses ``[N,4]+[N,3]``, points
+  ``[P,3]``, zero-padded intrinsics ``[C,12]`` and the observation table.
+  Free/fixed parameters are 0/1 multiplier masks (the reference's
+  SetConstantPose / SetConstantTvec gauge semantics).
+- `_linearize` gives exact per-observation Jacobian blocks by forward-mode
+  differentiation (``torch.func.jvp``) of the local, retracted residual.
+- `_solve_step_explicit_pm` is the point-major explicit-Schur step: point
+  blocks are eliminated in closed form, the reduced camera system
+  ``S = B + lam D - EL EL^T`` is assembled dense and solved by Cholesky.
+- `_bundle_adjust_impl` is the LM trust-region loop (Madsen-Nielsen
+  damping, accept/reject on actual vs predicted reduction) as a Python
+  loop with one host sync per iteration for the stopping test.
+
+`bundle_adjust` dispatches float32 problems on CUDA to the fused kernel
+path (optim/ba_fused.py) and everything else to the explicit step. The
+PCG, dense and COO step variants and the SPMD path are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from sba_tpu_torch.geometry import camera_models
+from sba_tpu_torch.geometry.quaternions import quat_retract, quat_rotate
+from sba_tpu_torch.ops.ba_kernels import intrinsic_refine_mask
+from sba_tpu_torch.optim.losses import loss_value, loss_weight
+
+MAXP = camera_models.MAX_NUM_PARAMS  # 12
+
+_FIELDS = ("qvecs", "tvecs", "points", "cam_params", "obs_image",
+           "obs_point", "obs_cam", "obs_xy", "obs_mask", "free_rot",
+           "free_trans", "free_points", "free_cam")
+_INT_FIELDS = ("obs_image", "obs_point", "obs_cam", "image_cam")
+
+
+class BAProblem(NamedTuple):
+    """Dense BA state + structure; all tensors on one device.
+
+    Masks use 1.0 = free, 0.0 = constant; `free_trans` is per component
+    so one tvec coordinate can be fixed (the gauge of global BA).
+    """
+
+    qvecs: torch.Tensor        # [N, 4]
+    tvecs: torch.Tensor        # [N, 3]
+    points: torch.Tensor       # [P, 3]
+    cam_params: torch.Tensor   # [C, 12] zero-padded
+    obs_image: torch.Tensor    # [O] int32
+    obs_point: torch.Tensor    # [O] int32
+    obs_cam: torch.Tensor      # [O] int32
+    obs_xy: torch.Tensor       # [O, 2]
+    obs_mask: torch.Tensor     # [O] float (0/1; padding + invalid)
+    free_rot: torch.Tensor     # [N]
+    free_trans: torch.Tensor   # [N, 3]
+    free_points: torch.Tensor  # [P]
+    free_cam: torch.Tensor     # [C, 12]
+    image_cam: Optional[torch.Tensor] = None  # [N] camera row per image
+
+
+def problem_from_numpy(arrays, device="cuda", dtype=None) -> BAProblem:
+    """BAProblem from a mapping of numpy arrays named like the fields of
+    ``sba_tpu.optim.ba.BAProblem`` (extra keys such as its gather layouts
+    are ignored). Float fields keep their dtype unless `dtype` is given;
+    index fields become int32."""
+    def conv(name):
+        a = arrays.get(name)
+        if a is None:
+            return None
+        a = np.asarray(a)
+        if name in _INT_FIELDS:
+            return torch.as_tensor(a.astype(np.int32), device=device)
+        t = torch.as_tensor(a, device=device)
+        return t if dtype is None else t.to(dtype)
+
+    return BAProblem(**{f: conv(f) for f in _FIELDS + ("image_cam",)})
+
+
+def problem_to_numpy(problem: BAProblem) -> dict:
+    """Inverse of `problem_from_numpy`: {field: numpy array or None}."""
+    return {f: (None if v is None else v.detach().cpu().numpy())
+            for f, v in problem._asdict().items()}
+
+
+@dataclass(frozen=True)
+class BAOptions:
+    """Solve configuration; same fields and defaults as sba_tpu's
+    `BAOptions` for everything the port runs."""
+
+    model_id: int = 0
+    loss: str = "trivial"              # trivial | huber | soft_l1 | cauchy
+    loss_scale: float = 1.0
+    max_iterations: int = 50
+    cg_iterations: int = 100
+    # Inexact-Newton forcing for the reduced-system PCG of the fused path:
+    # the trust region accepts/rejects every step against the true cost.
+    cg_tolerance: float = 1e-2
+    function_tolerance: float = 1e-8
+    gradient_tolerance: float = 1e-12
+    parameter_tolerance: float = 1e-10
+    initial_trust_radius: float = 1e4   # lambda0 = 1/radius
+    solver: str = "auto"               # auto | explicit_schur | fused
+    refine_focal_length: bool = True
+    refine_principal_point: bool = False
+    refine_extra_params: bool = True
+    refine_extrinsics: bool = True
+    # Working precision of the problem `sfm.controllers.adjust_bundle`
+    # builds: "float64" is the plain path, "float32" on CUDA the kernels.
+    dtype: str = "float64"
+    # Fused path: round the Schur-correction factors EL to bfloat16
+    # before EL EL^T (f32 accumulation), as the TPU kernel does.
+    schur_bf16: bool = True
+    # Fused reduced-system solve: "dense" (explicit S), "implicit" (PCG
+    # with a matvec kernel; not ported), "auto" switches on image count.
+    fused_mode: str = "auto"
+
+
+class BASummary(NamedTuple):
+    initial_cost: torch.Tensor
+    final_cost: torch.Tensor
+    num_iterations: int
+    num_residuals: torch.Tensor
+    gradient_norm: torch.Tensor
+    cost_trace: torch.Tensor  # [max_iterations + 1]
+
+
+# ---------------------------------------------------------------------------
+# Layout helpers (host side)
+# ---------------------------------------------------------------------------
+
+def _image_cam_of(problem) -> np.ndarray:
+    oi = problem.obs_image.cpu().numpy()
+    oc = problem.obs_cam.cpu().numpy()
+    image_cam = np.zeros(problem.qvecs.shape[0], np.int32)
+    image_cam[oi] = oc
+    return image_cam
+
+
+def to_point_major(problem: BAProblem) -> BAProblem:
+    """Reorder + pad the observation table to point-major layout:
+    O' = P * K rows (K = max track length rounded up to a power of two),
+    point p owning rows [p*K, (p+1)*K), padding rows with obs_mask 0.
+    Masked observations are dropped before the layout."""
+    dev = problem.points.device
+    op = problem.obs_point.cpu().numpy()
+    om = problem.obs_mask.cpu().numpy()
+    P = problem.points.shape[0]
+    keep = np.nonzero(om > 0)[0]
+    op = op[keep]
+    O = len(op)
+    counts = np.bincount(op, minlength=P) if O else np.zeros(P, int)
+    kmax = max(int(counts.max()), 1) if O else 1
+    K = 1 << int(np.ceil(np.log2(kmax)))
+    order = np.argsort(op, kind="stable")
+    offs = np.concatenate([[0], np.cumsum(counts)])
+    slot = np.arange(O) - offs[op[order]]
+    rows = op[order] * K + slot
+
+    def place(t):
+        v = t.cpu().numpy()[keep]
+        out = np.zeros((P * K,) + v.shape[1:], v.dtype)
+        out[rows] = v[order]
+        return torch.as_tensor(out, device=dev)
+
+    image_cam = problem.image_cam
+    if image_cam is None:
+        image_cam = torch.as_tensor(_image_cam_of(problem), device=dev)
+    return problem._replace(
+        obs_image=place(problem.obs_image),
+        obs_point=torch.arange(P, dtype=torch.int32,
+                               device=dev).repeat_interleave(K),
+        obs_cam=place(problem.obs_cam),
+        obs_xy=place(problem.obs_xy),
+        obs_mask=place(problem.obs_mask),
+        image_cam=image_cam)
+
+
+def _free_pose(problem: BAProblem, opt: BAOptions):
+    """[N, 6] free mask of the pose step (rotation x3, translation)."""
+    fp = torch.cat([problem.free_rot[:, None].expand(-1, 3),
+                    problem.free_trans], dim=1)
+    return fp * 0.0 if not opt.refine_extrinsics else fp
+
+
+# ---------------------------------------------------------------------------
+# Residual + Jacobian blocks
+# ---------------------------------------------------------------------------
+
+def _project(qvecs, tvecs, points, cams, model_id):
+    """Pixel projections of points [..., 3] by poses / intrinsics
+    broadcast against them."""
+    p_cam = quat_rotate(qvecs, points) + tvecs
+    z = p_cam[..., 2]
+    safe_z = torch.where(torch.abs(z) > 1e-12, z, torch.full_like(z, 1e-12))
+    uv = p_cam[..., :2] / safe_z[..., None]
+    return camera_models.world_to_image(model_id, cams, uv)
+
+
+def _linearize(problem: BAProblem, opt: BAOptions):
+    """Batched residuals + per-observation Jacobian blocks.
+
+    Returns r [O,2], (Jq, Jt, Jx, Jk) of shapes [O,2,3/3/3/12], already
+    multiplied by the free-parameter masks and the sqrt IRLS weights.
+    Each Jacobian column is one forward-mode derivative (jvp) of the
+    residual of the retracted local parametrization, at delta = 0.
+    """
+    oi = problem.obs_image.long()
+    q0 = problem.qvecs[oi]
+    t0 = problem.tvecs[oi]
+    x0 = problem.points[problem.obs_point.long()]
+    k0 = problem.cam_params[problem.obs_cam.long()]
+    xy = problem.obs_xy
+    nparams = camera_models.model_by_id(opt.model_id).num_params
+
+    def residual(dq, dt, dx, dk):
+        return _project(quat_retract(q0, dq), t0 + dt, x0 + dx, k0 + dk,
+                        opt.model_id) - xy
+
+    primals = (torch.zeros_like(t0), torch.zeros_like(t0),
+               torch.zeros_like(t0), torch.zeros_like(k0))
+    r = residual(*primals)
+    cols = []
+    for arg, width in ((0, 3), (1, 3), (2, 3), (3, nparams)):
+        for j in range(width):
+            tangents = [torch.zeros_like(p) for p in primals]
+            tangents[arg][:, j] = 1.0
+            cols.append(torch.func.jvp(residual, primals, tuple(tangents))[1])
+    J = torch.stack(cols, dim=-1)                          # [O, 2, 9+np]
+    Jq, Jt, Jx = J[..., 0:3], J[..., 3:6], J[..., 6:9]
+    Jk = torch.zeros(J.shape[:2] + (MAXP,), dtype=J.dtype, device=J.device)
+    Jk[..., :nparams] = J[..., 9:]
+    return _apply_linearize_masks(problem, opt, r, Jq, Jt, Jx, Jk)
+
+
+def _apply_linearize_masks(problem, opt, r, Jq, Jt, Jx, Jk):
+    s = torch.sum(r * r, dim=-1)
+    w = problem.obs_mask * loss_weight(opt.loss, s, opt.loss_scale)
+    sw = torch.sqrt(w)[:, None]
+    r = r * sw
+    sww = sw[..., None]
+    oi = problem.obs_image.long()
+    ext = 1.0 if opt.refine_extrinsics else 0.0
+    rot_mask = (problem.free_rot[oi] * ext)[:, None, None]
+    trans_mask = (problem.free_trans[oi] * ext)[:, None, :]
+    refine = torch.as_tensor(intrinsic_refine_mask(opt), dtype=r.dtype,
+                             device=r.device)
+    cam_mask = (problem.free_cam * refine)[problem.obs_cam.long()][:, None, :]
+    Jq = Jq * sww * rot_mask
+    Jt = Jt * sww * trans_mask
+    Jx = Jx * sww * problem.free_points[problem.obs_point.long()][:, None,
+                                                                  None]
+    Jk = Jk * sww * cam_mask
+    return r, Jq, Jt, Jx, Jk
+
+
+def _sym3_inverse(A, eps=1e-12):
+    """Batched closed-form inverse of symmetric 3x3 blocks [P,3,3]."""
+    a, b, c = A[:, 0, 0], A[:, 0, 1], A[:, 0, 2]
+    d, e, f = A[:, 1, 1], A[:, 1, 2], A[:, 2, 2]
+    co00 = d * f - e * e
+    co01 = c * e - b * f
+    co02 = b * e - c * d
+    co11 = a * f - c * c
+    co12 = b * c - a * e
+    co22 = a * d - b * b
+    det = a * co00 + b * co01 + c * co02
+    inv_det = 1.0 / torch.where(torch.abs(det) > eps, det,
+                                torch.full_like(det, eps))
+    inv = torch.stack([
+        torch.stack([co00, co01, co02], -1),
+        torch.stack([co01, co11, co12], -1),
+        torch.stack([co02, co12, co22], -1)], -2)
+    return inv * inv_det[:, None, None]
+
+
+# ---------------------------------------------------------------------------
+# Cost
+# ---------------------------------------------------------------------------
+
+def _cost(qvecs, tvecs, points, cam_params, problem: BAProblem,
+          opt: BAOptions):
+    oi = problem.obs_image.long()
+    proj = _project(qvecs[oi], tvecs[oi], points[problem.obs_point.long()],
+                    cam_params[problem.obs_cam.long()], opt.model_id)
+    r = proj - problem.obs_xy
+    s = torch.sum(r * r, dim=-1)
+    return 0.5 * torch.sum(problem.obs_mask
+                           * loss_value(opt.loss, s, opt.loss_scale))
+
+
+def evaluate_cost(problem: BAProblem, options: BAOptions):
+    return _cost(problem.qvecs, problem.tvecs, problem.points,
+                 problem.cam_params, problem, options)
+
+
+# ---------------------------------------------------------------------------
+# The LM step and loop
+# ---------------------------------------------------------------------------
+
+def _clamp_diag(d):
+    return torch.clamp(d, 1e-6, 1e32)
+
+
+def _solve_step_explicit_pm(problem: BAProblem, opt: BAOptions, lam):
+    """Point-major explicit-Schur LM step (see module docstring). Needs
+    the layout of `to_point_major`. Returns (u_pose [N,6], u_cam [C,12],
+    d_pts [P,3], predicted, g_inf)."""
+    r, Jq, Jt, Jx, Jk = _linearize(problem, opt)
+    N = problem.qvecs.shape[0]
+    P = problem.points.shape[0]
+    C = problem.cam_params.shape[0]
+    O = r.shape[0]
+    K = O // P
+    oi = problem.obs_image.long()
+    oc = problem.obs_cam.long()
+    op = problem.obs_point.long()
+    dtype, dev = r.dtype, r.device
+    D = 6 * N + MAXP * C
+    Jc = torch.cat([Jq, Jt], dim=-1)                        # [O, 2, 6]
+
+    def pt_reduce(v):
+        return torch.sum(v.reshape((P, K) + v.shape[1:]), dim=1)
+
+    def img_reduce(v):
+        return torch.zeros((N,) + v.shape[1:], dtype=dtype,
+                           device=dev).index_add_(0, oi, v)
+
+    # ---- point side ----
+    g_pts = pt_reduce(torch.einsum("oki,ok->oi", Jx, r))     # [P, 3]
+    Hpp = pt_reduce(torch.einsum("oki,okj->oij", Jx, Jx))    # [P, 3, 3]
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    d_pts_l = lam * _clamp_diag(torch.diagonal(Hpp, dim1=1, dim2=2))
+    Hpp = Hpp + torch.diag_embed(d_pts_l) + 1e-12 * eye3
+    Hpp_inv = _sym3_inverse(Hpp)
+    Lp = torch.linalg.cholesky(Hpp_inv + 1e-14 * eye3)       # [P, 3, 3]
+
+    # ---- image side ----
+    g_pose = img_reduce(torch.einsum("oki,ok->oi", Jc, r))   # [N, 6]
+    Hcc_pose = img_reduce(torch.einsum("oki,okj->oij", Jc, Jc))
+    Hpc_img = img_reduce(torch.einsum("oki,okj->oij", Jc, Jk))  # [N,6,12]
+    img_cam = problem.image_cam.long()
+    g_cam = torch.zeros(C, MAXP, dtype=dtype, device=dev).index_add_(
+        0, img_cam, img_reduce(torch.einsum("oki,ok->oi", Jk, r)))
+    Hcc_cam = torch.zeros(C, MAXP, MAXP, dtype=dtype, device=dev).index_add_(
+        0, img_cam, img_reduce(torch.einsum("oki,okj->oij", Jk, Jk)))
+    d_pose_l = lam * _clamp_diag(torch.diagonal(Hcc_pose, dim1=1, dim2=2))
+    d_cam_l = lam * _clamp_diag(torch.diagonal(Hcc_cam, dim1=1, dim2=2))
+
+    # ---- whitened coupling matrix EL [D, 3P]: rows n*6+i | 6N+c*12+m ----
+    LpO = Lp.repeat_interleave(K, dim=0)                     # [O, 3, 3]
+    WL_pose = torch.einsum("oij,ojk->oik",
+                           torch.einsum("oki,okj->oij", Jc, Jx), LpO)
+    WL_cam = torch.einsum("oij,ojk->oik",
+                          torch.einsum("oki,okj->oij", Jk, Jx), LpO)
+    EL_pose = torch.zeros(N, P, 6, 3, dtype=dtype, device=dev)
+    EL_pose.index_put_((oi, op), WL_pose, accumulate=True)
+    EL_cam = torch.zeros(C, P, MAXP, 3, dtype=dtype, device=dev)
+    EL_cam.index_put_((oc, op), WL_cam, accumulate=True)
+    EL = torch.cat([EL_pose.permute(0, 2, 1, 3).reshape(6 * N, 3 * P),
+                    EL_cam.permute(0, 2, 1, 3).reshape(MAXP * C, 3 * P)])
+
+    # ---- assemble + solve the reduced system ----
+    bi = (torch.arange(N, device=dev)[:, None] * 6
+          + torch.arange(6, device=dev)[None, :])            # [N, 6]
+    ci = 6 * N + (torch.arange(C, device=dev)[:, None] * MAXP
+                  + torch.arange(MAXP, device=dev)[None, :])  # [C, 12]
+    cam_cols = ci[img_cam]                                   # [N, 12]
+    B = torch.zeros(D, D, dtype=dtype, device=dev)
+    B.index_put_((bi[:, :, None], bi[:, None, :]), Hcc_pose, accumulate=True)
+    B.index_put_((ci[:, :, None], ci[:, None, :]), Hcc_cam, accumulate=True)
+    B.index_put_((bi[:, :, None], cam_cols[:, None, :]), Hpc_img,
+                 accumulate=True)
+    B.index_put_((cam_cols[:, :, None], bi[:, None, :]),
+                 Hpc_img.transpose(1, 2), accumulate=True)
+    d_l = torch.cat([d_pose_l.reshape(-1), d_cam_l.reshape(-1)])
+    S = B + torch.diag(d_l) - EL @ EL.T
+    free_pose = _free_pose(problem, opt)
+    free_cam_m = problem.free_cam * torch.as_tensor(
+        intrinsic_refine_mask(opt), dtype=dtype, device=dev)
+    free = torch.cat([free_pose.reshape(-1), free_cam_m.reshape(-1)])
+    S = S * free[:, None] * free[None, :] + torch.diag(1.0 - free)
+
+    Ltg = torch.einsum("pji,pj->pi", Lp, g_pts).reshape(-1)  # [3P]
+    Ey = EL @ Ltg
+    g_u = torch.cat([g_pose.reshape(-1), g_cam.reshape(-1)])
+    b = (-g_u + Ey) * free
+    chol = torch.linalg.cholesky_ex(S)[0]
+    du = torch.cholesky_solve(b[:, None], chol)[:, 0]
+    u_pose = du[:6 * N].reshape(N, 6) * free_pose
+    u_cam = du[6 * N:].reshape(C, MAXP) * free_cam_m
+    du_masked = torch.cat([u_pose.reshape(-1), u_cam.reshape(-1)])
+
+    # Back-substitution: dp = -Hpp^-1 g_p - Lp (EL^T du).
+    ELt_du = (EL.T @ du_masked).reshape(P, 3)
+    dp = (-torch.einsum("pij,pj->pi", Hpp_inv, g_pts)
+          - torch.einsum("pij,pj->pi", Lp, ELt_du))
+    d_pts_step = dp * problem.free_points[:, None]
+
+    # Predicted reduction -(g^T d + 1/2 d^T (H + D) d).
+    t = (torch.einsum("oki,oi->ok", Jc, u_pose[oi])
+         + torch.einsum("oki,oi->ok", Jk, u_cam[oc])
+         + torch.einsum("oki,oi->ok", Jx,
+                        d_pts_step.repeat_interleave(K, dim=0)))
+    gTd = (torch.sum(g_pose * u_pose) + torch.sum(g_cam * u_cam)
+           + torch.sum(g_pts * d_pts_step))
+    dHd = (torch.sum(t * t) + torch.sum(d_pts_l * d_pts_step * d_pts_step)
+           + torch.sum(d_pose_l * u_pose * u_pose)
+           + torch.sum(d_cam_l * u_cam * u_cam))
+    predicted = -(gTd + 0.5 * dHd)
+    g_inf = torch.maximum(
+        torch.max(torch.abs(g_pose)),
+        torch.maximum(torch.max(torch.abs(g_cam)),
+                      torch.max(torch.abs(g_pts))))
+    return u_pose, u_cam, d_pts_step, predicted, g_inf
+
+
+def lm_update(lam, nu, cost, new_cost, predicted):
+    """Madsen-Nielsen damping update (device tensors, no host sync).
+    Returns (accept, actual, lam, nu)."""
+    actual = cost - new_cost
+    rho = actual / torch.clamp(predicted, min=1e-30)
+    accept = (actual > 0) & (predicted > 0)
+    lam_acc = lam * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
+    lam = torch.where(accept, torch.clamp(lam_acc, min=1e-14),
+                      torch.clamp(lam * nu, max=1e10))
+    nu = torch.where(accept, torch.full_like(nu, 2.0), nu * 2.0)
+    return accept, actual, lam, nu
+
+
+def lm_done(opt: BAOptions, accept, actual, cost, g_inf, lam, step_norm,
+            x_norm):
+    """The solve's stopping rule (device bool)."""
+    return ((accept & (torch.abs(actual) < opt.function_tolerance
+                       * torch.clamp(cost, min=1e-30)))
+            | (g_inf < opt.gradient_tolerance)
+            | (accept & (step_norm < opt.parameter_tolerance * x_norm))
+            | (lam >= 1e10))
+
+
+def _bundle_adjust_impl(problem: BAProblem, options: BAOptions):
+    """LM loop over `_solve_step_explicit_pm` (point-major problem)."""
+    opt = options
+    cost0 = evaluate_cost(problem, opt)
+    q, t, x, k = (problem.qvecs, problem.tvecs, problem.points,
+                  problem.cam_params)
+    lam = torch.full_like(cost0, 1.0 / opt.initial_trust_radius)
+    nu = torch.full_like(cost0, 2.0)
+    cost = cost0
+    g_inf = torch.full_like(cost0, float("inf"))
+    trace = torch.full((opt.max_iterations + 1,), float("nan"),
+                       dtype=cost0.dtype, device=cost0.device)
+    trace[0] = cost0
+    it = 0
+    while it < opt.max_iterations:
+        prob = problem._replace(qvecs=q, tvecs=t, points=x, cam_params=k)
+        u_pose, u_cam, d_pts, predicted, g_inf = _solve_step_explicit_pm(
+            prob, opt, lam)
+        q2 = quat_retract(q, u_pose[:, :3])
+        t2 = t + u_pose[:, 3:]
+        x2 = x + d_pts
+        k2 = k + u_cam
+        new_cost = _cost(q2, t2, x2, k2, problem, opt)
+        accept, actual, lam, nu = lm_update(lam, nu, cost, new_cost,
+                                            predicted)
+        q = torch.where(accept, q2, q)
+        t = torch.where(accept, t2, t)
+        x = torch.where(accept, x2, x)
+        k = torch.where(accept, k2, k)
+        prev_cost = cost
+        cost = torch.where(accept, new_cost, cost)
+        step_norm = torch.sqrt(torch.sum(u_pose ** 2) + torch.sum(u_cam ** 2)
+                               + torch.sum(d_pts ** 2))
+        x_norm = torch.sqrt(torch.sum(t ** 2) + torch.sum(x ** 2)
+                            + torch.sum(k ** 2)) + 1.0
+        it += 1
+        trace[it] = cost
+        if bool(lm_done(opt, accept, actual, prev_cost, g_inf, lam,
+                        step_norm, x_norm)):
+            break
+    out = problem._replace(qvecs=q, tvecs=t, points=x, cam_params=k)
+    summary = BASummary(
+        initial_cost=cost0, final_cost=cost, num_iterations=it,
+        num_residuals=torch.sum(problem.obs_mask).to(torch.int32),
+        gradient_norm=g_inf, cost_trace=trace)
+    return out, summary
+
+
+def bundle_adjust(problem: BAProblem, options: Optional[BAOptions] = None):
+    """Solve. float32 problems on CUDA go through the fused kernels
+    (raising for what those do not cover yet); everything else runs the
+    point-major explicit-Schur step."""
+    options = options or BAOptions()
+    if (options.solver in ("auto", "fused") and problem.points.is_cuda
+            and problem.points.dtype == torch.float32):
+        from sba_tpu_torch.optim import ba_fused
+
+        if not ba_fused.can_use_fused(problem, options):
+            raise NotImplementedError(
+                f"camera model {options.model_id}: CUDA kernel head not "
+                "yet ported")
+        return ba_fused.bundle_adjust_fused(problem, options)
+    if options.solver not in ("auto", "fused", "explicit_schur"):
+        raise NotImplementedError(f"solver {options.solver!r} not ported")
+    n, c, p = (problem.qvecs.shape[0], problem.cam_params.shape[0],
+               problem.points.shape[0])
+    bytes_needed = (6 * n + 12 * c) * 3 * p * problem.points.element_size()
+    if bytes_needed > 2 * 1024 ** 3:
+        raise NotImplementedError(
+            "problem too large for the explicit Schur step; the PCG step "
+            "is not ported")
+    problem = to_point_major(problem)
+    options = dataclasses.replace(options, solver="explicit_schur")
+    return _bundle_adjust_impl(problem, options)
+
+
+# ---------------------------------------------------------------------------
+# Problem construction from a SceneArrays view
+# ---------------------------------------------------------------------------
+
+def build_problem(arrays, constant_pose_rows=(), constant_tvec_rows=None,
+                  constant_point_rows=(), constant_cam_rows=(),
+                  dtype=torch.float64, device="cuda") -> BAProblem:
+    """Assemble a BAProblem from a `SceneArrays` dense view.
+
+    constant_tvec_rows: {image_row: [component indices]}.
+    """
+    n = arrays.num_images
+    p = max(arrays.num_points, 1)
+    c = len(arrays.camera_ids)
+    free_rot = np.ones(n)
+    free_trans = np.ones((n, 3))
+    for row in constant_pose_rows:
+        free_rot[row] = 0.0
+        free_trans[row] = 0.0
+    for row, comps in (constant_tvec_rows or {}).items():
+        for comp in comps:
+            free_trans[row, comp] = 0.0
+    free_points = np.ones(p)
+    if arrays.num_points == 0:
+        free_points[:] = 0.0
+    for row in constant_point_rows:
+        free_points[row] = 0.0
+    free_cam = np.ones((c, MAXP))
+    for row in constant_cam_rows:
+        free_cam[row] = 0.0
+    points = arrays.points if arrays.num_points else np.zeros((1, 3))
+    obs_cam = arrays.obs_camera_idx()
+    image_cam = np.zeros(n, np.int32)
+    image_cam[arrays.obs_image] = obs_cam
+    return problem_from_numpy(dict(
+        qvecs=arrays.qvecs, tvecs=arrays.tvecs, points=points,
+        cam_params=arrays.camera_params, obs_image=arrays.obs_image,
+        obs_point=arrays.obs_point, obs_cam=obs_cam, obs_xy=arrays.obs_xy,
+        obs_mask=np.ones(arrays.num_observations), free_rot=free_rot,
+        free_trans=free_trans, free_points=free_points, free_cam=free_cam,
+        image_cam=image_cam), device=device, dtype=dtype)

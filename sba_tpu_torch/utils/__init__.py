@@ -1,0 +1,1 @@
+"""Port of the sba_tpu sub-package of the same name."""
