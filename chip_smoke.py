@@ -5,21 +5,32 @@
 Needs one CUDA card and nvcc (found through torch's CUDA_HOME, else
 /usr/local/cuda). It builds the hand-written kernels from csrc/, then:
 
-1. build    -- nvcc version and path, build time, ptxas resource lines;
-2. twins    -- K1/K4/K5 against their plain PyTorch twins on the same
-               CUDA tensors at the headline shapes (128 images, 30,000
-               points, ~7 observations per point), models 0 and 2;
-               a small solve through the kernels against the same solve
-               through the twins on the CPU, and bf16 against f32 S_corr;
-3. main     -- `bundle_adjust` on the headline problem in float32 (the
-               fused path), cost must fall and every kernel must launch;
-               LM it/s of a warm `solve_prepared`;
-4. cli      -- `python -m sba_tpu_torch.cli bundle_adjuster` on a small
-               synthetic model in a subprocess;
-5. timing   -- per-kernel CUDA-event times against the twins and the
-               memory/compute bound;
-6. profile  -- device time by kernel over one warm solve
-               (torch.profiler) and the device's busy share.
+1. build          -- nvcc version and path, build time, ptxas lines;
+2. twins          -- K1/K4/K5 against their plain PyTorch twins on the
+                     same CUDA tensors at the headline shapes (128 images,
+                     30,000 points, ~7 observations per point), models 0
+                     and 2; a small solve through the kernels against the
+                     same solve through the twins on the CPU, and bf16
+                     against f32 S_corr;
+3. twins-implicit -- K2/K3 against their twins at the 1024-image
+                     sequential scene (f32 and bf16 coupling stores) and
+                     on a two-camera scene, whose implicit step on the
+                     card is held against the same step on the CPU;
+4. main           -- `bundle_adjust` on the headline problem in float32
+                     (dense path: K1, K4, K5 must launch), cost must
+                     fall; LM it/s of a warm `solve_prepared`;
+5. main-implicit  -- `bundle_adjust` on the 1024-image scene (implicit
+                     path: K2, K3, K4, K5 must launch, K1 must not); LM
+                     it/s, K3 launches per LM iteration, peak memory;
+6. large-ranged   -- 3 LM iterations at 10,240 images / 1.2M points
+                     (ranged, bf16 couplings); host prep timed apart;
+7. cli            -- `python -m sba_tpu_torch.cli bundle_adjuster` on a
+                     20-image (dense) and a 160-image (implicit) model;
+8. timing         -- per-kernel CUDA-event times against the twins and
+                     the memory/compute bound;
+9. profile        -- device time by kernel over one warm solve of the
+                     headline and of the 1024-image scene
+                     (torch.profiler), and the device's busy share.
 
 Prints one progress line per phase, a `{"kernels": [...]}` line, the
 card's name and power limit, and as its last line
@@ -49,11 +60,22 @@ F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 SOURCE = "sba_tpu_torch/csrc/ba_kernels.cu"
 REPLACES = {
     "fused_schur": "sba_tpu/ops/ba_kernels.py:945",
+    "fused_reduce": "sba_tpu/ops/ba_kernels.py:1035",
+    "schur_matvec": "sba_tpu/ops/ba_kernels.py:1171",
     "backsub": "sba_tpu/ops/ba_kernels.py:1298",
     "fused_cost": "sba_tpu/ops/ba_kernels.py:1381",
 }
+DENSE_KERNELS = ("fused_schur", "backsub", "fused_cost")
+IMPLICIT_KERNELS = ("fused_reduce", "schur_matvec", "backsub", "fused_cost")
 HEADLINE = dict(num_images=128, num_points=30_000, observations_per_point=7,
                 pose_noise=0.005, point_noise=0.02, pixel_noise=0.5, seed=0)
+# bench.py:195 bench_ba_large and bench.py:223 bench_ba_10k.
+LARGE = dict(num_images=1024, num_points=120_000, track_len=7,
+             pose_noise=0.005, point_noise=0.02, pixel_noise=0.5, seed=0)
+HUGE = dict(LARGE, num_images=10_240, num_points=1_200_000)
+# bench.py's solve settings: a fixed iteration count.
+FIXED_IT = dict(dtype="float32", cg_iterations=100, function_tolerance=0.0,
+                gradient_tolerance=0.0, parameter_tolerance=0.0)
 
 
 def log(phase: str, msg: str) -> None:
@@ -100,6 +122,21 @@ def headline_problem(model_id, device):
         cam = problem.cam_params.clone()
         cam[:, 3] = 0.02
         problem = problem._replace(cam_params=cam)
+    return problem
+
+
+def require_path(launches, kernels, other):
+    """Every kernel of the path launched, and none of the other path."""
+    require(all(launches[k] > 0 for k in kernels),
+            f"a kernel of the path never launched: {launches}")
+    require(all(launches[k] == 0 for k in other if k not in kernels),
+            f"a kernel of the other path launched: {launches}")
+
+
+def large_problem(spec=LARGE):
+    from sba_tpu_torch.utils.synthetic import make_sequential_ba_problem
+
+    problem, _ = make_sequential_ba_problem(device="cuda", **spec)
     return problem
 
 
@@ -237,6 +274,120 @@ def phase_twins():
     return errs
 
 
+def _check_implicit_twins(tag, st, lay, par, pts, lam, dup, duc, opt):
+    """K2 and K3 against their twins on one bucket; returns their max
+    abs errors (image payload, matvec)."""
+    import torch
+
+    from sba_tpu_torch.ops import ba_kernels as bk
+
+    img_k, pt_k, jw_k, jc_k = bk.fused_reduce(st, par, pts, lam, lay, opt)
+    img_p, pt_p, jw_p, jc_p = bk.fused_reduce_plain(st, par, pts, lam, lay,
+                                                    opt)
+    torch.cuda.synchronize()
+    # Tolerances of tests/test_torch_ba_implicit.py: 1e-5 of scale, 1e-4
+    # for rows computed through the damped 3x3 point inverse.
+    for r0, r1, tol in ((0, 3, 1e-5), (3, 6, 1e-5), (6, 12, 1e-4),
+                        (12, 18, 1e-4), (18, 19, 1e-5)):
+        close(f"{tag} pt_pay[{r0}:{r1}]", pt_k[r0:r1], pt_p[r0:r1], tol)
+    n_jac = 18 + 2 * lay.nparams
+    for r in range(lay.JW):
+        close(f"{tag} jw[{r}]", jw_k[r], jw_p[r], 1e-5 if r < n_jac else 1e-4)
+    np_ = lay.nparams
+    ofs = [0, 6, 42, 42 + 6 * np_, 42 + 7 * np_, lay.DI, lay.DI + 6,
+           lay.DI + 6 + np_, lay.DI_implicit - np_, lay.DI_implicit]
+    e2 = 0.0
+    for k, (a0, a1) in enumerate(zip(ofs[:-1], ofs[1:])):
+        e2 = max(e2, close(f"{tag} img_red[:, {a0}:{a1}]", img_k[:, a0:a1],
+                           img_p[:, a0:a1], 1e-5 if k < 5 else 1e-4))
+    # jcorr is the kernel's own couplings (jw's WL rows, held against the
+    # twin above) stored once more, rounded to nearest even when bf16:
+    # it must equal that rounding exactly, and its padding rows be zero.
+    require(jc_k.dtype == bk.jcorr_dtype(lay, opt) == jc_p.dtype,
+            f"{tag} jcorr type {jc_k.dtype}")
+    nwl = 18 + 3 * np_
+    require(torch.equal(jc_k[:nwl], jw_k[n_jac:n_jac + nwl].to(jc_k.dtype))
+            and not bool(jc_k[nwl:].any()),
+            f"{tag} jcorr is not the stored rounding of jw's couplings")
+    m_k = bk.schur_matvec(st, dup, duc, jc_k, lay, opt)
+    m_p = bk.schur_matvec_plain(st, dup, duc, jc_k, lay, opt)
+    torch.cuda.synchronize()
+    e3 = close(f"{tag} matvec", m_k, m_p, 3e-5)
+    return e2, e3
+
+
+def two_camera_problem(device):
+    """Odd images use a second camera that starts off-truth
+    (tests/test_ba_fused.py::_two_camera_problem)."""
+    import numpy as np
+    import torch
+
+    from sba_tpu_torch.optim.ba import problem_from_numpy
+    from sba_tpu_torch.utils.synthetic import make_ba_problem_numpy
+
+    f, _ = make_ba_problem_numpy(
+        num_images=6, num_points=120, observations_per_point=4,
+        pose_noise=0.01, point_noise=0.05, seed=9)
+    f["cam_params"] = np.tile(f["cam_params"], (2, 1))
+    f["cam_params"][1, 0] = 520.0
+    f["image_cam"] = np.arange(6, dtype=np.int32) % 2
+    f["obs_cam"] = f["image_cam"][f["obs_image"]]
+    f["free_cam"] = np.ones((2, 12))
+    return problem_from_numpy(f, device, torch.float32)
+
+
+def phase_twins_implicit(errs):
+    """K2/K3 against their twins at the 1024-image scene, f32 and bf16
+    coupling stores, and on a two-camera scene."""
+    import torch
+
+    from sba_tpu_torch.optim import ba_fused
+    from sba_tpu_torch.optim.ba import BAOptions
+
+    problem = large_problem()
+    errs.update(fused_reduce=0.0, schur_matvec=0.0)
+    for ranged in ("off", "on"):
+        opt = BAOptions(dtype="float32", fused_ranged=ranged)
+        ctx, par, lam, dup, duc = _bucket_inputs(problem, opt)
+        for b, (st, lay, pts) in enumerate(zip(ctx[0], ctx[1], ctx[2])):
+            tag = f"1024 ranged={ranged} b{b}"
+            e2, e3 = _check_implicit_twins(tag, st, lay, par, pts, lam,
+                                           dup, duc, opt)
+            errs["fused_reduce"] = max(errs["fused_reduce"], e2)
+            errs["schur_matvec"] = max(errs["schur_matvec"], e3)
+            log("twins-implicit", f"{tag} (K={lay.K}, Pp={lay.Pp}, jcorr "
+                f"{str(ba_fused.bk.jcorr_dtype(lay, opt))[6:]}): K2/K3 match "
+                f"their twins; |dimg_red| {e2:.2e} |dmatvec| {e3:.2e}")
+    del problem, ctx
+    # Two cameras: the camera rows of the payload and of the matvec are
+    # keyed by image and summed by camera in the epilogue.
+    opt = BAOptions(dtype="float32", schur_bf16=False, matvec_bf16=False,
+                    fused_mode="implicit", cg_iterations=200,
+                    cg_tolerance=1e-9)
+    steps = {}
+    for dev in ("cuda", "cpu"):
+        problem = two_camera_problem(dev)
+        ctx, par, lam, dup, duc = _bucket_inputs(problem, opt)
+        statics, lays, pts0, _, prob, _, free_arrays = ctx
+        if dev == "cuda":
+            for b, (st, lay, pts) in enumerate(zip(statics, lays, pts0)):
+                _check_implicit_twins(f"2-camera b{b}", st, lay, par, pts,
+                                      lam, dup, duc, opt)
+        steps[dev] = [v.cpu() if torch.is_tensor(v) else v for v in
+                      ba_fused._fused_step(statics, lays, opt, prob.qvecs,
+                                           prob.tvecs, pts0, prob.cam_params,
+                                           lam, free_arrays)]
+    for i, name, tol in ((0, "u_pose", 1e-3), (1, "u_cam", 1e-3)):
+        close(f"2-camera step {name}", steps["cuda"][i], steps["cpu"][i],
+              tol)
+    for i, name in ((3, "predicted"), (4, "g_inf")):
+        close(f"2-camera step {name}", steps["cuda"][i].reshape(1),
+              steps["cpu"][i].reshape(1), 1e-4)
+    log("twins-implicit", "2-camera scene: K2/K3 match their twins; the "
+        "implicit step on the card matches the CPU twins' step; closest "
+        f"to its tolerance so far: {WORST['name']} at {WORST['ratio']:.3f}")
+
+
 def phase_main():
     """The fused path at full width through `bundle_adjust`."""
     import torch
@@ -257,8 +408,7 @@ def phase_main():
     wall = time.perf_counter() - t
     launches = dict(bk.LAUNCHES)
     c0, c1 = float(s.initial_cost), float(s.final_cost)
-    require(all(v > 0 for v in launches.values()),
-            f"a kernel never launched on the main path: {launches}")
+    require_path(launches, DENSE_KERNELS, IMPLICIT_KERNELS)
     require(c1 < c0, f"cost did not decrease: {c0} -> {c1}")
     for name, v in (("qvecs", out.qvecs), ("tvecs", out.tvecs),
                     ("points", out.points)):
@@ -285,18 +435,110 @@ def phase_main():
     return launches, ctx, dt * 1e3 / its
 
 
-def phase_cli():
+def phase_main_implicit():
+    """The implicit path at full width (bench.py:195) through
+    `bundle_adjust`: 1024 images, 120,000 points, track 7."""
+    import torch
+
+    from sba_tpu_torch.ops import ba_kernels as bk
+    from sba_tpu_torch.optim import ba_fused
+    from sba_tpu_torch.optim.ba import BAOptions, bundle_adjust
+
+    problem = large_problem()
+    opt = BAOptions(max_iterations=10, **FIXED_IT)
+    torch.cuda.reset_peak_memory_stats()
+    bk.reset_launches()
+    t = time.perf_counter()
+    out, s = bundle_adjust(problem, opt)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(bk.LAUNCHES)
+    c0, c1 = float(s.initial_cost), float(s.final_cost)
+    require_path(launches, IMPLICIT_KERNELS, DENSE_KERNELS)
+    require(c1 < c0, f"cost did not decrease: {c0} -> {c1}")
+    for name, v in (("qvecs", out.qvecs), ("tvecs", out.tvecs),
+                    ("points", out.points)):
+        require(bool(torch.isfinite(v).all()), f"non-finite {name}")
+    require(tuple(out.points.shape) == (LARGE["num_points"], 3),
+            f"points shape {tuple(out.points.shape)}")
+    its = s.num_iterations
+    log("main-implicit", f"bundle_adjust 1024 img / "
+        f"{problem.points.shape[0]} pts / {int(problem.obs_mask.sum())} "
+        f"live obs: cost {c0:.6g} -> {c1:.6g} in {its} it, {wall:.2f} s "
+        f"incl. prep; launches {json.dumps(launches)}; K3 launches per LM "
+        f"iteration {launches['schur_matvec'] / its:.1f}; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+
+    ctx = ba_fused.prepare(problem, opt)
+    ba_fused.solve_prepared(ctx)            # warm
+    torch.cuda.synchronize()
+    bk.reset_launches()
+    t = time.perf_counter()
+    _, s2 = ba_fused.solve_prepared(ctx)
+    float(s2.final_cost)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    its = s2.num_iterations
+    k3_per_it = bk.LAUNCHES["schur_matvec"] / its
+    log("main-implicit", f"warm solve_prepared: {its} LM it in "
+        f"{dt * 1e3:.1f} ms = {its / dt:.2f} LM it/s, {dt * 1e3 / its:.2f} "
+        f"ms/it; K3 launches per LM iteration {k3_per_it:.1f}")
+    return launches, ctx, dt * 1e3 / its, k3_per_it
+
+
+def phase_large_ranged():
+    """bench.py:223 bench_ba_10k: 10,240 images, 1.2M points, track 7;
+    Npad >= 2048, so ranged and bf16 couplings come on by themselves."""
+    import torch
+
+    from sba_tpu_torch.ops import ba_kernels as bk
+    from sba_tpu_torch.optim import ba_fused
+    from sba_tpu_torch.optim.ba import BAOptions
+
+    t = time.perf_counter()
+    problem = large_problem(HUGE)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t
+    opt = BAOptions(max_iterations=3, **FIXED_IT)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    ctx = ba_fused.prepare(problem, opt)
+    torch.cuda.synchronize()
+    t_prep = time.perf_counter() - t
+    lay = ctx[1][0]
+    require(lay.ranged and ba_fused.use_implicit(lay, opt)
+            and bk.jcorr_dtype(lay, opt) == torch.bfloat16,
+            f"10k scene not ranged/bf16: {lay}")
+    bk.reset_launches()
+    t = time.perf_counter()
+    out, s = ba_fused.solve_prepared(ctx)
+    c0, c1 = float(s.initial_cost), float(s.final_cost)
+    torch.cuda.synchronize()
+    t_solve = time.perf_counter() - t
+    launches = dict(bk.LAUNCHES)
+    require_path(launches, IMPLICIT_KERNELS, DENSE_KERNELS)
+    require(c1 < c0, f"10k cost did not decrease: {c0} -> {c1}")
+    require(bool(torch.isfinite(out.tvecs).all()
+                 and torch.isfinite(out.points).all()), "10k: non-finite")
+    its = s.num_iterations
+    log("large-ranged", f"10240 img / {problem.points.shape[0]} pts / "
+        f"{problem.obs_image.shape[0]} obs (Npad {lay.Npad}, ranged, bf16 "
+        f"jcorr): scene {t_gen:.1f} s, host prep {t_prep:.1f} s, solve "
+        f"{its} LM it in {t_solve:.2f} s (first call) = "
+        f"{its / t_solve:.2f} LM it/s; cost {c0:.6g} -> {c1:.6g}; K3 "
+        f"launches per LM iteration {launches['schur_matvec'] / its:.1f}; "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f}"
+        f" MiB")
+
+
+def _run_cli(rec, tag, max_iterations, kernels, other):
+    """bundle_adjuster in a subprocess on `rec`; checks the cost, the
+    mean reprojection error and that the path's kernels launched."""
     import numpy as np
 
     from sba_tpu_torch.models.reconstruction import Reconstruction
     from sba_tpu_torch.ops import cuda_build
-    from sba_tpu_torch.utils.synthetic import make_synthetic_reconstruction
 
-    rec = make_synthetic_reconstruction(num_images=20, num_points=400,
-                                        seed=3)
-    rng = np.random.default_rng(3)
-    for p in rec.points3D.values():
-        p.xyz = p.xyz + rng.normal(scale=0.05, size=3)
     err0 = rec.compute_mean_reprojection_error()
     cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="cli_smoke_",
@@ -307,7 +549,7 @@ def phase_cli():
                "--input_path", str(work / "in"),
                "--output_path", str(work / "out"),
                "--BundleAdjustment.dtype", "float32",
-               "--BundleAdjustment.max_iterations", "20"]
+               "--BundleAdjustment.max_iterations", str(max_iterations)]
         env = dict(os.environ, PYTHONPATH=str(ROOT))
         budget = max(30.0, DEADLINE_S - (time.perf_counter() - T0) - 60.0)
         res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
@@ -321,18 +563,36 @@ def phase_cli():
         c0, c1 = float(m.group(1)), float(m.group(2))
         launches = json.loads(k.group(1))
         require(c1 < c0, f"CLI cost did not decrease: {c0} -> {c1}")
-        require(all(v > 0 for v in launches.values()),
-                f"CLI run did not launch every kernel: {launches}")
+        require_path(launches, kernels, other)
         out = Reconstruction.read(str(work / "out"))
         out.update_point_errors()   # the file keeps the input's errors
         err1 = out.compute_mean_reprojection_error()
-        require(len(out.images) == 20 and np.isfinite(err1) and err1 < err0,
+        require(len(out.images) == len(rec.images) and np.isfinite(err1)
+                and err1 < err0,
                 f"CLI model: mean reprojection error {err0} -> {err1}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    log("cli", f"bundle_adjuster cost {c0:.6g} -> {c1:.6g} in "
+    log("cli", f"{tag}: bundle_adjuster cost {c0:.6g} -> {c1:.6g} in "
         f"{m.group(3)} it; launches {json.dumps(launches)}; mean "
         f"reprojection error {err0:.4f} -> {err1:.4f} px")
+
+
+def phase_cli():
+    """The CLI on a 20-image model (dense path) and a 160-image model
+    (more than 128 images: the implicit path)."""
+    import numpy as np
+
+    from sba_tpu_torch.utils.synthetic import make_synthetic_reconstruction
+
+    for n_img, n_pts, kernels, other in (
+            (20, 400, DENSE_KERNELS, IMPLICIT_KERNELS),
+            (160, 600, IMPLICIT_KERNELS, DENSE_KERNELS)):
+        rec = make_synthetic_reconstruction(num_images=n_img,
+                                            num_points=n_pts, seed=3)
+        rng = np.random.default_rng(3)
+        for p in rec.points3D.values():
+            p.xyz = p.xyz + rng.normal(scale=0.05, size=3)
+        _run_cli(rec, f"{n_img} images", 20, kernels, other)
 
 
 def _time_ms(fn, reps):
@@ -350,20 +610,25 @@ def _time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def _bounds(statics, lays, opt):
-    """Least time of each kernel's work in one LM iteration (all
-    buckets): max(bytes / HBM rate, flops / f32 rate). Bytes count each
-    input the kernel needs once and each output once. Per-observation
-    inputs are charged on the live lanes only, plus one read of the mask
-    row over all lanes (padding lanes need nothing else); K1's `jw` is
-    charged over all lanes, since its shape is the interface's. Flops
-    are counted from the kernel source per live observation, plus the
-    data-dependent S_corr outer products of this run's tracks."""
+def _bounds(statics, lays, opt, kernels):
+    """Least time of each kernel's work in one pass over all buckets (one
+    LM iteration; one CG iteration for K3): max(bytes / HBM rate, flops /
+    f32 rate). Bytes count each input the kernel needs once and each
+    output once. Per-observation inputs are charged on the live lanes
+    only, plus one read of the mask row over all lanes (padding lanes
+    need nothing else); K1's/K2's `jw` and K2's `jcorr` are charged over
+    all lanes, since their shapes are the interface's. Flops are counted
+    from the kernel source per live observation, plus, for K1, the
+    data-dependent S_corr outer products of this run's tracks. Returns
+    {name: (ms, "bytes" or "operations")} for the named kernels."""
     import numpy as np
+    import torch
+
+    from sba_tpu_torch.ops import ba_kernels as bk
 
     out = {}
-    b1 = b4 = b5 = 0.0
-    f1 = f4 = f5 = 0.0
+    b1 = b2 = b3 = b4 = b5 = 0.0
+    f1 = f2 = f3 = f4 = f5 = 0.0
     for st, lay in zip(statics, lays):
         O, Pp, NP = lay.Pp * lay.K, lay.Pp, lay.nparams
         mask = st.obs_sta[2].cpu().numpy() > 0
@@ -371,15 +636,28 @@ def _bounds(statics, lays, opt):
         imgs = st.obs_img.cpu().numpy().reshape(lay.nb, lay.K, lay.TP)
         cams = st.obs_cam.cpu().numpy().reshape(lay.nb, lay.K, lay.TP)
         m3 = mask.reshape(lay.nb, lay.K, lay.TP)
+        par_b = (7 + NP) * lay.Npad * 4
+        mask_b = O * 4
+        # K2 reads what K1 reads; writes the implicit image payload, the
+        # point payload, jw and jcorr (whole [JCW, O'] store).
+        jc_bytes = 2 if bk.jcorr_dtype(lay, opt) == torch.bfloat16 else 4
+        b2 += (par_b + (4 + NP) * lay.Npad * 4 + 4 * Pp * 4 + mask_b
+               + 4 * live * 4 + lay.Npad * lay.DI_implicit * 4
+               + 19 * Pp * 4 + lay.JW * O * 4 + lay.JCW * O * jc_bytes)
+        f2 += live * (120 + 30 + 3 * lay.DI_implicit + (6 + NP) * 22)
+        # K3 (one matvec) reads the coupling rows, image and camera of
+        # each live lane and the du tables; writes [Npad, 6+np].
+        b3 += (6 * lay.Npad * 4 + 12 * lay.C * 4 + mask_b
+               + (3 * (6 + NP) * jc_bytes + 2 * 4) * live
+               + lay.Npad * (6 + NP) * 4)
+        f3 += live * (3 * (6 + NP) * 2 + (6 + NP) * 6)
         rows = 0.0
-        for b in range(lay.nb):
+        for b in range(lay.nb if "fused_schur" in kernels else 0):
             for p in range(lay.TP):
                 sel = m3[b, :, p]
                 ni = len(np.unique(imgs[b, sel, p]))
                 nc = len(np.unique(cams[b, sel, p]))
                 rows += (6 * ni + NP * nc) ** 2
-        par_b = (7 + NP) * lay.Npad * 4
-        mask_b = O * 4
         # K1 reads x, y, image and camera of each live lane; writes S,
         # the image payload, Ey, the point payload and jw.
         b1 += (par_b + (4 + NP) * lay.Npad * 4 + 4 * Pp * 4 + mask_b
@@ -395,15 +673,26 @@ def _bounds(statics, lays, opt):
         # K5 reads x, y and image of each live lane.
         b5 += par_b + 3 * Pp * 4 + mask_b + 3 * live * 4
         f5 += live * 60
-    for name, by, fl in (("fused_schur", b1, f1), ("backsub", b4, f4),
+    for name, by, fl in (("fused_schur", b1, f1), ("fused_reduce", b2, f2),
+                         ("schur_matvec", b3, f3), ("backsub", b4, f4),
                          ("fused_cost", b5, f5)):
+        if name not in kernels:
+            continue
         t_b, t_f = by / HBM_BYTES_PER_S, fl / F32_FLOPS_PER_S
         out[name] = (max(t_b, t_f) * 1e3,
                      "bytes" if t_b >= t_f else "operations")
     return out
 
 
+def _kernel_row(name, launches, errs, ms, plain_ms, bound):
+    return dict(name=name, route="cuda", source=SOURCE,
+                replaces=REPLACES[name], launches=launches[name],
+                max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+                bound_ms=bound[0], bound_by=bound[1], library_ms=None)
+
+
 def phase_timing(ctx, launches, errs):
+    """K1/K4/K5 at the headline: ms per LM iteration (all buckets)."""
     import torch
 
     from sba_tpu_torch.ops import ba_kernels as bk
@@ -439,24 +728,69 @@ def phase_timing(ctx, launches, errs):
             run(lambda st, lay, p, o: bk.fused_cost_plain(st, par, p, lay,
                                                           opt))),
     }
-    bounds = _bounds(statics, lays, opt)
-    rows = []
+    bounds = _bounds(statics, lays, opt, tuple(fns))
+    rows = {}
     for name, (kern, plain) in fns.items():
         ms = _time_ms(kern, 20)
         plain_ms = _time_ms(plain, 3)
-        bound_ms, bound_by = bounds[name]
-        rows.append(dict(
-            name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
-            launches=launches[name], max_abs_err=errs[name], ms=ms,
-            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=None))
+        rows[name] = _kernel_row(name, launches, errs, ms, plain_ms,
+                                 bounds[name])
         log("timing", f"{name}: {ms:.4f} ms per LM iteration "
             f"({len(groups)} bucket launches), twin {plain_ms:.3f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by})")
+            f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]})")
     return rows
 
 
-def phase_profile(ctx):
+def phase_timing_implicit(ctx, launches, errs, k3_per_it):
+    """K2 and K3 at the 1024-image scene: K2 per LM iteration, K3 per
+    matvec (one CG iteration; all buckets each)."""
+    import torch
+
+    from sba_tpu_torch.ops import ba_kernels as bk
+
+    statics, lays, pts0, _, prob, opt, _ = ctx
+    par = bk.pack_params(prob.qvecs, prob.tvecs, prob.cam_params,
+                         statics[0].image_cam, lays[0])
+    lam = torch.tensor(1e-3, dtype=torch.float32, device="cuda")
+    lay0 = lays[0]
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    dup = torch.zeros(6, lay0.Npad)
+    dup[:, :lay0.N] = 1e-3 * torch.randn(6, lay0.N, generator=gen)
+    dup = dup.cuda()
+    duc = 1e-2 * torch.randn(12, lay0.C, generator=gen).cuda()
+    jcs = [bk.fused_reduce(st, par, p, lam, lay, opt)[3]
+           for st, lay, p in zip(statics, lays, pts0)]
+    groups = list(zip(statics, lays, pts0, jcs))
+    fns = {
+        "fused_reduce": (
+            lambda: [bk.fused_reduce(st, par, p, lam, lay, opt)
+                     for st, lay, p, _ in groups],
+            lambda: [bk.fused_reduce_plain(st, par, p, lam, lay, opt)
+                     for st, lay, p, _ in groups]),
+        "schur_matvec": (
+            lambda: [bk.schur_matvec(st, dup, duc, jc, lay, opt)
+                     for st, lay, _, jc in groups],
+            lambda: [bk.schur_matvec_plain(st, dup, duc, jc, lay, opt)
+                     for st, lay, _, jc in groups]),
+    }
+    bounds = _bounds(statics, lays, opt, tuple(fns))
+    rows = {}
+    for name, (kern, plain) in fns.items():
+        ms = _time_ms(kern, 20)
+        plain_ms = _time_ms(plain, 3)
+        rows[name] = _kernel_row(name, launches, errs, ms, plain_ms,
+                                 bounds[name])
+        unit = "LM iteration" if name == "fused_reduce" else "matvec"
+        log("timing", f"{name} (1024 img): {ms:.4f} ms per {unit} "
+            f"({len(groups)} bucket launches), twin {plain_ms:.3f} ms, "
+            f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]})")
+    log("timing", f"schur_matvec per LM iteration of the 1024-image solve: "
+        f"{k3_per_it:.1f} matvecs x {rows['schur_matvec']['ms']:.4f} ms = "
+        f"{k3_per_it * rows['schur_matvec']['ms']:.3f} ms")
+    return rows
+
+
+def phase_profile(ctx, label):
     """Device time by kernel over one warm solve (torch.profiler). Busy
     time sums the device-side events only (kernels, copies, sets): an
     aten op's own device total repeats the kernels it launched."""
@@ -482,14 +816,14 @@ def phase_profile(ctx):
 
     busy = sum(dev_us(e) for e in kernels)
     if busy <= 0:
-        log("profile", "the profiler saw no device time: busy share not "
-            "measured")
-        return
+        log("profile", f"{label}: the profiler saw no device time: busy "
+            "share not measured")
+        return None
     ours = sum(dev_us(e) for e in kernels
-               if re.search(r"\bk[145]_\w+_kernel", e.key))
+               if re.search(r"\bk[1-5]_\w+_kernel", e.key))
     its = s.num_iterations
-    log("profile", f"{its} LM it: device time {busy / 1e3:.2f} ms = "
-        f"{busy / 1e3 / its:.3f} ms/it; K1/K4/K5 kernels "
+    log("profile", f"{label}, {its} LM it: device time {busy / 1e3:.2f} ms "
+        f"= {busy / 1e3 / its:.3f} ms/it; our CUDA kernels "
         f"{ours / 1e3 / its:.3f} ms/it, all other device work "
         f"{(busy - ours) / 1e3 / its:.3f} ms/it (profiled wall "
         f"{wall_us / 1e3:.1f} ms, inflated by the profiler)")
@@ -497,6 +831,13 @@ def phase_profile(ctx):
         log("profile", f"{dev_us(e) / 1e3:8.3f} ms {e.count:6d}x "
             f"{e.key[:70]}")
     return busy / its
+
+
+def _log_busy(label, dev_us_per_it, ms_per_it):
+    if dev_us_per_it:
+        log("profile", f"{label}: device busy {dev_us_per_it / 1e3:.3f} ms "
+            f"of the {ms_per_it:.3f} ms warm LM iteration = "
+            f"{100 * dev_us_per_it / 1e3 / ms_per_it:.1f}%")
 
 
 def main() -> int:
@@ -511,23 +852,33 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     log("start", f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
-    phase_build()
-    errs = phase_twins()
-    launches, ctx, ms_per_it = phase_main()
-    phase_cli()
-    rows = phase_timing(ctx, launches, errs)
-    dev_us_per_it = phase_profile(ctx)
-    if dev_us_per_it:
-        log("profile", f"device busy {dev_us_per_it / 1e3:.3f} ms of the "
-            f"{ms_per_it:.3f} ms warm LM iteration = "
-            f"{100 * dev_us_per_it / 1e3 / ms_per_it:.1f}%")
+    def run(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        log(name, f"phase done in {time.perf_counter() - t:.1f} s")
+        return out
+
+    run("build", phase_build)
+    errs = run("twins", phase_twins)
+    run("twins-implicit", phase_twins_implicit, errs)
+    launches, ctx, ms_per_it = run("main", phase_main)
+    launches_i, ctx_i, ms_per_it_i, k3_per_it = run("main-implicit",
+                                                    phase_main_implicit)
+    run("large-ranged", phase_large_ranged)
+    run("cli", phase_cli)
+    rows = run("timing", phase_timing, ctx, launches, errs)
+    rows.update(run("timing", phase_timing_implicit, ctx_i, launches_i,
+                    errs, k3_per_it))
+    for label, c, ms in (("headline (dense)", ctx, ms_per_it),
+                         ("1024 images (implicit)", ctx_i, ms_per_it_i)):
+        _log_busy(label, run("profile", phase_profile, c, label), ms)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()
     require(bool(smi), "nvidia-smi printed nothing")
     log("done", f"all phases passed in {time.perf_counter() - T0:.1f} s")
-    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"kernels": [rows[k] for k in REPLACES]}), flush=True)
     print(smi[0], flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,6 +3,8 @@
 // Hand-written CUDA replacements of the Pallas TPU kernels of
 // sba_tpu/ops/ba_kernels.py:
 //   K1 sba_fused_schur  <- fused_schur   (_fused_schur_kernel)
+//   K2 sba_fused_reduce <- fused_reduce  (_fused_reduce_kernel)
+//   K3 sba_schur_matvec <- schur_matvec  (_schur_matvec_kernel)
 //   K4 sba_backsub      <- backsub       (_backsub_kernel)
 //   K5 sba_fused_cost   <- fused_cost    (_cost_kernel)
 // The Python wrappers (sba_tpu_torch/ops/ba_kernels.py) check shapes,
@@ -226,39 +228,61 @@ __device__ void block_atomic_add(float (&v)[NV], float* out) {
   }
 }
 
+// K1 and K2 share their arguments; K1 leaves bj, jcorr_bf16, JCW and
+// jcorr unused, K2 leaves schur_bf16, Dk, S and ey unused.
 struct K1Args {
   int loss, schur_bf16, TP, K, Pp, Npad, C, Dk;
+  int bj, jcorr_bf16, JCW;
   float a2;
   const float *lam, *par, *free_sta, *pts, *free_pts, *obs_sta;
   const int *obs_img, *obs_cam;
   float *S, *img_red, *ey, *pt_pay, *jw;
+  void* jcorr;
 };
 
+__device__ inline float dot3(const float a[3], const float b[3]) {
+  return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
+}
+
 // ---------------------------------------------------------------------------
-// K1a: linearize + reduce, one thread per point.
+// K1a / K2: linearize + reduce, one thread per point.
 //
-// Replaces the linearize/reduce half of fused_schur
+// K1a replaces the linearize/reduce half of fused_schur
 // (_linearize_and_reduce): per observation the residual and analytic
 // Jacobians; per point g_p, Hpp, the damped Hpp^-1 and its Cholesky Lp;
 // the whitened couplings WL = (Ju^T Jx) Lp; per image the g/H payload
 // and Ey = EL (Lp^T g_p). On the TPU the per-image reductions are
 // one-hot MXU contractions; here they are atomics into img_red / ey.
-// Bound: device memory. The kernel writes jw (JW rows per observation,
-// ~47 MB at 128 images / 30k points), reads it back once for the
+//
+// With Implicit (K2, replacing fused_reduce / _fused_reduce_kernel) the
+// same body writes no Ey vector: each live observation adds its Ey rows
+// (ey_pose 6, ey_cam NP) and its share of the PCG preconditioner (the
+// 6x6 pose block of WL WL^T as 21 upper-triangle rows when bj, else its
+// 6 diagonal entries, then the NP camera diagonal entries) to the image
+// payload row of its image, behind the dense payload columns; the
+// epilogue sums the camera rows by camera. It also stores the couplings
+// once more as `jcorr` (WLp 18 rows, WLc 3*NP rows, zero rows to JCW),
+// f32 or bf16 rounded to nearest even, for the matvec K3.
+//
+// Bound: device memory. The kernel writes jw (JW rows per observation),
+// and for K2 jcorr, reads jw's Jacobian rows back once for the
 // whitening pass, and reads the observation rows once; the arithmetic
 // per byte is low. Design: lanes are laid out so that a warp's accesses
 // to each row are contiguous; the second pass re-reads the Jacobian
 // rows this thread just wrote (L1/L2-resident) instead of keeping K
-// slots in registers.
+// slots in registers. Every image-payload term is a float atomic; on a
+// sequential scene the threads of a block see few images, so these
+// atomics contend (correct, slow; not addressed here).
 // ---------------------------------------------------------------------------
 
-template <int M>
+template <int M, bool Implicit>
 __global__ void __launch_bounds__(kThreads) k1_linearize_kernel(K1Args a) {
   constexpr int NP = Head<M>::NP;
   constexpr int DI = 42 + 7 * NP + NP * NP;
   constexpr int kJk = 18, kWLp = 18 + 2 * NP, kWLc = 36 + 2 * NP;
   const int pt = blockIdx.x * blockDim.x + threadIdx.x;
   if (pt >= a.Pp) return;
+  const int stride = Implicit ? DI + 6 + 2 * NP + (a.bj ? 21 : 6) : DI;
   const int64_t O = (int64_t)a.Pp * a.K;
   const int64_t base = (int64_t)(pt / a.TP) * a.TP * a.K + pt % a.TP;
   const float x[3] = {a.pts[pt], a.pts[a.Pp + pt], a.pts[2 * a.Pp + pt]};
@@ -285,7 +309,7 @@ __global__ void __launch_bounds__(kThreads) k1_linearize_kernel(K1Args a) {
     H[4] += Jx[1] * Jx[2] + Jx[4] * Jx[5];
     H[5] += Jx[2] * Jx[2] + Jx[5] * Jx[5];
     if (mask == 0.f) continue;  // every payload term of this lane is 0
-    float* row = a.img_red + (int64_t)n * DI;
+    float* row = a.img_red + (int64_t)n * stride;
     int o = 0;
     for (int i = 0; i < 6; ++i)
       atomicAdd(row + o++, Jc[i] * r[0] + Jc[6 + i] * r[1]);
@@ -332,7 +356,10 @@ __global__ void __launch_bounds__(kThreads) k1_linearize_kernel(K1Args a) {
   const float y[3] = {L[0] * g[0] + L[1] * g[1] + L[2] * g[2],
                       L[3] * g[1] + L[4] * g[2], L[5] * g[2]};
 
-  // ---- whitened couplings WL = W Lp and the RHS coupling Ey ----
+  // ---- whitened couplings WL = W Lp, then Ey (K1) or the implicit
+  // payload and jcorr (K2) ----
+  float* jc32 = static_cast<float*>(a.jcorr);
+  __nv_bfloat16* jc16 = static_cast<__nv_bfloat16*>(a.jcorr);
   for (int s = 0; s < a.K; ++s) {
     const int64_t c = base + (int64_t)s * a.TP;
     const bool live = a.obs_sta[2 * O + c] != 0.f;
@@ -342,20 +369,44 @@ __global__ void __launch_bounds__(kThreads) k1_linearize_kernel(K1Args a) {
     for (int i = 0; i < 2 * NP; ++i)
       Jk[i] = live ? a.jw[(kJk + i) * O + c] : 0.f;
     const int n = a.obs_img[c], cam = a.obs_cam[c];
+    float WL[6 + NP][3];  // rows i*3 + j: WLp (i < 6), then WLc
     for (int i = 0; i < 6 + NP; ++i) {
       float W[3];
       for (int j = 0; j < 3; ++j)
         W[j] = i < 6 ? Jc[i] * Jx[j] + Jc[6 + i] * Jx[3 + j]
                      : Jk[i - 6] * Jx[j] + Jk[NP + i - 6] * Jx[3 + j];
-      const float WL[3] = {W[0] * L[0] + W[1] * L[1] + W[2] * L[2],
-                           W[1] * L[3] + W[2] * L[4], W[2] * L[5]};
+      WL[i][0] = W[0] * L[0] + W[1] * L[1] + W[2] * L[2];
+      WL[i][1] = W[1] * L[3] + W[2] * L[4];
+      WL[i][2] = W[2] * L[5];
       const int row0 = i < 6 ? kWLp + i * 3 : kWLc + (i - 6) * 3;
-      for (int j = 0; j < 3; ++j) a.jw[(row0 + j) * O + c] = WL[j];
-      if (!live) continue;
-      const int64_t erow = i < 6 ? (int64_t)i * a.Npad + n
-                                 : 6LL * a.Npad + (int64_t)(i - 6) * a.C + cam;
-      atomicAdd(a.ey + erow, WL[0] * y[0] + WL[1] * y[1] + WL[2] * y[2]);
+      for (int j = 0; j < 3; ++j) a.jw[(row0 + j) * O + c] = WL[i][j];
     }
+    if (Implicit) {
+      for (int r = 0; r < a.JCW; ++r) {
+        const float v = r < 3 * (6 + NP) ? WL[r / 3][r % 3] : 0.f;
+        if (a.jcorr_bf16) jc16[r * O + c] = __float2bfloat16_rn(v);
+        else jc32[r * O + c] = v;
+      }
+    }
+    if (!live) continue;
+    if (!Implicit) {
+      for (int i = 0; i < 6 + NP; ++i) {
+        const int64_t erow = i < 6 ? (int64_t)i * a.Npad + n
+                                   : 6LL * a.Npad + (int64_t)(i - 6) * a.C + cam;
+        atomicAdd(a.ey + erow, dot3(WL[i], y));
+      }
+      continue;
+    }
+    float* row = a.img_red + (int64_t)n * stride + DI;
+    int o = 0;
+    for (int i = 0; i < 6 + NP; ++i) atomicAdd(row + o++, dot3(WL[i], y));
+    if (a.bj) {
+      for (int i = 0; i < 6; ++i)
+        for (int j = i; j < 6; ++j) atomicAdd(row + o++, dot3(WL[i], WL[j]));
+    } else {
+      for (int i = 0; i < 6; ++i) atomicAdd(row + o++, dot3(WL[i], WL[i]));
+    }
+    for (int m = 6; m < 6 + NP; ++m) atomicAdd(row + o++, dot3(WL[m], WL[m]));
   }
 }
 
@@ -454,8 +505,8 @@ __global__ void k1_schur_kernel(K1Args a) {
 template <int M>
 cudaError_t launch_fused_schur(const K1Args& a, cudaStream_t stream) {
   constexpr int NP = Head<M>::NP;
-  k1_linearize_kernel<M><<<(a.Pp + kThreads - 1) / kThreads, kThreads, 0,
-                           stream>>>(a);
+  k1_linearize_kernel<M, false><<<(a.Pp + kThreads - 1) / kThreads,
+                                  kThreads, 0, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t per_warp = (size_t)a.K * k1b_words_per_slot<NP>() * 4;
@@ -470,6 +521,83 @@ cudaError_t launch_fused_schur(const K1Args& a, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
   }
   k1_schur_kernel<NP><<<(a.Pp + wpb - 1) / wpb, 32 * wpb, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// K3: the implicit PCG's correction matvec, one thread per point.
+//
+// Replaces schur_matvec (_schur_matvec_kernel): for each point,
+// etu = EL^T p = sum over its live slots of WL^T (du_pose[:, img],
+// du_cam[:, cam]), then out[img, i] += WL[i] . etu for each live slot
+// (rows i < 6 pose, then NP camera rows keyed by image). WL comes from
+// the slim jcorr store (f32, or bf16 widened here). On the TPU the
+// gathers and the scatter are one-hot MXU contractions over a
+// sequential grid; here the gathers read the small du tables (cache
+// resident) by index and the scatter is float atomics.
+// Bound: device memory, one read of jcorr's 3*(6+NP) coupling rows and
+// the index and mask rows per lane; it runs once per CG iteration.
+// ---------------------------------------------------------------------------
+
+struct K3Args {
+  int TP, K, Pp, Npad, C;
+  const float *du_pose_t, *du_cam_t;
+  const void* jcorr;
+  const float* obs_sta;
+  const int *obs_img, *obs_cam;
+  float* out;
+};
+
+template <typename T> __device__ inline float widen(T v);
+template <> __device__ inline float widen<float>(float v) { return v; }
+template <> __device__ inline float widen<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <int NP, typename T>
+__global__ void __launch_bounds__(kThreads) k3_matvec_kernel(K3Args a) {
+  constexpr int DV = 6 + NP;
+  const int pt = blockIdx.x * blockDim.x + threadIdx.x;
+  if (pt >= a.Pp) return;
+  const T* jc = static_cast<const T*>(a.jcorr);
+  const int64_t O = (int64_t)a.Pp * a.K;
+  const int64_t base = (int64_t)(pt / a.TP) * a.TP * a.K + pt % a.TP;
+  float etu[3] = {0.f, 0.f, 0.f};
+  for (int s = 0; s < a.K; ++s) {
+    const int64_t c = base + (int64_t)s * a.TP;
+    if (a.obs_sta[2 * O + c] == 0.f) continue;
+    const int n = a.obs_img[c], cam = a.obs_cam[c];
+    for (int j = 0; j < 3; ++j) {
+      float vp = 0.f, vc = 0.f;
+      for (int i = 0; i < 6; ++i)
+        vp += widen<T>(jc[(i * 3 + j) * O + c]) * a.du_pose_t[i * a.Npad + n];
+      for (int m = 0; m < NP; ++m)
+        vc += widen<T>(jc[(18 + m * 3 + j) * O + c]) *
+              a.du_cam_t[m * a.C + cam];
+      etu[j] += vp + vc;
+    }
+  }
+  for (int s = 0; s < a.K; ++s) {
+    const int64_t c = base + (int64_t)s * a.TP;
+    if (a.obs_sta[2 * O + c] == 0.f) continue;
+    float* row = a.out + (int64_t)a.obs_img[c] * DV;
+    for (int i = 0; i < DV; ++i) {
+      const float w[3] = {widen<T>(jc[(i * 3) * O + c]),
+                          widen<T>(jc[(i * 3 + 1) * O + c]),
+                          widen<T>(jc[(i * 3 + 2) * O + c])};
+      atomicAdd(row + i, dot3(w, etu));
+    }
+  }
+}
+
+template <int NP>
+cudaError_t launch_schur_matvec(const K3Args& a, int bf16,
+                                cudaStream_t stream) {
+  const int blocks = (a.Pp + kThreads - 1) / kThreads;
+  if (bf16)
+    k3_matvec_kernel<NP, __nv_bfloat16><<<blocks, kThreads, 0, stream>>>(a);
+  else
+    k3_matvec_kernel<NP, float><<<blocks, kThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -616,13 +744,51 @@ int sba_fused_schur(int model, int loss, float loss_scale, int schur_bf16,
                     const float* obs_sta, const int* obs_img,
                     const int* obs_cam, float* S, float* img_red, float* ey,
                     float* pt_pay, float* jw, cudaStream_t stream) {
-  const K1Args a{loss, schur_bf16, TP, K, Pp, Npad, C, Dk,
+  const K1Args a{loss, schur_bf16, TP, K, Pp, Npad, C, Dk, 0, 0, 0,
                  loss_scale * loss_scale, lam, par, free_sta, pts, free_pts,
-                 obs_sta, obs_img, obs_cam, S, img_red, ey, pt_pay, jw};
+                 obs_sta, obs_img, obs_cam, S, img_red, ey, pt_pay, jw,
+                 nullptr};
   switch (model) {
     case 0: return launch_fused_schur<0>(a, stream);
     case 1: return launch_fused_schur<1>(a, stream);
     case 2: return launch_fused_schur<2>(a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+int sba_fused_reduce(int model, int loss, float loss_scale, int bj,
+                     int jcorr_bf16, int TP, int K, int Pp, int Npad, int C,
+                     int JCW, const float* lam, const float* par,
+                     const float* free_sta, const float* pts,
+                     const float* free_pts, const float* obs_sta,
+                     const int* obs_img, const int* obs_cam, float* img_red,
+                     float* pt_pay, float* jw, void* jcorr,
+                     cudaStream_t stream) {
+  const K1Args a{loss, 0, TP, K, Pp, Npad, C, 0, bj, jcorr_bf16, JCW,
+                 loss_scale * loss_scale, lam, par, free_sta, pts, free_pts,
+                 obs_sta, obs_img, obs_cam, nullptr, img_red, nullptr,
+                 pt_pay, jw, jcorr};
+  const int blocks = (Pp + kThreads - 1) / kThreads;
+  switch (model) {
+    case 0: k1_linearize_kernel<0, true><<<blocks, kThreads, 0, stream>>>(a); break;
+    case 1: k1_linearize_kernel<1, true><<<blocks, kThreads, 0, stream>>>(a); break;
+    case 2: k1_linearize_kernel<2, true><<<blocks, kThreads, 0, stream>>>(a); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+int sba_schur_matvec(int model, int jcorr_bf16, int TP, int K, int Pp,
+                     int Npad, int C, const float* du_pose_t,
+                     const float* du_cam_t, const void* jcorr,
+                     const float* obs_sta, const int* obs_img,
+                     const int* obs_cam, float* out, cudaStream_t stream) {
+  const K3Args a{TP, K, Pp, Npad, C, du_pose_t, du_cam_t, jcorr,
+                 obs_sta, obs_img, obs_cam, out};
+  switch (model) {
+    case 0: return launch_schur_matvec<3>(a, jcorr_bf16, stream);
+    case 1:
+    case 2: return launch_schur_matvec<4>(a, jcorr_bf16, stream);
     default: return cudaErrorInvalidValue;
   }
 }

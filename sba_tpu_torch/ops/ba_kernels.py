@@ -1,9 +1,9 @@
 """The bundle-adjustment LM kernels: CUDA wrappers and their plain twins.
 
-Port of ``sba_tpu/ops/ba_kernels.py`` kernels K1 `fused_schur`, K4
-`backsub` and K5 `fused_cost` (the implicit-path K2 `fused_reduce` and
-K3 `schur_matvec` are not ported yet). Each wrapper launches the
-hand-written kernel of ``csrc/ba_kernels.cu`` when its tensors are on
+Port of the five kernels of ``sba_tpu/ops/ba_kernels.py``: K1
+`fused_schur` (dense path), K2 `fused_reduce` and K3 `schur_matvec`
+(implicit path), K4 `backsub` and K5 `fused_cost`. Each wrapper launches
+the hand-written kernel of ``csrc/ba_kernels.cu`` when its tensors are on
 CUDA, and runs the plain PyTorch twin beside it only when they lie on
 the CPU. The twins repeat the kernels' arithmetic on whole lane arrays;
 their camera heads go through ``geometry.camera_models`` (all 11
@@ -17,11 +17,23 @@ Per-lane data is stored as ``[field, lane]`` rows.
 
 - ``par`` [7+np, Npad]: q(4), t(3), intrinsics(np) per image.
 - ``jw`` [JW, O']: Jc(12) | Jx(6) | Jk(2np) | WLp(18) | WLc(3np) per lane.
+- ``jcorr`` [JCW, O']: WLp(18) | WLc(3np) | zero rows, the implicit
+  matvec's coupling store; bfloat16 when `matvec_bf16` and `ranged`.
 - ``pt_pay`` [19, Pp]: g_p(3) | diag Hpp(3) | Hpp^-1(6) | Lp(6) | free(1).
 - ``img_red`` [Npad, DI]: g_pose(6) | Hcc_pose(36) | Hpc(6np) | g_cam(np)
-  | Hcc_cam(np^2) per image.
+  | Hcc_cam(np^2) per image; the implicit path's [Npad, DI_implicit]
+  adds ey_pose(6) | ey_cam(np) | the pose block of EL EL^T (21 upper
+  triangle rows when BJ, else its diagonal, 6) | its camera diagonal(np).
+  The camera rows are keyed by image; the epilogue sums them by camera.
 - ``S`` [Dk, Dk] / ``ey`` [Dk]: reduced rows ``i*Npad + n`` (pose i of
   image n) and ``6*Npad + m*C + c`` (intrinsic m of camera c).
+
+"Ranged" (Npad >= RANGED_MIN_NPAD, or forced by `fused_ranged`) is an
+indexing scheme of the TPU kernels: their per-block image-sub-block loops
+stand in for a one-hot contraction that no longer fits VMEM. The CUDA
+kernels gather and scatter by index at every size, so the port keeps the
+flag for its two effects on the numbers only: `jcorr` is bfloat16 iff
+`matvec_bf16 and ranged`, and a ranged layout forces the implicit solve.
 """
 
 from __future__ import annotations
@@ -41,8 +53,12 @@ CUDA_MODELS = (0, 1, 2)   # camera heads the CUDA kernels implement
 # memory (one warp per point).
 CUDA_MAX_K = 1024
 
+# The ranged regime starts here (see the module docstring).
+RANGED_MIN_NPAD = 2048
+
 # Launch counts of the CUDA kernels (a wrapper adds one per launch).
-LAUNCHES = {"fused_schur": 0, "backsub": 0, "fused_cost": 0}
+LAUNCHES = {"fused_schur": 0, "fused_reduce": 0, "schur_matvec": 0,
+            "backsub": 0, "fused_cost": 0}
 
 
 def reset_launches() -> None:
@@ -64,8 +80,18 @@ class KernelLayout(NamedTuple):
     C: int         # cameras
     nparams: int   # camera model parameter count
     Dk: int        # reduced dim: 6*Npad + round_up(12*C, 128)
-    DI: int        # image payload columns
+    DI: int        # image payload columns (dense path)
     JW: int        # stored per-lane rows
+    ranged: bool   # bf16 jcorr (with matvec_bf16) and implicit solve
+    BJ: bool       # implicit payload carries the 6x6 pose block (else
+    #                its diagonal): block- vs scalar-Jacobi PCG
+    JCW: int       # jcorr rows: 18 + 3np, padded to 16 as the reference
+
+    @property
+    def DI_implicit(self) -> int:
+        """Image payload columns of the implicit path."""
+        return (self.DI + 6 + 2 * self.nparams
+                + (21 if self.BJ else 6))
 
 
 class KernelStatic(NamedTuple):
@@ -102,10 +128,22 @@ def plan_layout(problem, opt, TP: int = 128) -> KernelLayout:
     nparams = camera_models.model_by_id(opt.model_id).num_params
     Pp = _round_up(P, TP)
     Npad = _round_up(N, 128)
+    base = 42 + 7 * nparams + nparams * nparams
+    mode = opt.fused_ranged
+    # BJ: the reference's rule against its 128-padded payload width.
     return KernelLayout(
         TP=TP, K=K, nb=Pp // TP, Pp=Pp, N=N, Npad=Npad, C=C,
         nparams=nparams, Dk=6 * Npad + _round_up(12 * C, 128),
-        DI=42 + 7 * nparams + nparams * nparams, JW=36 + 5 * nparams)
+        DI=base, JW=36 + 5 * nparams,
+        ranged=mode == "on" or (mode == "auto" and Npad >= RANGED_MIN_NPAD),
+        BJ=base + 27 + 2 * nparams <= _round_up(base, 128),
+        JCW=_round_up(18 + 3 * nparams, 16))
+
+
+def jcorr_dtype(lay: KernelLayout, opt):
+    """The coupling store's type: bfloat16 iff matvec_bf16 and ranged."""
+    return torch.bfloat16 if (opt.matvec_bf16 and lay.ranged) \
+        else torch.float32
 
 
 def build_static(problem, opt, lay: KernelLayout, device) -> KernelStatic:
@@ -317,9 +355,10 @@ def _whiten(Wrow, L):
             Wrow[2] * L[5]]
 
 
-def fused_schur_plain(static, par, pts, lam, lay: KernelLayout, opt):
-    """Plain twin of K1; see `fused_schur`."""
-    nparams, Npad, C = lay.nparams, lay.Npad, lay.C
+def _reduce_lanes(static, par, pts, lam, lay: KernelLayout, opt):
+    """The linearize-and-reduce body shared by K1 and K2: point payload,
+    whitened couplings, the dense image payload rows per lane and jw."""
+    nparams = lay.nparams
     r, Jc, Jx, Jk = _linearize_lanes(static, par, pts, lay, opt)
 
     g_pts = _slot_sum(torch.stack([Jx[j] * r[0] + Jx[3 + j] * r[1]
@@ -355,10 +394,33 @@ def fused_schur_plain(static, par, pts, lam, lay: KernelLayout, opt):
     pay += [Jk[m] * r[0] + Jk[nparams + m] * r[1] for m in range(nparams)]
     pay += [Jk[m] * Jk[m2] + Jk[nparams + m] * Jk[nparams + m2]
             for m in range(nparams) for m2 in range(nparams)]
-    img_red = torch.zeros(Npad, lay.DI, dtype=torch.float32,
-                          device=par.device).index_add_(
-        0, static.obs_img.long(), torch.stack(pay).T)
     jw = torch.cat([Jc, Jx, Jk, WLp, WLc])
+    # y = Lp^T g_p per point [3, Pp], the point side of Ey = EL y.
+    y = torch.stack([Lp[0] * g_pts[0] + Lp[1] * g_pts[1] + Lp[2] * g_pts[2],
+                     Lp[3] * g_pts[1] + Lp[4] * g_pts[2],
+                     Lp[5] * g_pts[2]])
+    return pay, pt_pay, jw, WLp, WLc, y
+
+
+def _dot3(a, i, b):
+    """sum_j a[i*3 + j] * b[j] over lane rows, left to right."""
+    return a[i * 3] * b[0] + a[i * 3 + 1] * b[1] + a[i * 3 + 2] * b[2]
+
+
+def _image_sum(rows, static, lay, width):
+    """Per-lane rows (a list of [O'] tensors) summed into [Npad, width]
+    by observing image."""
+    out = torch.zeros(lay.Npad, width, dtype=torch.float32,
+                      device=rows[0].device)
+    return out.index_add_(0, static.obs_img.long(), torch.stack(rows).T)
+
+
+def fused_schur_plain(static, par, pts, lam, lay: KernelLayout, opt):
+    """Plain twin of K1; see `fused_schur`."""
+    nparams, Npad, C = lay.nparams, lay.Npad, lay.C
+    pay, pt_pay, jw, WLp, WLc, y = _reduce_lanes(static, par, pts, lam,
+                                                  lay, opt)
+    img_red = _image_sum(pay, static, lay, lay.DI)
 
     # Dense whitened coupling EL [Dk, 3*Pp] (column p*3 + j), summed over
     # the slots of a point before the optional bf16 rounding.
@@ -380,11 +442,46 @@ def fused_schur_plain(static, par, pts, lam, lay: KernelLayout, opt):
     EL_mm = (EL.to(torch.bfloat16).to(torch.float32)
              if opt.schur_bf16 else EL)
     s_corr = EL_mm @ EL_mm.T
-    y = torch.stack([Lp[0] * g_pts[0] + Lp[1] * g_pts[1] + Lp[2] * g_pts[2],
-                     Lp[3] * g_pts[1] + Lp[4] * g_pts[2],
-                     Lp[5] * g_pts[2]])                           # [3, Pp]
     ey = EL @ y.T.reshape(-1)
     return s_corr, img_red, ey, pt_pay, jw
+
+
+def fused_reduce_plain(static, par, pts, lam, lay: KernelLayout, opt):
+    """Plain twin of K2; see `fused_reduce`."""
+    nparams = lay.nparams
+    pay, pt_pay, jw, WLp, WLc, y = _reduce_lanes(static, par, pts, lam,
+                                                  lay, opt)
+    yB = _tile(y, lay)
+    pay += [_dot3(WLp, i, yB) for i in range(6)]                  # ey_pose
+    pay += [_dot3(WLc, m, yB) for m in range(nparams)]            # ey_cam
+    if lay.BJ:                                                    # 6x6 tri
+        pay += [_dot3(WLp, i, WLp[j * 3:j * 3 + 3])
+                for i in range(6) for j in range(i, 6)]
+    else:                                                         # diag
+        pay += [_dot3(WLp, i, WLp[i * 3:i * 3 + 3]) for i in range(6)]
+    pay += [_dot3(WLc, m, WLc[m * 3:m * 3 + 3]) for m in range(nparams)]
+    img_red = _image_sum(pay, static, lay, lay.DI_implicit)
+    pad = torch.zeros(lay.JCW - 18 - 3 * nparams, WLp.shape[1],
+                      dtype=torch.float32, device=par.device)
+    jcorr = torch.cat([WLp, WLc, pad]).to(jcorr_dtype(lay, opt))
+    return img_red, pt_pay, jw, jcorr
+
+
+def schur_matvec_plain(static, du_pose_t, du_cam_t, jcorr,
+                       lay: KernelLayout, opt):
+    """Plain twin of K3; see `schur_matvec`."""
+    nparams = lay.nparams
+    du_p = du_pose_t[:, static.obs_img.long()]                   # [6, O']
+    du_c = du_cam_t[:, static.obs_cam.long()]                    # [12, O']
+    jc = jcorr.float()
+    WLp, WLc = jc[0:18], jc[18:18 + 3 * nparams]
+    etu = _slot_sum(torch.stack([
+        sum(WLp[i * 3 + j] * du_p[i] for i in range(6))
+        + sum(WLc[m * 3 + j] * du_c[m] for m in range(nparams))
+        for j in range(3)]), lay)
+    etuB = _tile(etu, lay)
+    pay = [_dot3(jc, i, etuB) for i in range(6 + nparams)]
+    return _image_sum(pay, static, lay, 6 + nparams)
 
 
 def backsub_plain(static, du_pose_t, du_cam_t, pt_pay, jw, lam,
@@ -510,6 +607,76 @@ def fused_schur(static: KernelStatic, par, pts, lam, lay: KernelLayout,
     cuda_build.check(err, "sba_fused_schur")
     LAUNCHES["fused_schur"] += 1
     return s_corr, img_red, ey, pt_pay, jw
+
+
+def fused_reduce(static: KernelStatic, par, pts, lam, lay: KernelLayout,
+                 opt):
+    """K2: K1's linearize and reduce without S_corr, for the implicit
+    path. The image payload also carries the Ey rows and the Jacobi
+    blocks of EL EL^T (module docstring), and the couplings are stored
+    once more in the slim `jcorr` for the PCG matvec K3.
+
+    Returns (img_red [Npad, DI_implicit], pt_pay [19, Pp],
+    jw [JW, O'], jcorr [JCW, O'] f32 or bf16). `lam` is 0-d float32.
+    """
+    if not par.is_cuda:
+        return fused_reduce_plain(static, par, pts, lam, lay, opt)
+    _check_model(opt)
+    _check_static(static, lay)
+    _check(par, "par", (7 + lay.nparams, lay.Npad))
+    _check(pts, "pts", (3, lay.Pp))
+    _check(lam, "lam", ())
+    dev = par.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    img_red = torch.zeros(lay.Npad, lay.DI_implicit, **f32)
+    pt_pay = torch.empty(PT_ROWS, lay.Pp, **f32)
+    jw = torch.empty(lay.JW, lay.Pp * lay.K, **f32)
+    jc_type = jcorr_dtype(lay, opt)
+    jcorr = torch.empty(lay.JCW, lay.Pp * lay.K, dtype=jc_type, device=dev)
+    err = cuda_build.lib().sba_fused_reduce(
+        opt.model_id, LOSS_IDS[opt.loss], opt.loss_scale, int(lay.BJ),
+        int(jc_type == torch.bfloat16), lay.TP, lay.K, lay.Pp, lay.Npad,
+        lay.C, lay.JCW, lam.data_ptr(), par.data_ptr(),
+        static.free_sta.data_ptr(), pts.data_ptr(),
+        static.free_pts.data_ptr(), static.obs_sta.data_ptr(),
+        static.obs_img.data_ptr(), static.obs_cam.data_ptr(),
+        img_red.data_ptr(), pt_pay.data_ptr(), jw.data_ptr(),
+        jcorr.data_ptr(), _stream())
+    cuda_build.check(err, "sba_fused_reduce")
+    LAUNCHES["fused_reduce"] += 1
+    return img_red, pt_pay, jw, jcorr
+
+
+def schur_matvec(static: KernelStatic, du_pose_t, du_cam_t, jcorr,
+                 lay: KernelLayout, opt):
+    """K3: the implicit PCG's correction matvec over one bucket,
+    out[img, :] += EL (EL^T p) per point, read from `jcorr`.
+
+    p arrives as (du_pose_t [6, Npad], du_cam_t [12, C]). Returns
+    [Npad, 6+np] f32: pose rows, then camera rows keyed by image (the
+    epilogue sums them by camera). The reference pads the columns to 128
+    lanes; the port does not.
+    """
+    if not jcorr.is_cuda:
+        return schur_matvec_plain(static, du_pose_t, du_cam_t, jcorr, lay,
+                                  opt)
+    _check_model(opt)
+    _check_static(static, lay)
+    _check(du_pose_t, "du_pose_t", (6, lay.Npad))
+    _check(du_cam_t, "du_cam_t", (12, lay.C))
+    jc_type = jcorr_dtype(lay, opt)
+    _check(jcorr, "jcorr", (lay.JCW, lay.Pp * lay.K), jc_type)
+    out = torch.zeros(lay.Npad, 6 + lay.nparams, dtype=torch.float32,
+                      device=jcorr.device)
+    err = cuda_build.lib().sba_schur_matvec(
+        opt.model_id, int(jc_type == torch.bfloat16), lay.TP, lay.K, lay.Pp,
+        lay.Npad, lay.C, du_pose_t.data_ptr(), du_cam_t.data_ptr(),
+        jcorr.data_ptr(), static.obs_sta.data_ptr(),
+        static.obs_img.data_ptr(), static.obs_cam.data_ptr(),
+        out.data_ptr(), _stream())
+    cuda_build.check(err, "sba_schur_matvec")
+    LAUNCHES["schur_matvec"] += 1
+    return out
 
 
 def backsub(static: KernelStatic, du_pose_t, du_cam_t, pt_pay, jw, lam,

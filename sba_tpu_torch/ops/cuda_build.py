@@ -84,6 +84,16 @@ _SIGNATURES = {
     "sba_fused_schur": [_I, _I, _F, _I, _I, _I, _I, _I, _I, _I,
                         _P, _P, _P, _P, _P, _P, _P, _P,
                         _P, _P, _P, _P, _P, _P],
+    # model, loss, loss_scale, bj, jcorr_bf16, TP, K, Pp, Npad, C, JCW,
+    # lam, par, free_sta, pts, free_pts, obs_sta, obs_img, obs_cam,
+    # img_red, pt_pay, jw, jcorr, stream
+    "sba_fused_reduce": [_I, _I, _F, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _P, _P, _P, _P, _P, _P, _P, _P,
+                         _P, _P, _P, _P, _P],
+    # model, jcorr_bf16, TP, K, Pp, Npad, C,
+    # du_pose_t, du_cam_t, jcorr, obs_sta, obs_img, obs_cam, out, stream
+    "sba_schur_matvec": [_I, _I, _I, _I, _I, _I, _I,
+                         _P, _P, _P, _P, _P, _P, _P, _P],
     # model, TP, K, Pp, Npad, C,
     # lam, du_pose_t, du_cam_t, pt_pay, jw, obs_sta, obs_img, obs_cam,
     # dp, acc, stream

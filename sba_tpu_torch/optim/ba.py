@@ -16,8 +16,9 @@ Port of the single-device part of ``sba_tpu/optim/ba.py``:
   loop with one host sync per iteration for the stopping test.
 
 `bundle_adjust` dispatches float32 problems on CUDA to the fused kernel
-path (optim/ba_fused.py) and everything else to the explicit step. The
-PCG, dense and COO step variants and the SPMD path are not ported yet.
+path (optim/ba_fused.py: dense Schur up to 128 images, implicit PCG
+above) and everything else to the explicit step. The PCG, dense and COO
+step variants and the SPMD path are not ported yet.
 """
 
 from __future__ import annotations
@@ -102,6 +103,11 @@ class BAOptions:
     # Inexact-Newton forcing for the reduced-system PCG of the fused path:
     # the trust region accepts/rejects every step against the true cost.
     cg_tolerance: float = 1e-2
+    # Warm-start the reduced-system PCG from the previous LM iteration's
+    # camera step, optimally rescaled against the new damped system (so
+    # it never starts worse than a cold start). Costs one extra matvec
+    # per LM iteration.
+    cg_warm_start: bool = False
     function_tolerance: float = 1e-8
     gradient_tolerance: float = 1e-12
     parameter_tolerance: float = 1e-10
@@ -117,9 +123,18 @@ class BAOptions:
     # Fused path: round the Schur-correction factors EL to bfloat16
     # before EL EL^T (f32 accumulation), as the TPU kernel does.
     schur_bf16: bool = True
+    # Implicit path: store the PCG matvec's whitened couplings in
+    # bfloat16 (the same rounded EL on both sides keeps the operator
+    # symmetric PSD). Applied only in the ranged regime.
+    matvec_bf16: bool = True
     # Fused reduced-system solve: "dense" (explicit S), "implicit" (PCG
-    # with a matvec kernel; not ported), "auto" switches on image count.
+    # whose matvec is the K3 kernel, S never formed), "auto" switches on
+    # image count (implicit above 128 images).
     fused_mode: str = "auto"
+    # Ranged regime: "auto" at Npad >= 2048 images, "on"/"off" force it.
+    # On the card it only selects bf16 couplings (with matvec_bf16) and
+    # forces the implicit solve (ops/ba_kernels.py docstring).
+    fused_ranged: str = "auto"
 
 
 class BASummary(NamedTuple):

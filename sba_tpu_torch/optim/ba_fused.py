@@ -1,8 +1,9 @@
 """Fused-kernel bundle adjustment: the single-device fast path.
 
-Port of the dense branch of ``sba_tpu/optim/ba_fused.py``. It drives the
-kernels of ops/ba_kernels.py inside the LM trust-region loop of
-optim/ba.py. Per LM iteration and per track-length bucket:
+Port of ``sba_tpu/optim/ba_fused.py``. It drives the kernels of
+ops/ba_kernels.py inside the LM trust-region loop of optim/ba.py. Per LM
+iteration and per track-length bucket, on the dense path (up to
+DENSE_MAX_IMAGES images):
 
   K1 `fused_schur`  -> per-image/point payloads, Schur correction
                        S_corr = EL EL^T, RHS coupling Ey, stored blocks
@@ -11,9 +12,19 @@ optim/ba.py. Per LM iteration and per track-length bucket:
   K4 `backsub`      -> point step dp + predicted-reduction sums
   K5 `fused_cost`   -> trial cost for accept/reject
 
+and on the implicit path (more images, or a ranged layout), where S is
+never formed:
+
+  K2 `fused_reduce` -> the payloads plus Ey and the Jacobi blocks of
+                       EL EL^T per image, and the coupling store jcorr
+  epilogue (plain torch) -> PCG over the (pose, camera) blocks
+                       (`_pcg_2block`) whose matvec runs
+                       K3 `schur_matvec` (EL (EL^T p) from jcorr) once
+                       per bucket per CG iteration
+  K4, K5            -> as above
+
 On CUDA tensors the kernels are the hand-written CUDA ones; on CPU
-tensors their plain twins. The implicit path for more than
-DENSE_MAX_IMAGES images (kernels K2/K3) is not ported and raises.
+tensors their plain twins.
 """
 
 from __future__ import annotations
@@ -34,6 +45,8 @@ MAX_BUCKETS = 3          # track-length buckets
 
 
 def use_implicit(lay, options: BAOptions) -> bool:
+    if lay.ranged:
+        return True   # as the reference: its dense kernel is not ranged
     if options.fused_mode == "dense":
         return False
     if options.fused_mode == "implicit":
@@ -49,13 +62,16 @@ def can_use_fused(problem: BAProblem, options: BAOptions) -> bool:
             and options.model_id in bk.CUDA_MODELS)
 
 
-def _solve_reduced(S, b, free, opt: BAOptions):
+def _solve_reduced(S, b, free, opt: BAOptions, x0=None):
     """Jacobi-preconditioned CG on the masked dense reduced system.
 
     Same stopping rule as the reference's while loop (at most
     opt.cg_iterations matvecs, relative residual opt.cg_tolerance). The
     updates are masked once converged, so the device runs a fixed trip
     count and the host checks for convergence every 8 iterations only.
+    `x0` warm-starts from the previous LM step (opt.cg_warm_start): the
+    seed is rescaled optimally against this system and its matvec
+    counts against opt.cg_iterations.
     """
     S = S * free[:, None] * free[None, :] + torch.diag(1.0 - free)
     b = b * free
@@ -63,13 +79,20 @@ def _solve_reduced(S, b, free, opt: BAOptions):
     dinv = 1.0 / torch.where(torch.abs(d) > 1e-30, d, torch.ones_like(d))
     bnorm2 = torch.clamp(torch.dot(b, b), min=1e-30)
     thresh = (opt.cg_tolerance ** 2) * bnorm2
-    x = torch.zeros_like(b)
-    r = b
+    x, r, i0 = torch.zeros_like(b), b, 0
+    if x0 is not None:
+        xi = x0 * free
+        Ax0 = S @ xi
+        s = torch.dot(b, Ax0) / torch.clamp(torch.dot(Ax0, Ax0), min=1e-30)
+        ok = torch.isfinite(s)
+        x = torch.where(ok, s * xi, torch.zeros_like(xi))
+        r = torch.where(ok, b - s * Ax0, b)
+        i0 = 1
     p = dinv * r
     rz = torch.dot(r, p)
-    for i in range(opt.cg_iterations):
+    for i in range(i0, opt.cg_iterations):
         active = torch.dot(r, r) > thresh
-        if i % 8 == 0 and not bool(active):
+        if (i - i0) % 8 == 0 and not bool(active):
             break
         Ap = S @ p
         alpha = rz / torch.clamp(torch.dot(p, Ap), min=1e-30)
@@ -82,6 +105,59 @@ def _solve_reduced(S, b, free, opt: BAOptions):
         r = torch.where(active, r_new, r)
         rz = torch.where(active, rz_new, rz)
     return x * free
+
+
+def _pcg_2block(matvec, b_pose, b_cam, prec_p, d_cam, opt: BAOptions,
+                x0=None):
+    """PCG over the (pose [N,6], camera [C,np]) block pair with an
+    implicit operator `matvec`. `prec_p` applies the pose preconditioner
+    (block-Jacobi [N,6,6] inverse or scalar Jacobi); the camera side is
+    scalar Jacobi on `d_cam`. Stopping rule, masking and the warm start
+    `x0 = (x0p, x0c)` as `_solve_reduced`."""
+    dinv_c = 1.0 / torch.where(d_cam > 1e-20, d_cam, torch.ones_like(d_cam))
+
+    def dot(xp, xc, yp, yc):
+        return torch.sum(xp * yp) + torch.sum(xc * yc)
+
+    bnorm2 = torch.clamp(dot(b_pose, b_cam, b_pose, b_cam), min=1e-30)
+    thresh = (opt.cg_tolerance ** 2) * bnorm2
+    xp, xc = torch.zeros_like(b_pose), torch.zeros_like(b_cam)
+    rp, rc, i0 = b_pose, b_cam, 0
+    if x0 is not None:
+        # The optimally scaled seed s x0 (s minimizes ||b - s A x0||) makes
+        # ||r0|| <= ||b||; a non-finite s (a rejected NaN step, or A x0
+        # overflowing) falls back to the cold start.
+        sp, sc = x0
+        Ap0, Ac0 = matvec(sp, sc)
+        s = (dot(b_pose, b_cam, Ap0, Ac0)
+             / torch.clamp(dot(Ap0, Ac0, Ap0, Ac0), min=1e-30))
+        ok = torch.isfinite(s)
+        xp = torch.where(ok, s * sp, xp)
+        xc = torch.where(ok, s * sc, xc)
+        rp = torch.where(ok, b_pose - s * Ap0, b_pose)
+        rc = torch.where(ok, b_cam - s * Ac0, b_cam)
+        i0 = 1
+    pp, pc = prec_p(rp), dinv_c * rc
+    rz = dot(rp, rc, pp, pc)
+    for i in range(i0, opt.cg_iterations):
+        active = dot(rp, rc, rp, rc) > thresh
+        if (i - i0) % 8 == 0 and not bool(active):
+            break
+        Ap_p, Ap_c = matvec(pp, pc)
+        alpha = rz / torch.clamp(dot(pp, pc, Ap_p, Ap_c), min=1e-30)
+        xp = torch.where(active, xp + alpha * pp, xp)
+        xc = torch.where(active, xc + alpha * pc, xc)
+        rp_new = rp - alpha * Ap_p
+        rc_new = rc - alpha * Ap_c
+        zp, zc = prec_p(rp_new), dinv_c * rc_new
+        rz_new = dot(rp_new, rc_new, zp, zc)
+        beta = rz_new / torch.clamp(rz, min=1e-30)
+        pp = torch.where(active, zp + beta * pp, pp)
+        pc = torch.where(active, zc + beta * pc, pc)
+        rp = torch.where(active, rp_new, rp)
+        rc = torch.where(active, rc_new, rc)
+        rz = torch.where(active, rz_new, rz)
+    return xp, xc
 
 
 def _bucketize(problem: dict, options: BAOptions, device):
@@ -150,72 +226,163 @@ def _bucketize(problem: dict, options: BAOptions, device):
 
 
 def _fused_step(statics, lays, opt, qvecs, tvecs, pts_list, cams, lam,
-                free_arrays):
+                free_arrays, warm=None):
     """One linearize + solve over all buckets. Returns (u_pose [N,6],
-    u_cam [C,12], dp_list (per-bucket [3, Pp]), predicted, g_inf)."""
+    u_cam [C,12], dp_list (per-bucket [3, Pp]), predicted, g_inf).
+    `warm = (u_pose [N,6], u_cam [C,np])` seeds the reduced solve."""
     lay0 = lays[0]
     N, C, Npad, Dk = lay0.N, lay0.C, lay0.Npad, lay0.Dk
     nparams = lay0.nparams
-    if use_implicit(lay0, opt):
-        raise NotImplementedError("implicit path: K2/K3 not yet ported")
     image_cam = statics[0].image_cam
+    implicit = use_implicit(lay0, opt)
     dev = qvecs.device
     f32 = dict(dtype=torch.float32, device=dev)
 
     par = bk.pack_params(qvecs, tvecs, cams, image_cam, lay0)
-    s_corr = torch.zeros(Dk, Dk, **f32)
-    img_red = torch.zeros(Npad, lay0.DI, **f32)
-    ey = torch.zeros(Dk, **f32)
     per_bucket = []
-    for static, lay, pts_b in zip(statics, lays, pts_list):
-        s_b, i_b, e_b, pt_pay, jw = bk.fused_schur(static, par, pts_b, lam,
-                                                   lay, opt)
-        s_corr += s_b
-        img_red += i_b
-        ey += e_b
-        per_bucket.append((pt_pay, jw))
+    if implicit:
+        img_red = torch.zeros(Npad, lay0.DI_implicit, **f32)
+        for static, lay, pts_b in zip(statics, lays, pts_list):
+            i_b, pt_pay, jw, jcorr = bk.fused_reduce(static, par, pts_b, lam,
+                                                     lay, opt)
+            img_red += i_b
+            per_bucket.append((pt_pay, jw, jcorr))
+    else:
+        s_corr = torch.zeros(Dk, Dk, **f32)
+        img_red = torch.zeros(Npad, lay0.DI, **f32)
+        ey = torch.zeros(Dk, **f32)
+        for static, lay, pts_b in zip(statics, lays, pts_list):
+            s_b, i_b, e_b, pt_pay, jw = bk.fused_schur(static, par, pts_b,
+                                                       lam, lay, opt)
+            s_corr += s_b
+            img_red += i_b
+            ey += e_b
+            per_bucket.append((pt_pay, jw, None))
 
     # ---- unpack the image payload ----
     ofs = np.cumsum([0, 6, 36, 6 * nparams, nparams, nparams * nparams])
     red = img_red[:N]
     icam = image_cam[:N].long()
+
+    def cam_sum(v):              # rows keyed by image -> by camera
+        return torch.zeros((C,) + v.shape[1:], **f32).index_add_(0, icam, v)
+
     g_pose = red[:, ofs[0]:ofs[1]]                          # [N, 6]
     Hcc_pose = red[:, ofs[1]:ofs[2]].reshape(N, 6, 6)
     Hpc_img = red[:, ofs[2]:ofs[3]].reshape(N, 6, nparams)
-    g_cam = torch.zeros(C, nparams, **f32).index_add_(
-        0, icam, red[:, ofs[3]:ofs[4]])
-    Hcc_cam = torch.zeros(C, nparams, nparams, **f32).index_add_(
-        0, icam, red[:, ofs[4]:ofs[5]].reshape(N, nparams, nparams))
+    g_cam = cam_sum(red[:, ofs[3]:ofs[4]])
+    Hcc_cam = cam_sum(red[:, ofs[4]:ofs[5]].reshape(N, nparams, nparams))
     d_pose_l = lam * torch.clamp(torch.diagonal(Hcc_pose, dim1=1, dim2=2),
                                  1e-6, 1e32)
     d_cam_l = lam * torch.clamp(torch.diagonal(Hcc_cam, dim1=1, dim2=2),
                                 1e-6, 1e32)
     free, free_pose, free_cam_np = free_arrays
 
-    # ---- assemble the reduced system in kernel coordinates ----
-    bi = (torch.arange(N, device=dev)[:, None]
-          + torch.arange(6, device=dev)[None, :] * Npad)      # [N, 6]
-    ci = (6 * Npad + torch.arange(C, device=dev)[:, None]
-          + torch.arange(nparams, device=dev)[None, :] * C)   # [C, np]
-    cam_cols = ci[icam]                                       # [N, np]
-    S = -s_corr
-    S.index_put_((bi[:, :, None], bi[:, None, :]), Hcc_pose, accumulate=True)
-    S.index_put_((ci[:, :, None], ci[:, None, :]), Hcc_cam, accumulate=True)
-    S.index_put_((bi[:, :, None], cam_cols[:, None, :]), Hpc_img,
-                 accumulate=True)
-    S.index_put_((cam_cols[:, :, None], bi[:, None, :]),
-                 Hpc_img.transpose(1, 2), accumulate=True)
-    d_l = torch.zeros(Dk, **f32)
-    d_l[bi.reshape(-1)] = d_pose_l.reshape(-1)
-    d_l[ci.reshape(-1)] = d_cam_l.reshape(-1)
-    S = S + torch.diag(d_l)
-    g_u = torch.zeros(Dk, **f32)
-    g_u[bi.reshape(-1)] = g_pose.reshape(-1)
-    g_u[ci.reshape(-1)] = g_cam.reshape(-1)
-    du = _solve_reduced(S, (-g_u + ey) * free, free, opt)
-    u_pose = du[:6 * Npad].reshape(6, Npad).T[:N] * free_pose
-    u_cam_np = (du[6 * Npad:6 * Npad + 12 * C].reshape(12, C).T[:, :nparams]
-                * free_cam_np)
+    if implicit:
+        # ---- implicit reduced solve: PCG whose matvec runs K3 ----
+        # S v = (H + D_lam) v - EL (EL^T v); EL is never formed.
+        o = ofs[5]
+        ey_pose = red[:, o:o + 6]                           # [N, 6]
+        ey_cam = cam_sum(red[:, o + 6:o + 6 + nparams])     # [C, np]
+        o += 6 + nparams
+        if lay0.BJ:
+            # The 6x6 pose block of EL EL^T (upper triangle) for
+            # block-Jacobi PCG.
+            iu, ju = np.triu_indices(6)
+            corr6 = torch.zeros(N, 6, 6, **f32)
+            corr6[:, iu, ju] = red[:, o:o + 21]
+            corr6[:, ju, iu] = red[:, o:o + 21]
+            o += 21
+        else:
+            dcorr_pose = red[:, o:o + 6]
+            o += 6
+        dcorr_cam = cam_sum(red[:, o:o + nparams])
+        vp_t = torch.zeros(6, Npad, **f32)     # K3's input layout
+        vc_t = torch.zeros(12, C, **f32)
+
+        def matvec(vp, vc):
+            vp = vp * free_pose
+            vc = vc * free_cam_np
+            hp = (torch.einsum("nij,nj->ni", Hcc_pose, vp)
+                  + torch.einsum("nip,np->ni", Hpc_img, vc[icam])
+                  + d_pose_l * vp)
+            hc = (cam_sum(torch.einsum("nip,ni->np", Hpc_img, vp))
+                  + torch.einsum("cpq,cq->cp", Hcc_cam, vc)
+                  + d_cam_l * vc)
+            vp_t[:, :N] = vp.T
+            vc_t[:nparams] = vc.T
+            corr = sum(bk.schur_matvec(static, vp_t, vc_t, jcorr, lay, opt)
+                       for static, lay, (_, _, jcorr)
+                       in zip(statics, lays, per_bucket))
+            hp = hp - corr[:N, :6]
+            hc = hc - cam_sum(corr[:N, 6:6 + nparams])
+            # gauge: identity on frozen coordinates
+            hp = hp * free_pose + (1.0 - free_pose) * vp
+            hc = hc * free_cam_np + (1.0 - free_cam_np) * vc
+            return hp, hc
+
+        b_pose = (-g_pose + ey_pose) * free_pose
+        b_cam = (-g_cam + ey_cam) * free_cam_np
+        diag_c = ((torch.diagonal(Hcc_cam, dim1=1, dim2=2) + d_cam_l
+                   - dcorr_cam) * free_cam_np + (1.0 - free_cam_np))
+        if lay0.BJ:
+            # Exact 6x6 diagonal blocks of the damped reduced system;
+            # frozen coordinates become identity rows and columns.
+            eye6 = torch.eye(6, **f32)[None]
+            F = free_pose
+            M = Hcc_pose - corr6 + eye6 * d_pose_l[:, None, :]
+            M = (M * F[:, :, None] * F[:, None, :]
+                 + eye6 * (1.0 - F)[:, :, None])
+            Minv = torch.linalg.inv(M)
+
+            def prec_p(r):
+                return torch.einsum("nij,nj->ni", Minv, r)
+        else:
+            diag_p = ((torch.diagonal(Hcc_pose, dim1=1, dim2=2) + d_pose_l
+                       - dcorr_pose) * free_pose + (1.0 - free_pose))
+            dinv_p = 1.0 / torch.where(diag_p > 1e-20, diag_p,
+                                       torch.ones_like(diag_p))
+
+            def prec_p(r):
+                return dinv_p * r
+        x0 = None if warm is None else (warm[0] * free_pose,
+                                        warm[1] * free_cam_np)
+        u_pose, u_cam_np = _pcg_2block(matvec, b_pose, b_cam, prec_p, diag_c,
+                                       opt, x0=x0)
+        u_pose = u_pose * free_pose
+        u_cam_np = u_cam_np * free_cam_np
+    else:
+        # ---- assemble the reduced system in kernel coordinates ----
+        bi = (torch.arange(N, device=dev)[:, None]
+              + torch.arange(6, device=dev)[None, :] * Npad)    # [N, 6]
+        ci = (6 * Npad + torch.arange(C, device=dev)[:, None]
+              + torch.arange(nparams, device=dev)[None, :] * C)  # [C, np]
+        cam_cols = ci[icam]                                     # [N, np]
+        S = -s_corr
+        S.index_put_((bi[:, :, None], bi[:, None, :]), Hcc_pose,
+                     accumulate=True)
+        S.index_put_((ci[:, :, None], ci[:, None, :]), Hcc_cam,
+                     accumulate=True)
+        S.index_put_((bi[:, :, None], cam_cols[:, None, :]), Hpc_img,
+                     accumulate=True)
+        S.index_put_((cam_cols[:, :, None], bi[:, None, :]),
+                     Hpc_img.transpose(1, 2), accumulate=True)
+        d_l = torch.zeros(Dk, **f32)
+        d_l[bi.reshape(-1)] = d_pose_l.reshape(-1)
+        d_l[ci.reshape(-1)] = d_cam_l.reshape(-1)
+        S = S + torch.diag(d_l)
+        g_u = torch.zeros(Dk, **f32)
+        g_u[bi.reshape(-1)] = g_pose.reshape(-1)
+        g_u[ci.reshape(-1)] = g_cam.reshape(-1)
+        x0 = None
+        if warm is not None:
+            x0 = torch.zeros(Dk, **f32)
+            x0[bi.reshape(-1)] = (warm[0] * free_pose).reshape(-1)
+            x0[ci.reshape(-1)] = (warm[1] * free_cam_np).reshape(-1)
+        du = _solve_reduced(S, (-g_u + ey) * free, free, opt, x0=x0)
+        u_pose = du[:6 * Npad].reshape(6, Npad).T[:N] * free_pose
+        u_cam_np = (du[6 * Npad:6 * Npad + 12 * C].reshape(12, C).T
+                    [:, :nparams] * free_cam_np)
 
     # ---- back-substitute + predicted sums (per bucket) ----
     du_pose_t = torch.zeros(6, Npad, **f32)
@@ -225,7 +392,7 @@ def _fused_step(statics, lays, opt, qvecs, tvecs, pts_list, cams, lam,
     dp_list = []
     acc = torch.zeros(3, **f32)
     g_inf_pts = torch.zeros((), **f32)
-    for static, lay, (pt_pay, jw) in zip(statics, lays, per_bucket):
+    for static, lay, (pt_pay, jw, _) in zip(statics, lays, per_bucket):
         dp, acc_b = bk.backsub(static, du_pose_t, du_cam_t, pt_pay, jw, lam,
                                lay, opt)
         dp_list.append(dp)
@@ -267,9 +434,14 @@ def _fused_lm_loop(statics, lays, pts0, problem, options, free_arrays):
                        dtype=torch.float32, device=cost0.device)
     trace[0] = cost0
     it = 0
+    warm = None
     while it < opt.max_iterations:
         u_pose, u_cam, dp_list, predicted, g_inf = _fused_step(
-            statics, lays, opt, q, t, pts_t, k, lam, free_arrays)
+            statics, lays, opt, q, t, pts_t, k, lam, free_arrays, warm=warm)
+        if opt.cg_warm_start:
+            # Seed of the next reduced solve; it is rescaled against the
+            # next damped system, so accept or reject needs no fix-up.
+            warm = (u_pose, u_cam[:, :lay0.nparams])
         q2 = quat_retract(q, u_pose[:, :3])
         t2 = t + u_pose[:, 3:]
         pts2 = [p + dp for p, dp in zip(pts_t, dp_list)]

@@ -1,8 +1,9 @@
 """Synthetic scenes for tests and benchmarks, built with numpy only.
 
-Port of `make_ba_problem` and `make_synthetic_reconstruction` from
-``sba_tpu/utils/synthetic.py``: the same arc-of-cameras geometry and the
-same sequence of draws from ``numpy.random.default_rng(seed)``.
+Port of `make_ba_problem`, `make_sequential_ba_problem` and
+`make_synthetic_reconstruction` from ``sba_tpu/utils/synthetic.py``: the
+same geometry and the same sequence of draws from
+``numpy.random.default_rng(seed)``, so one seed gives the same arrays.
 """
 
 from __future__ import annotations
@@ -111,6 +112,101 @@ def make_ba_problem(*args, dtype=torch.float64, device="cuda", **kwargs):
     """`make_ba_problem_numpy` as a `BAProblem` on `device`.
     Returns (problem, truth)."""
     fields, truth = make_ba_problem_numpy(*args, **kwargs)
+    return problem_from_numpy(fields, device=device, dtype=dtype), truth
+
+
+def make_sequential_ba_problem_numpy(
+    num_images: int = 1024,
+    num_points: int = 100_000,
+    track_len: int = 6,
+    pose_noise: float = 0.003,
+    point_noise: float = 0.02,
+    pixel_noise: float = 0.5,
+    seed: int = 0,
+    image_size=(640, 480),
+    focal: float = 500.0,
+):
+    """Large sequential-capture scene, vectorized numpy.
+
+    Cameras travel along a corridor; each point is observed by a
+    contiguous window of `track_len` nearby images (the track locality
+    of ordered capture). Out-of-view observations are masked, not
+    dropped, so every track has exactly `track_len` slots and the fused
+    path needs a single bucket. Gauge: pose 0 constant, tvec x of image
+    1 constant. Returns (fields, truth) like `make_ba_problem_numpy`.
+    """
+    rng = np.random.default_rng(seed)
+    w, h = image_size
+    spacing = 0.5
+
+    centers = np.stack([
+        np.arange(num_images) * spacing,
+        0.2 * rng.normal(size=num_images),
+        0.1 * rng.normal(size=num_images)], axis=1)
+    aa = rng.normal(scale=0.02, size=(num_images, 3))
+    angle = np.linalg.norm(aa, axis=1, keepdims=True)
+    axis = aa / np.maximum(angle, 1e-12)
+    qvecs = np.concatenate(
+        [np.cos(angle / 2), np.sin(angle / 2) * axis], axis=1)
+    tvecs = -np_quat_rotate(qvecs, centers)
+
+    # Each point sits in the shared frustum of its window of images.
+    s0 = rng.integers(0, num_images - track_len + 1, size=num_points)
+    mid = centers[np.minimum(s0 + track_len // 2, num_images - 1)]
+    depth = rng.uniform(6.0, 12.0, size=num_points)
+    lat = rng.uniform(-2.0, 2.0, size=num_points)
+    vert = rng.uniform(-1.5, 1.5, size=num_points)
+    pts = mid + np.stack([lat, vert, depth], axis=1)
+
+    obs_point = np.repeat(np.arange(num_points, dtype=np.int64), track_len)
+    obs_image = (s0[:, None] + np.arange(track_len)[None, :]) \
+        .reshape(-1).astype(np.int64)
+    p_cam = np_quat_rotate(qvecs[obs_image], pts[obs_point]) \
+        + tvecs[obs_image]
+    z = np.maximum(p_cam[:, 2], 1e-6)
+    uv = p_cam[:, :2] / z[:, None]
+    xy = focal * uv + np.array([w / 2.0, h / 2.0])
+    if pixel_noise:
+        xy = xy + rng.normal(scale=pixel_noise, size=xy.shape)
+    mask = ((p_cam[:, 2] > 0.1) & (xy[:, 0] >= -50) & (xy[:, 0] < w + 50)
+            & (xy[:, 1] >= -50) & (xy[:, 1] < h + 50)).astype(np.float64)
+
+    cam_params = np.zeros((1, MAXP))
+    cam_params[0, :3] = [focal, w / 2.0, h / 2.0]
+    truth = dict(qvecs=qvecs.copy(), tvecs=tvecs.copy(), points=pts.copy(),
+                 cam_params=cam_params.copy())
+
+    # Perturb rotation and camera centre (not tvec), so the perturbation
+    # does not grow with the corridor's length.
+    q0 = qvecs + rng.normal(scale=pose_noise, size=qvecs.shape)
+    q0 = q0 / np.linalg.norm(q0, axis=1, keepdims=True)
+    c0 = centers + rng.normal(scale=pose_noise, size=centers.shape)
+    t0 = -np_quat_rotate(q0, c0)
+    x0 = pts + rng.normal(scale=point_noise, size=pts.shape)
+    q0[0], t0[0] = qvecs[0], tvecs[0]
+    t0[1, 0] = tvecs[1, 0]
+
+    free_rot = np.ones(num_images)
+    free_trans = np.ones((num_images, 3))
+    free_rot[0] = 0.0
+    free_trans[0] = 0.0
+    free_trans[1, 0] = 0.0
+    fields = dict(
+        qvecs=q0, tvecs=t0, points=x0, cam_params=cam_params,
+        obs_image=obs_image.astype(np.int32),
+        obs_point=obs_point.astype(np.int32),
+        obs_cam=np.zeros(len(obs_image), np.int32), obs_xy=xy,
+        obs_mask=mask, free_rot=free_rot, free_trans=free_trans,
+        free_points=np.ones(num_points), free_cam=np.zeros((1, MAXP)),
+        image_cam=np.zeros(num_images, np.int32))
+    return fields, truth
+
+
+def make_sequential_ba_problem(*args, dtype=torch.float32, device="cuda",
+                               **kwargs):
+    """`make_sequential_ba_problem_numpy` as a `BAProblem` on `device`
+    (float32 by default, as the reference's). Returns (problem, truth)."""
+    fields, truth = make_sequential_ba_problem_numpy(*args, **kwargs)
     return problem_from_numpy(fields, device=device, dtype=dtype), truth
 
 

@@ -187,16 +187,20 @@ def test_fused_solve_matches_sba_tpu():
 
 
 def test_cuda_only_paths_raise_on_the_card_rules():
-    """Unported pieces raise instead of running a plain path: the
-    implicit (N > 128) step, and the CUDA kernels' unported heads."""
+    """The implicit (N > 128) step, which raised before K2/K3 were
+    ported, now runs on the CPU twins with finite outputs; the CUDA
+    kernels' unported camera heads still raise."""
     _, pm, _, (opt_t, lay_t, st_t, par_t, pts_t) = _setup(0)
     ctx = tbf.prepare(problem_from_numpy(_numpy_fields(pm), "cpu",
                                          torch.float32),
                       TOpt(fused_mode="implicit"))
     statics, lays, pts0, _, prob, options, free_arrays = ctx
-    with pytest.raises(NotImplementedError, match="K2/K3"):
-        tbf._fused_step(statics, lays, options, prob.qvecs, prob.tvecs,
-                        pts0, prob.cam_params, torch.tensor(1e-3),
-                        free_arrays)
+    assert tbf.use_implicit(lays[0], options)
+    u_pose, u_cam, dp_list, predicted, g_inf = tbf._fused_step(
+        statics, lays, options, prob.qvecs, prob.tvecs, pts0,
+        prob.cam_params, torch.tensor(1e-3), free_arrays)
+    for v in (u_pose, u_cam, predicted, g_inf, *dp_list):
+        assert bool(torch.isfinite(v).all())
+    assert float(predicted) > 0
     with pytest.raises(NotImplementedError, match="camera model 5"):
         tbk._check_model(TOpt(model_id=5))

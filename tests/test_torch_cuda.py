@@ -60,13 +60,42 @@ def test_kernels_match_twins(cuda, model_id):
         assert _rel_err(c_k, c_p) <= 1e-4
 
 
+@pytest.mark.parametrize("ranged", ["off", "on"])
+def test_implicit_kernels_match_twins(cuda, ranged):
+    """K2 and K3 against their twins, with f32 ("off") and bf16 ("on")
+    coupling stores."""
+    problem, _ = make_ba_problem(dtype=torch.float32, device=cuda, **_SMALL)
+    opt = BAOptions(dtype="float32", fused_mode="implicit",
+                    fused_ranged=ranged)
+    statics, lays, pts0, _, prob, _, _ = ba_fused.prepare(problem, opt)
+    par = bk.pack_params(prob.qvecs, prob.tvecs, prob.cam_params,
+                         statics[0].image_cam, lays[0])
+    lam = torch.tensor(1e-3, device=cuda)
+    for st, lay, pts in zip(statics, lays, pts0):
+        k2 = bk.fused_reduce(st, par, pts, lam, lay, opt)
+        p2 = bk.fused_reduce_plain(st, par, pts, lam, lay, opt)
+        jc_tol = 2.0 ** -8 if ranged == "on" else 1e-4
+        for name, a, b, tol in zip(("img_red", "pt_pay", "jw", "jcorr"),
+                                   k2, p2, (1e-4, 1e-4, 1e-4, jc_tol)):
+            assert a.dtype == b.dtype, name
+            assert _rel_err(a.float(), b.float()) <= tol, name
+        dup = 1e-3 * torch.ones(6, lay.Npad, device=cuda)
+        duc = 1e-2 * torch.ones(12, lay.C, device=cuda)
+        m_k = bk.schur_matvec(st, dup, duc, k2[3], lay, opt)
+        m_p = bk.schur_matvec_plain(st, dup, duc, k2[3], lay, opt)
+        assert _rel_err(m_k, m_p) <= 3e-5
+
+
 def test_fused_solve_on_card_matches_cpu_twins(cuda):
     opt = BAOptions(max_iterations=10, dtype="float32")
     gpu, _ = make_ba_problem(dtype=torch.float32, device=cuda, **_SMALL)
     cpu, _ = make_ba_problem(dtype=torch.float32, device="cpu", **_SMALL)
     bk.reset_launches()
     out_g, s_g = bundle_adjust(gpu, opt)
-    assert all(v > 0 for v in bk.LAUNCHES.values())
+    # The dense path (6 images): K1, K4 and K5, not the implicit K2/K3.
+    assert all(bk.LAUNCHES[k] > 0
+               for k in ("fused_schur", "backsub", "fused_cost"))
+    assert bk.LAUNCHES["fused_reduce"] == bk.LAUNCHES["schur_matvec"] == 0
     out_c, s_c = ba_fused.bundle_adjust_fused(cpu, opt)
     assert abs(float(s_g.final_cost) - float(s_c.final_cost)) \
         <= 1e-3 * float(s_c.final_cost)
@@ -78,7 +107,12 @@ def test_unported_pieces_raise_on_card(cuda):
                                  model_id=4, **_SMALL)
     with pytest.raises(NotImplementedError, match="camera model 4"):
         bundle_adjust(problem, BAOptions(model_id=4, dtype="float32"))
+    # More than 128 images: no longer raises, but runs the implicit
+    # path through K2 and K3.
     big, _ = make_ba_problem(dtype=torch.float32, device=cuda,
                              **dict(_SMALL, num_images=130))
-    with pytest.raises(NotImplementedError, match="K2/K3"):
-        bundle_adjust(big, BAOptions(dtype="float32"))
+    bk.reset_launches()
+    _, s = bundle_adjust(big, BAOptions(dtype="float32", max_iterations=5))
+    assert float(s.final_cost) < float(s.initial_cost)
+    assert bk.LAUNCHES["fused_reduce"] > 0 and bk.LAUNCHES["schur_matvec"] > 0
+    assert bk.LAUNCHES["fused_schur"] == 0
