@@ -12,7 +12,7 @@ Needs one CUDA card and nvcc (found through torch's CUDA_HOME, else
                      and 2; a small solve through the kernels against the
                      same solve through the twins on the CPU, and bf16
                      against f32 S_corr;
-3. twins-implicit -- K2/K3 against their twins at the 1024-image
+3. twins-implicit -- K2-K5 against their twins at the 1024-image
                      sequential scene (f32 and bf16 coupling stores) and
                      on a two-camera scene, whose implicit step on the
                      card is held against the same step on the CPU;
@@ -24,6 +24,7 @@ Needs one CUDA card and nvcc (found through torch's CUDA_HOME, else
                      it/s, K3 launches per LM iteration, peak memory;
 6. large-ranged   -- 3 LM iterations at 10,240 images / 1.2M points
                      (ranged, bf16 couplings); host prep timed apart;
+                     K2-K5 against their twins at these shapes;
 7. cli            -- `python -m sba_tpu_torch.cli bundle_adjuster` on a
                      20-image (dense) and a 160-image (implicit) model;
 8. timing         -- per-kernel CUDA-event times against the twins and
@@ -158,13 +159,19 @@ def phase_build():
 
 
 def _bucket_inputs(problem, opt, lam_value=1e-3):
-    """Prepared buckets + the per-iteration inputs of the three kernels."""
+    """Prepared buckets + the per-iteration inputs of the kernels."""
+    from sba_tpu_torch.optim import ba_fused
+
+    return _step_inputs(ba_fused.prepare(problem, opt), lam_value)
+
+
+def _step_inputs(ctx, lam_value=1e-3):
+    """(ctx, par, lam, du_pose_t, du_cam_t) of a prepared context: the
+    kernels' inputs at the problem's parameters, with a random step."""
     import torch
 
     from sba_tpu_torch.ops import ba_kernels as bk
-    from sba_tpu_torch.optim import ba_fused
 
-    ctx = ba_fused.prepare(problem, opt)
     statics, lays, pts0, idxs, prob, _, _ = ctx
     par = bk.pack_params(prob.qvecs, prob.tvecs, prob.cam_params,
                          statics[0].image_cam, lays[0])
@@ -275,8 +282,9 @@ def phase_twins():
 
 
 def _check_implicit_twins(tag, st, lay, par, pts, lam, dup, duc, opt):
-    """K2 and K3 against their twins on one bucket; returns their max
-    abs errors (image payload, matvec)."""
+    """The implicit path's kernels against their twins on one bucket:
+    K2, then K3 on K2's couplings, K4 on K2's point payload and jw, and
+    K5. Returns the max abs errors (image payload, matvec, dp, cost)."""
     import torch
 
     from sba_tpu_torch.ops import ba_kernels as bk
@@ -301,19 +309,38 @@ def _check_implicit_twins(tag, st, lay, par, pts, lam, dup, duc, opt):
         e2 = max(e2, close(f"{tag} img_red[:, {a0}:{a1}]", img_k[:, a0:a1],
                            img_p[:, a0:a1], 1e-5 if k < 5 else 1e-4))
     # jcorr is the kernel's own couplings (jw's WL rows, held against the
-    # twin above) stored once more, rounded to nearest even when bf16:
-    # it must equal that rounding exactly, and its padding rows be zero.
-    require(jc_k.dtype == bk.jcorr_dtype(lay, opt) == jc_p.dtype,
-            f"{tag} jcorr type {jc_k.dtype}")
-    nwl = 18 + 3 * np_
-    require(torch.equal(jc_k[:nwl], jw_k[n_jac:n_jac + nwl].to(jc_k.dtype))
-            and not bool(jc_k[nwl:].any()),
-            f"{tag} jcorr is not the stored rounding of jw's couplings")
+    # twin above): in f32 a view of those rows, in bf16 their round to
+    # nearest even, which it must equal exactly.
+    require(jc_k.dtype == bk.jcorr_dtype(lay, opt) == jc_p.dtype
+            and tuple(jc_k.shape) == (lay.JC, lay.Pp * lay.K),
+            f"{tag} jcorr {jc_k.dtype} {tuple(jc_k.shape)}")
+    wl = jw_k[n_jac:n_jac + lay.JC]
+    require(torch.equal(jc_k, wl.to(jc_k.dtype))
+            and (jc_k.dtype == torch.bfloat16
+                 or jc_k.data_ptr() == wl.data_ptr()),
+            f"{tag} jcorr is not jw's couplings")
     m_k = bk.schur_matvec(st, dup, duc, jc_k, lay, opt)
     m_p = bk.schur_matvec_plain(st, dup, duc, jc_k, lay, opt)
     torch.cuda.synchronize()
     e3 = close(f"{tag} matvec", m_k, m_p, 3e-5)
-    return e2, e3
+    del m_k, m_p, jc_p, jw_p, img_p, img_k
+    # K4 on the point payload and jw that K2 wrote, K5 at the same
+    # parameters: phase twins' tolerances.
+    dp_k, acc_k = bk.backsub(st, dup, duc, pt_k, jw_k, lam, lay, opt)
+    dp_p, acc_p = bk.backsub_plain(st, dup, duc, pt_k, jw_k, lam, lay, opt)
+    torch.cuda.synchronize()
+    e4 = close(f"{tag} dp", dp_k, dp_p, 1e-4)
+    for i in range(3):
+        close(f"{tag} acc[{i}]", acc_k[i:i + 1], acc_p[i:i + 1], 1e-4)
+    c_k = bk.fused_cost(st, par, pts, lay, opt)
+    c_p = bk.fused_cost_plain(st, par, pts, lay, opt)
+    e5 = close(f"{tag} cost", c_k.reshape(1), c_p.reshape(1), 1e-4)
+    return e2, e3, e4, e5
+
+
+def _fold(errs, e2345):
+    for name, e in zip(IMPLICIT_KERNELS, e2345):
+        errs[name] = max(errs[name], e)
 
 
 def two_camera_problem(device):
@@ -337,7 +364,7 @@ def two_camera_problem(device):
 
 
 def phase_twins_implicit(errs):
-    """K2/K3 against their twins at the 1024-image scene, f32 and bf16
+    """K2-K5 against their twins at the 1024-image scene, f32 and bf16
     coupling stores, and on a two-camera scene."""
     import torch
 
@@ -351,13 +378,13 @@ def phase_twins_implicit(errs):
         ctx, par, lam, dup, duc = _bucket_inputs(problem, opt)
         for b, (st, lay, pts) in enumerate(zip(ctx[0], ctx[1], ctx[2])):
             tag = f"1024 ranged={ranged} b{b}"
-            e2, e3 = _check_implicit_twins(tag, st, lay, par, pts, lam,
-                                           dup, duc, opt)
-            errs["fused_reduce"] = max(errs["fused_reduce"], e2)
-            errs["schur_matvec"] = max(errs["schur_matvec"], e3)
+            e = _check_implicit_twins(tag, st, lay, par, pts, lam, dup,
+                                      duc, opt)
+            _fold(errs, e)
             log("twins-implicit", f"{tag} (K={lay.K}, Pp={lay.Pp}, jcorr "
-                f"{str(ba_fused.bk.jcorr_dtype(lay, opt))[6:]}): K2/K3 match "
-                f"their twins; |dimg_red| {e2:.2e} |dmatvec| {e3:.2e}")
+                f"{str(ba_fused.bk.jcorr_dtype(lay, opt))[6:]}): K2-K5 match "
+                f"their twins; |dimg_red| {e[0]:.2e} |dmatvec| {e[1]:.2e} "
+                f"|ddp| {e[2]:.2e} |dcost| {e[3]:.2e}")
     del problem, ctx
     # Two cameras: the camera rows of the payload and of the matvec are
     # keyed by image and summed by camera in the epilogue.
@@ -371,8 +398,9 @@ def phase_twins_implicit(errs):
         statics, lays, pts0, _, prob, _, free_arrays = ctx
         if dev == "cuda":
             for b, (st, lay, pts) in enumerate(zip(statics, lays, pts0)):
-                _check_implicit_twins(f"2-camera b{b}", st, lay, par, pts,
-                                      lam, dup, duc, opt)
+                _fold(errs, _check_implicit_twins(
+                    f"2-camera b{b}", st, lay, par, pts, lam, dup, duc,
+                    opt))
         steps[dev] = [v.cpu() if torch.is_tensor(v) else v for v in
                       ba_fused._fused_step(statics, lays, opt, prob.qvecs,
                                            prob.tvecs, pts0, prob.cam_params,
@@ -383,7 +411,7 @@ def phase_twins_implicit(errs):
     for i, name in ((3, "predicted"), (4, "g_inf")):
         close(f"2-camera step {name}", steps["cuda"][i].reshape(1),
               steps["cpu"][i].reshape(1), 1e-4)
-    log("twins-implicit", "2-camera scene: K2/K3 match their twins; the "
+    log("twins-implicit", "2-camera scene: K2-K5 match their twins; the "
         "implicit step on the card matches the CPU twins' step; closest "
         f"to its tolerance so far: {WORST['name']} at {WORST['ratio']:.3f}")
 
@@ -486,9 +514,10 @@ def phase_main_implicit():
     return launches, ctx, dt * 1e3 / its, k3_per_it
 
 
-def phase_large_ranged():
+def phase_large_ranged(errs):
     """bench.py:223 bench_ba_10k: 10,240 images, 1.2M points, track 7;
-    Npad >= 2048, so ranged and bf16 couplings come on by themselves."""
+    Npad >= 2048, so ranged and bf16 couplings come on by themselves.
+    K2-K5 are also held against their twins at these shapes."""
     import torch
 
     from sba_tpu_torch.ops import ba_kernels as bk
@@ -529,6 +558,17 @@ def phase_large_ranged():
         f"launches per LM iteration {launches['schur_matvec'] / its:.1f}; "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f}"
         f" MiB")
+    del out, s
+    ctx, par, lam, dup, duc = _step_inputs(ctx)
+    for b, (st, lay, pts) in enumerate(zip(ctx[0], ctx[1], ctx[2])):
+        tag = f"10240 b{b}"
+        e = _check_implicit_twins(tag, st, lay, par, pts, lam, dup, duc, opt)
+        _fold(errs, e)
+        log("large-ranged", f"{tag} (K={lay.K}, Pp={lay.Pp}, "
+            f"{lay.Pp * lay.K} lanes, jcorr bf16): K2-K5 match their twins; "
+            f"|dimg_red| {e[0]:.2e} |dmatvec| {e[1]:.2e} |ddp| {e[2]:.2e} "
+            f"|dcost| {e[3]:.2e}; closest to its tolerance so far: "
+            f"{WORST['name']} at {WORST['ratio']:.3f}")
 
 
 def _run_cli(rec, tag, max_iterations, kernels, other):
@@ -616,8 +656,8 @@ def _bounds(statics, lays, opt, kernels):
     f32 rate). Bytes count each input the kernel needs once and each
     output once. Per-observation inputs are charged on the live lanes
     only, plus one read of the mask row over all lanes (padding lanes
-    need nothing else); K1's/K2's `jw` and K2's `jcorr` are charged over
-    all lanes, since their shapes are the interface's. Flops are counted
+    need nothing else); K1's/K2's `jw` and K2's bf16 `jcorr` are charged
+    over all lanes, since their shapes are the interface's. Flops are counted
     from the kernel source per live observation, plus, for K1, the
     data-dependent S_corr outer products of this run's tracks. Returns
     {name: (ms, "bytes" or "operations")} for the named kernels."""
@@ -639,11 +679,13 @@ def _bounds(statics, lays, opt, kernels):
         par_b = (7 + NP) * lay.Npad * 4
         mask_b = O * 4
         # K2 reads what K1 reads; writes the implicit image payload, the
-        # point payload, jw and jcorr (whole [JCW, O'] store).
-        jc_bytes = 2 if bk.jcorr_dtype(lay, opt) == torch.bfloat16 else 4
+        # point payload, jw and, in bf16 only, jcorr ([JC, O']; in f32 K3
+        # reads jw's coupling rows).
+        bf16 = bk.jcorr_dtype(lay, opt) == torch.bfloat16
+        jc_bytes = 2 if bf16 else 4
         b2 += (par_b + (4 + NP) * lay.Npad * 4 + 4 * Pp * 4 + mask_b
                + 4 * live * 4 + lay.Npad * lay.DI_implicit * 4
-               + 19 * Pp * 4 + lay.JW * O * 4 + lay.JCW * O * jc_bytes)
+               + 19 * Pp * 4 + lay.JW * O * 4 + bf16 * lay.JC * O * 2)
         f2 += live * (120 + 30 + 3 * lay.DI_implicit + (6 + NP) * 22)
         # K3 (one matvec) reads the coupling rows, image and camera of
         # each live lane and the du tables; writes [Npad, 6+np].
@@ -864,7 +906,7 @@ def main() -> int:
     launches, ctx, ms_per_it = run("main", phase_main)
     launches_i, ctx_i, ms_per_it_i, k3_per_it = run("main-implicit",
                                                     phase_main_implicit)
-    run("large-ranged", phase_large_ranged)
+    run("large-ranged", phase_large_ranged, errs)
     run("cli", phase_cli)
     rows = run("timing", phase_timing, ctx, launches, errs)
     rows.update(run("timing", phase_timing_implicit, ctx_i, launches_i,

@@ -228,11 +228,11 @@ __device__ void block_atomic_add(float (&v)[NV], float* out) {
   }
 }
 
-// K1 and K2 share their arguments; K1 leaves bj, jcorr_bf16, JCW and
-// jcorr unused, K2 leaves schur_bf16, Dk, S and ey unused.
+// K1 and K2 share their arguments; K1 leaves bj, jcorr_bf16 and jcorr
+// unused, K2 leaves schur_bf16, Dk, S and ey unused.
 struct K1Args {
   int loss, schur_bf16, TP, K, Pp, Npad, C, Dk;
-  int bj, jcorr_bf16, JCW;
+  int bj, jcorr_bf16;
   float a2;
   const float *lam, *par, *free_sta, *pts, *free_pts, *obs_sta;
   const int *obs_img, *obs_cam;
@@ -260,12 +260,13 @@ __device__ inline float dot3(const float a[3], const float b[3]) {
 // 6x6 pose block of WL WL^T as 21 upper-triangle rows when bj, else its
 // 6 diagonal entries, then the NP camera diagonal entries) to the image
 // payload row of its image, behind the dense payload columns; the
-// epilogue sums the camera rows by camera. It also stores the couplings
-// once more as `jcorr` (WLp 18 rows, WLc 3*NP rows, zero rows to JCW),
-// f32 or bf16 rounded to nearest even, for the matvec K3.
+// epilogue sums the camera rows by camera. With jcorr_bf16 it also
+// stores the couplings once more as the bf16 `jcorr` (WLp 18 rows, WLc
+// 3*NP rows, rounded to nearest even) for the matvec K3; in f32 K3 reads
+// them from jw's WL rows, so nothing is stored twice.
 //
 // Bound: device memory. The kernel writes jw (JW rows per observation),
-// and for K2 jcorr, reads jw's Jacobian rows back once for the
+// and for K2 the bf16 jcorr, reads jw's Jacobian rows back once for the
 // whitening pass, and reads the observation rows once; the arithmetic
 // per byte is low. Design: lanes are laid out so that a warp's accesses
 // to each row are contiguous; the second pass re-reads the Jacobian
@@ -357,8 +358,7 @@ __global__ void __launch_bounds__(kThreads) k1_linearize_kernel(K1Args a) {
                       L[3] * g[1] + L[4] * g[2], L[5] * g[2]};
 
   // ---- whitened couplings WL = W Lp, then Ey (K1) or the implicit
-  // payload and jcorr (K2) ----
-  float* jc32 = static_cast<float*>(a.jcorr);
+  // payload and the bf16 jcorr (K2) ----
   __nv_bfloat16* jc16 = static_cast<__nv_bfloat16*>(a.jcorr);
   for (int s = 0; s < a.K; ++s) {
     const int64_t c = base + (int64_t)s * a.TP;
@@ -381,12 +381,9 @@ __global__ void __launch_bounds__(kThreads) k1_linearize_kernel(K1Args a) {
       const int row0 = i < 6 ? kWLp + i * 3 : kWLc + (i - 6) * 3;
       for (int j = 0; j < 3; ++j) a.jw[(row0 + j) * O + c] = WL[i][j];
     }
-    if (Implicit) {
-      for (int r = 0; r < a.JCW; ++r) {
-        const float v = r < 3 * (6 + NP) ? WL[r / 3][r % 3] : 0.f;
-        if (a.jcorr_bf16) jc16[r * O + c] = __float2bfloat16_rn(v);
-        else jc32[r * O + c] = v;
-      }
+    if (Implicit && a.jcorr_bf16) {
+      for (int r = 0; r < 3 * (6 + NP); ++r)
+        jc16[r * O + c] = __float2bfloat16_rn(WL[r / 3][r % 3]);
     }
     if (!live) continue;
     if (!Implicit) {
@@ -531,11 +528,12 @@ cudaError_t launch_fused_schur(const K1Args& a, cudaStream_t stream) {
 // etu = EL^T p = sum over its live slots of WL^T (du_pose[:, img],
 // du_cam[:, cam]), then out[img, i] += WL[i] . etu for each live slot
 // (rows i < 6 pose, then NP camera rows keyed by image). WL comes from
-// the slim jcorr store (f32, or bf16 widened here). On the TPU the
+// jw's WL rows (f32) or the bf16 jcorr store (widened here); either way
+// rows 0..3*(6+NP) of a [rows, O'] array. On the TPU the
 // gathers and the scatter are one-hot MXU contractions over a
 // sequential grid; here the gathers read the small du tables (cache
 // resident) by index and the scatter is float atomics.
-// Bound: device memory, one read of jcorr's 3*(6+NP) coupling rows and
+// Bound: device memory, one read of the 3*(6+NP) coupling rows and
 // the index and mask rows per lane; it runs once per CG iteration.
 // ---------------------------------------------------------------------------
 
@@ -744,7 +742,7 @@ int sba_fused_schur(int model, int loss, float loss_scale, int schur_bf16,
                     const float* obs_sta, const int* obs_img,
                     const int* obs_cam, float* S, float* img_red, float* ey,
                     float* pt_pay, float* jw, cudaStream_t stream) {
-  const K1Args a{loss, schur_bf16, TP, K, Pp, Npad, C, Dk, 0, 0, 0,
+  const K1Args a{loss, schur_bf16, TP, K, Pp, Npad, C, Dk, 0, 0,
                  loss_scale * loss_scale, lam, par, free_sta, pts, free_pts,
                  obs_sta, obs_img, obs_cam, S, img_red, ey, pt_pay, jw,
                  nullptr};
@@ -758,13 +756,13 @@ int sba_fused_schur(int model, int loss, float loss_scale, int schur_bf16,
 
 int sba_fused_reduce(int model, int loss, float loss_scale, int bj,
                      int jcorr_bf16, int TP, int K, int Pp, int Npad, int C,
-                     int JCW, const float* lam, const float* par,
+                     const float* lam, const float* par,
                      const float* free_sta, const float* pts,
                      const float* free_pts, const float* obs_sta,
                      const int* obs_img, const int* obs_cam, float* img_red,
                      float* pt_pay, float* jw, void* jcorr,
                      cudaStream_t stream) {
-  const K1Args a{loss, 0, TP, K, Pp, Npad, C, 0, bj, jcorr_bf16, JCW,
+  const K1Args a{loss, 0, TP, K, Pp, Npad, C, 0, bj, jcorr_bf16,
                  loss_scale * loss_scale, lam, par, free_sta, pts, free_pts,
                  obs_sta, obs_img, obs_cam, nullptr, img_red, nullptr,
                  pt_pay, jw, jcorr};

@@ -17,8 +17,10 @@ Per-lane data is stored as ``[field, lane]`` rows.
 
 - ``par`` [7+np, Npad]: q(4), t(3), intrinsics(np) per image.
 - ``jw`` [JW, O']: Jc(12) | Jx(6) | Jk(2np) | WLp(18) | WLc(3np) per lane.
-- ``jcorr`` [JCW, O']: WLp(18) | WLc(3np) | zero rows, the implicit
-  matvec's coupling store; bfloat16 when `matvec_bf16` and `ranged`.
+- ``jcorr`` [18+3np, O']: WLp(18) | WLc(3np), the implicit matvec's
+  couplings: a view of jw's WL rows in float32, or their bfloat16 copy
+  when `matvec_bf16` and `ranged`. (The reference stores JCW rows, the
+  couplings padded with zero rows to its 16-row tile, in both types.)
 - ``pt_pay`` [19, Pp]: g_p(3) | diag Hpp(3) | Hpp^-1(6) | Lp(6) | free(1).
 - ``img_red`` [Npad, DI]: g_pose(6) | Hcc_pose(36) | Hpc(6np) | g_cam(np)
   | Hcc_cam(np^2) per image; the implicit path's [Npad, DI_implicit]
@@ -85,7 +87,13 @@ class KernelLayout(NamedTuple):
     ranged: bool   # bf16 jcorr (with matvec_bf16) and implicit solve
     BJ: bool       # implicit payload carries the 6x6 pose block (else
     #                its diagonal): block- vs scalar-Jacobi PCG
-    JCW: int       # jcorr rows: 18 + 3np, padded to 16 as the reference
+    JCW: int       # the reference's jcorr rows (18 + 3np padded to 16);
+    #                the port's jcorr has JC = 18 + 3np rows
+
+    @property
+    def JC(self) -> int:
+        """Coupling rows WLp | WLc of `jw` and `jcorr`."""
+        return 18 + 3 * self.nparams
 
     @property
     def DI_implicit(self) -> int:
@@ -461,10 +469,14 @@ def fused_reduce_plain(static, par, pts, lam, lay: KernelLayout, opt):
         pay += [_dot3(WLp, i, WLp[i * 3:i * 3 + 3]) for i in range(6)]
     pay += [_dot3(WLc, m, WLc[m * 3:m * 3 + 3]) for m in range(nparams)]
     img_red = _image_sum(pay, static, lay, lay.DI_implicit)
-    pad = torch.zeros(lay.JCW - 18 - 3 * nparams, WLp.shape[1],
-                      dtype=torch.float32, device=par.device)
-    jcorr = torch.cat([WLp, WLc, pad]).to(jcorr_dtype(lay, opt))
-    return img_red, pt_pay, jw, jcorr
+    return img_red, pt_pay, jw, _jcorr_of(jw, lay, opt)
+
+
+def _jcorr_of(jw, lay: KernelLayout, opt):
+    """K3's couplings: jw's WL rows (a view in float32, else rounded to
+    bfloat16)."""
+    n_jac = 18 + 2 * lay.nparams
+    return jw[n_jac:n_jac + lay.JC].to(jcorr_dtype(lay, opt))
 
 
 def schur_matvec_plain(static, du_pose_t, du_cam_t, jcorr,
@@ -613,11 +625,12 @@ def fused_reduce(static: KernelStatic, par, pts, lam, lay: KernelLayout,
                  opt):
     """K2: K1's linearize and reduce without S_corr, for the implicit
     path. The image payload also carries the Ey rows and the Jacobi
-    blocks of EL EL^T (module docstring), and the couplings are stored
-    once more in the slim `jcorr` for the PCG matvec K3.
+    blocks of EL EL^T (module docstring); in bf16 it also stores the
+    couplings once more as `jcorr` for the PCG matvec K3, in f32 `jcorr`
+    is a view of jw's WL rows.
 
     Returns (img_red [Npad, DI_implicit], pt_pay [19, Pp],
-    jw [JW, O'], jcorr [JCW, O'] f32 or bf16). `lam` is 0-d float32.
+    jw [JW, O'], jcorr [JC, O'] f32 or bf16). `lam` is 0-d float32.
     """
     if not par.is_cuda:
         return fused_reduce_plain(static, par, pts, lam, lay, opt)
@@ -631,26 +644,27 @@ def fused_reduce(static: KernelStatic, par, pts, lam, lay: KernelLayout,
     img_red = torch.zeros(lay.Npad, lay.DI_implicit, **f32)
     pt_pay = torch.empty(PT_ROWS, lay.Pp, **f32)
     jw = torch.empty(lay.JW, lay.Pp * lay.K, **f32)
-    jc_type = jcorr_dtype(lay, opt)
-    jcorr = torch.empty(lay.JCW, lay.Pp * lay.K, dtype=jc_type, device=dev)
+    bf16 = jcorr_dtype(lay, opt) == torch.bfloat16
+    jc16 = (torch.empty(lay.JC, lay.Pp * lay.K, dtype=torch.bfloat16,
+                        device=dev) if bf16 else None)
     err = cuda_build.lib().sba_fused_reduce(
         opt.model_id, LOSS_IDS[opt.loss], opt.loss_scale, int(lay.BJ),
-        int(jc_type == torch.bfloat16), lay.TP, lay.K, lay.Pp, lay.Npad,
-        lay.C, lay.JCW, lam.data_ptr(), par.data_ptr(),
+        int(bf16), lay.TP, lay.K, lay.Pp, lay.Npad, lay.C, lam.data_ptr(),
+        par.data_ptr(),
         static.free_sta.data_ptr(), pts.data_ptr(),
         static.free_pts.data_ptr(), static.obs_sta.data_ptr(),
         static.obs_img.data_ptr(), static.obs_cam.data_ptr(),
         img_red.data_ptr(), pt_pay.data_ptr(), jw.data_ptr(),
-        jcorr.data_ptr(), _stream())
+        jc16.data_ptr() if bf16 else None, _stream())
     cuda_build.check(err, "sba_fused_reduce")
     LAUNCHES["fused_reduce"] += 1
-    return img_red, pt_pay, jw, jcorr
+    return img_red, pt_pay, jw, jc16 if bf16 else _jcorr_of(jw, lay, opt)
 
 
 def schur_matvec(static: KernelStatic, du_pose_t, du_cam_t, jcorr,
                  lay: KernelLayout, opt):
     """K3: the implicit PCG's correction matvec over one bucket,
-    out[img, :] += EL (EL^T p) per point, read from `jcorr`.
+    out[img, :] += EL (EL^T p) per point, read from `jcorr` [JC, O'].
 
     p arrives as (du_pose_t [6, Npad], du_cam_t [12, C]). Returns
     [Npad, 6+np] f32: pose rows, then camera rows keyed by image (the
@@ -665,7 +679,7 @@ def schur_matvec(static: KernelStatic, du_pose_t, du_cam_t, jcorr,
     _check(du_pose_t, "du_pose_t", (6, lay.Npad))
     _check(du_cam_t, "du_cam_t", (12, lay.C))
     jc_type = jcorr_dtype(lay, opt)
-    _check(jcorr, "jcorr", (lay.JCW, lay.Pp * lay.K), jc_type)
+    _check(jcorr, "jcorr", (lay.JC, lay.Pp * lay.K), jc_type)
     out = torch.zeros(lay.Npad, 6 + lay.nparams, dtype=torch.float32,
                       device=jcorr.device)
     err = cuda_build.lib().sba_schur_matvec(

@@ -84,10 +84,10 @@ _SIGNATURES = {
     "sba_fused_schur": [_I, _I, _F, _I, _I, _I, _I, _I, _I, _I,
                         _P, _P, _P, _P, _P, _P, _P, _P,
                         _P, _P, _P, _P, _P, _P],
-    # model, loss, loss_scale, bj, jcorr_bf16, TP, K, Pp, Npad, C, JCW,
+    # model, loss, loss_scale, bj, jcorr_bf16, TP, K, Pp, Npad, C,
     # lam, par, free_sta, pts, free_pts, obs_sta, obs_img, obs_cam,
-    # img_red, pt_pay, jw, jcorr, stream
-    "sba_fused_reduce": [_I, _I, _F, _I, _I, _I, _I, _I, _I, _I, _I,
+    # img_red, pt_pay, jw, jcorr (null unless jcorr_bf16), stream
+    "sba_fused_reduce": [_I, _I, _F, _I, _I, _I, _I, _I, _I, _I,
                          _P, _P, _P, _P, _P, _P, _P, _P,
                          _P, _P, _P, _P, _P],
     # model, jcorr_bf16, TP, K, Pp, Npad, C,

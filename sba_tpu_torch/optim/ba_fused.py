@@ -8,7 +8,8 @@ DENSE_MAX_IMAGES images):
   K1 `fused_schur`  -> per-image/point payloads, Schur correction
                        S_corr = EL EL^T, RHS coupling Ey, stored blocks
   epilogue (plain torch) -> assemble the reduced system S, damping, gauge
-                       masks, Jacobi-PCG solve for du (`_solve_reduced`)
+                       masks, Jacobi-PCG solve for du (`_solve_reduced`,
+                       `_pcg`)
   K4 `backsub`      -> point step dp + predicted-reduction sums
   K5 `fused_cost`   -> trial cost for accept/reject
 
@@ -18,7 +19,7 @@ never formed:
   K2 `fused_reduce` -> the payloads plus Ey and the Jacobi blocks of
                        EL EL^T per image, and the coupling store jcorr
   epilogue (plain torch) -> PCG over the (pose, camera) blocks
-                       (`_pcg_2block`) whose matvec runs
+                       (`_pcg`) whose matvec runs
                        K3 `schur_matvec` (EL (EL^T p) from jcorr) once
                        per bucket per CG iteration
   K4, K5            -> as above
@@ -62,8 +63,9 @@ def can_use_fused(problem: BAProblem, options: BAOptions) -> bool:
             and options.model_id in bk.CUDA_MODELS)
 
 
-def _solve_reduced(S, b, free, opt: BAOptions, x0=None):
-    """Jacobi-preconditioned CG on the masked dense reduced system.
+def _pcg(matvec, b, prec, opt: BAOptions, x0=None):
+    """Preconditioned CG on a tuple of blocks: `matvec` and `prec` map a
+    tuple like `b` to another.
 
     Same stopping rule as the reference's while loop (at most
     opt.cg_iterations matvecs, relative residual opt.cg_tolerance). The
@@ -73,91 +75,54 @@ def _solve_reduced(S, b, free, opt: BAOptions, x0=None):
     seed is rescaled optimally against this system and its matvec
     counts against opt.cg_iterations.
     """
-    S = S * free[:, None] * free[None, :] + torch.diag(1.0 - free)
-    b = b * free
-    d = torch.diagonal(S)
-    dinv = 1.0 / torch.where(torch.abs(d) > 1e-30, d, torch.ones_like(d))
-    bnorm2 = torch.clamp(torch.dot(b, b), min=1e-30)
-    thresh = (opt.cg_tolerance ** 2) * bnorm2
-    x, r, i0 = torch.zeros_like(b), b, 0
-    if x0 is not None:
-        xi = x0 * free
-        Ax0 = S @ xi
-        s = torch.dot(b, Ax0) / torch.clamp(torch.dot(Ax0, Ax0), min=1e-30)
-        ok = torch.isfinite(s)
-        x = torch.where(ok, s * xi, torch.zeros_like(xi))
-        r = torch.where(ok, b - s * Ax0, b)
-        i0 = 1
-    p = dinv * r
-    rz = torch.dot(r, p)
-    for i in range(i0, opt.cg_iterations):
-        active = torch.dot(r, r) > thresh
-        if (i - i0) % 8 == 0 and not bool(active):
-            break
-        Ap = S @ p
-        alpha = rz / torch.clamp(torch.dot(p, Ap), min=1e-30)
-        x = torch.where(active, x + alpha * p, x)
-        r_new = r - alpha * Ap
-        z = dinv * r_new
-        rz_new = torch.dot(r_new, z)
-        beta = rz_new / torch.clamp(rz, min=1e-30)
-        p = torch.where(active, z + beta * p, p)
-        r = torch.where(active, r_new, r)
-        rz = torch.where(active, rz_new, rz)
-    return x * free
+    def dot(u, v):
+        d = [torch.dot(ui.reshape(-1), vi.reshape(-1))
+             for ui, vi in zip(u, v)]
+        return sum(d[1:], d[0])
 
+    def where(c, u, v):
+        return tuple(torch.where(c, ui, vi) for ui, vi in zip(u, v))
 
-def _pcg_2block(matvec, b_pose, b_cam, prec_p, d_cam, opt: BAOptions,
-                x0=None):
-    """PCG over the (pose [N,6], camera [C,np]) block pair with an
-    implicit operator `matvec`. `prec_p` applies the pose preconditioner
-    (block-Jacobi [N,6,6] inverse or scalar Jacobi); the camera side is
-    scalar Jacobi on `d_cam`. Stopping rule, masking and the warm start
-    `x0 = (x0p, x0c)` as `_solve_reduced`."""
-    dinv_c = 1.0 / torch.where(d_cam > 1e-20, d_cam, torch.ones_like(d_cam))
-
-    def dot(xp, xc, yp, yc):
-        return torch.sum(xp * yp) + torch.sum(xc * yc)
-
-    bnorm2 = torch.clamp(dot(b_pose, b_cam, b_pose, b_cam), min=1e-30)
-    thresh = (opt.cg_tolerance ** 2) * bnorm2
-    xp, xc = torch.zeros_like(b_pose), torch.zeros_like(b_cam)
-    rp, rc, i0 = b_pose, b_cam, 0
+    thresh = (opt.cg_tolerance ** 2) * torch.clamp(dot(b, b), min=1e-30)
+    x, r, i0 = tuple(torch.zeros_like(bi) for bi in b), b, 0
     if x0 is not None:
         # The optimally scaled seed s x0 (s minimizes ||b - s A x0||) makes
         # ||r0|| <= ||b||; a non-finite s (a rejected NaN step, or A x0
         # overflowing) falls back to the cold start.
-        sp, sc = x0
-        Ap0, Ac0 = matvec(sp, sc)
-        s = (dot(b_pose, b_cam, Ap0, Ac0)
-             / torch.clamp(dot(Ap0, Ac0, Ap0, Ac0), min=1e-30))
+        A0 = matvec(x0)
+        s = dot(b, A0) / torch.clamp(dot(A0, A0), min=1e-30)
         ok = torch.isfinite(s)
-        xp = torch.where(ok, s * sp, xp)
-        xc = torch.where(ok, s * sc, xc)
-        rp = torch.where(ok, b_pose - s * Ap0, b_pose)
-        rc = torch.where(ok, b_cam - s * Ac0, b_cam)
+        x = where(ok, tuple(s * v for v in x0), x)
+        r = where(ok, tuple(bi - s * ai for bi, ai in zip(b, A0)), b)
         i0 = 1
-    pp, pc = prec_p(rp), dinv_c * rc
-    rz = dot(rp, rc, pp, pc)
+    p = prec(r)
+    rz = dot(r, p)
     for i in range(i0, opt.cg_iterations):
-        active = dot(rp, rc, rp, rc) > thresh
+        active = dot(r, r) > thresh
         if (i - i0) % 8 == 0 and not bool(active):
             break
-        Ap_p, Ap_c = matvec(pp, pc)
-        alpha = rz / torch.clamp(dot(pp, pc, Ap_p, Ap_c), min=1e-30)
-        xp = torch.where(active, xp + alpha * pp, xp)
-        xc = torch.where(active, xc + alpha * pc, xc)
-        rp_new = rp - alpha * Ap_p
-        rc_new = rc - alpha * Ap_c
-        zp, zc = prec_p(rp_new), dinv_c * rc_new
-        rz_new = dot(rp_new, rc_new, zp, zc)
+        Ap = matvec(p)
+        alpha = rz / torch.clamp(dot(p, Ap), min=1e-30)
+        x = where(active, tuple(xi + alpha * pi for xi, pi in zip(x, p)), x)
+        r_new = tuple(ri - alpha * ai for ri, ai in zip(r, Ap))
+        z = prec(r_new)
+        rz_new = dot(r_new, z)
         beta = rz_new / torch.clamp(rz, min=1e-30)
-        pp = torch.where(active, zp + beta * pp, pp)
-        pc = torch.where(active, zc + beta * pc, pc)
-        rp = torch.where(active, rp_new, rp)
-        rc = torch.where(active, rc_new, rc)
+        p = where(active, tuple(zi + beta * pi for zi, pi in zip(z, p)), p)
+        r = where(active, r_new, r)
         rz = torch.where(active, rz_new, rz)
-    return xp, xc
+    return x
+
+
+def _solve_reduced(S, b, free, opt: BAOptions, x0=None):
+    """Jacobi-preconditioned CG on the masked dense reduced system S;
+    frozen coordinates become identity rows and columns."""
+    S = S * free[:, None] * free[None, :] + torch.diag(1.0 - free)
+    d = torch.diagonal(S)
+    dinv = 1.0 / torch.where(torch.abs(d) > 1e-30, d, torch.ones_like(d))
+    x, = _pcg(lambda v: (S @ v[0],), (b * free,), lambda r: (dinv * r[0],),
+              opt, x0=None if x0 is None else (x0 * free,))
+    return x * free
 
 
 def _bucketize(problem: dict, options: BAOptions, device):
@@ -300,7 +265,8 @@ def _fused_step(statics, lays, opt, qvecs, tvecs, pts_list, cams, lam,
         vp_t = torch.zeros(6, Npad, **f32)     # K3's input layout
         vc_t = torch.zeros(12, C, **f32)
 
-        def matvec(vp, vc):
+        def matvec(v):
+            vp, vc = v
             vp = vp * free_pose
             vc = vc * free_cam_np
             hp = (torch.einsum("nij,nj->ni", Hcc_pose, vp)
@@ -345,10 +311,13 @@ def _fused_step(statics, lays, opt, qvecs, tvecs, pts_list, cams, lam,
 
             def prec_p(r):
                 return dinv_p * r
+        dinv_c = 1.0 / torch.where(diag_c > 1e-20, diag_c,
+                                   torch.ones_like(diag_c))
         x0 = None if warm is None else (warm[0] * free_pose,
                                         warm[1] * free_cam_np)
-        u_pose, u_cam_np = _pcg_2block(matvec, b_pose, b_cam, prec_p, diag_c,
-                                       opt, x0=x0)
+        u_pose, u_cam_np = _pcg(matvec, (b_pose, b_cam),
+                                lambda r: (prec_p(r[0]), dinv_c * r[1]), opt,
+                                x0=x0)
         u_pose = u_pose * free_pose
         u_cam_np = u_cam_np * free_cam_np
     else:

@@ -1,5 +1,5 @@
 """The port's implicit large-N BA path (K2 `fused_reduce`, K3
-`schur_matvec`, `_pcg_2block`, `cg_warm_start`) and its sequential scene
+`schur_matvec`, the two-block PCG, `cg_warm_start`) and its sequential scene
 against sba_tpu, whose Pallas kernels run in interpret mode on the CPU.
 
 Tolerances: image and point payload rows 1e-5 of their scale, 1e-4 for
@@ -16,8 +16,10 @@ float64 step, in either direction, so they cannot agree to 1e-4. The
 port's step is also held at those tolerances against the float64 step.
 """
 
+import functools
 from types import SimpleNamespace
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -105,6 +107,12 @@ def _kernel_inputs(problem, opt_j, opt_t):
     return (lay_j, st_j, par_j, pts_j), (lay_t, st_t, par_t, pts_t)
 
 
+# sba_tpu's one-step function, jitted whole (half the time of running it
+# op by op in interpret mode).
+_j_fused_step = jax.jit(functools.partial(jbf._fused_step, interpret=True),
+                        static_argnums=(1, 2))
+
+
 def _close(got, ref, tol, what):
     got = np.asarray(got, np.float64)
     ref = np.asarray(ref, np.float64)
@@ -150,7 +158,11 @@ def test_fused_reduce_twin_matches_sba_tpu(model_id, ranged):
     assert jc_t.dtype == (torch.bfloat16 if bf16 else torch.float32)
     assert (jc_j.dtype == jnp.bfloat16) == bf16
     jc_j = _f32(jc_j)
-    for r in range(lay.JCW):
+    # The port keeps the JC coupling rows; the reference pads them with
+    # zero rows to JCW.
+    assert tuple(jc_t.shape) == (lay.JC, jc_j.shape[1])
+    assert not np.any(jc_j[lay.JC:lay.JCW])
+    for r in range(lay.JC):
         _close(jc_t[r].float(), jc_j[r], 2.0 ** -8 if bf16 else 1e-4,
                f"jcorr[{r}]")
 
@@ -172,7 +184,7 @@ def test_schur_matvec_twin_matches_sba_tpu(model_id, ranged):
     out_j = np.asarray(jbk.schur_matvec(st_j, jnp.asarray(dup),
                                         jnp.asarray(duc), jc_j, lay_j,
                                         opt_j, interpret=True))
-    jc_t = torch.as_tensor(_f32(jc_j)).to(tbk.jcorr_dtype(lay, opt_t))
+    jc_t = torch.tensor(_f32(jc_j)[:lay.JC]).to(tbk.jcorr_dtype(lay, opt_t))
     out_t = tbk.schur_matvec(st_t, torch.as_tensor(dup),
                              torch.as_tensor(duc), jc_t, lay, opt_t)
     dv = 6 + lay.nparams
@@ -184,8 +196,6 @@ def test_schur_matvec_twin_matches_sba_tpu(model_id, ranged):
 def _exact_step(problem, model_id):
     """sba_tpu's explicit Schur step in float64 (Cholesky), the exact
     answer both f32 implicit steps approximate."""
-    import jax
-
     pm = jax.tree.map(
         lambda a: a.astype(jnp.float64)
         if hasattr(a, "dtype") and jnp.issubdtype(a.dtype, jnp.floating)
@@ -204,9 +214,9 @@ def test_implicit_step_matches_sba_tpu(model_id, two_cameras):
     pm = j_to_point_major(problem)
     ctx = jbf.prepare(pm, opt_j)
     statics, lays, pts0, idx_j, prob, options, free_arrays = ctx
-    out_j = jbf._fused_step(statics, lays, options, prob.qvecs, prob.tvecs,
-                            pts0, prob.cam_params, jnp.float32(_LAM),
-                            free_arrays, interpret=True)
+    out_j = _j_fused_step(statics, lays, options, prob.qvecs, prob.tvecs,
+                          pts0, prob.cam_params, jnp.float32(_LAM),
+                          free_arrays)
     ctx = tbf.prepare(problem_from_numpy(_numpy_fields(pm), "cpu",
                                          torch.float32), opt_t)
     statics, lays, pts0, idx_t, prob, options, free_arrays = ctx
@@ -233,21 +243,53 @@ def test_implicit_step_matches_sba_tpu(model_id, two_cameras):
     np.testing.assert_allclose(float(ginf_t), float(ginf_j), rtol=1e-4)
 
 
+_SEQ40 = dict(num_images=40, num_points=500, track_len=5, pose_noise=0.005,
+              point_noise=0.03, pixel_noise=0.5, seed=3)
+
+
+def _fresh_reference_loop(monkeypatch):
+    """A fresh jit of sba_tpu's LM loop (a new function, so that no
+    cached trace is reused): a patch of a function it calls is traced in."""
+    def loop(statics, lays, pts0, problem, options, free_arrays,
+             axis_name=None, interpret=False):
+        return jbf._fused_lm_loop_impl(statics, lays, pts0, problem,
+                                       options, free_arrays, axis_name,
+                                       interpret)
+
+    monkeypatch.setattr(jbf, "_fused_lm_loop", jax.jit(
+        loop, static_argnames=("lays", "options", "axis_name", "interpret")))
+
+
+def _nudge_jcorr(fused_reduce):
+    """`fused_reduce` whose bf16 couplings have 8 entries moved by one
+    bf16 ulp: what a one-ulp difference in an f32 coupling does when it
+    crosses a rounding boundary."""
+    rows = np.array([0, 5, 11, 17, 20, 24, 3, 9])
+    cols = np.array([3, 101, 377, 640, 901, 1203, 1555, 1999])
+
+    def nudged(*args, **kw):
+        img, pt, jw, jc = fused_reduce(*args, **kw)
+        u = jax.lax.bitcast_convert_type(jc, jnp.uint16)
+        u = u.at[rows, cols].add(jnp.uint16(1))
+        return img, pt, jw, jax.lax.bitcast_convert_type(u, jnp.bfloat16)
+    return nudged
+
+
 @pytest.mark.parametrize("bf16", [False, True])
-def test_ranged_implicit_solve_matches_sba_tpu(bf16):
+def test_ranged_implicit_solve_matches_sba_tpu(bf16, monkeypatch):
     """A whole ranged implicit solve on a 40-image sequential scene:
     final cost rtol 1e-3 and rotations atol 5e-3 against sba_tpu.
     Translations: atol 5e-3 with f32 couplings. With bf16 couplings an
     entry that two correct f32 evaluations put on either side of a bf16
     rounding boundary differs by one bf16 ulp, and the inexact trust-
     region solve then moves along the corridor's soft mode on its own
-    path (0.01-0.08 apart in tvecs after 8-15 iterations, at equal cost);
-    there the port's translations must be as close to the true poses as
-    sba_tpu's (within 1.5x, plus 5e-3)."""
-    kw = dict(num_images=40, num_points=500, track_len=5, pose_noise=0.005,
-              point_noise=0.03, pixel_noise=0.5, seed=3)
-    problem_j, truth = j_make_sequential(**kw)
-    fields, _ = t_make_sequential_numpy(**kw)
+    path. The witness: sba_tpu against itself with 8 couplings nudged by
+    one ulp ends as far apart in tvecs (more than 5e-3) at the same cost.
+    So there the port's translations must be as close to the true poses
+    as sba_tpu's (within 1.5x, plus 5e-3); the bf16 step itself is held
+    against sba_tpu's by test_bf16_implicit_step_matches_sba_tpu."""
+    problem_j, truth = j_make_sequential(**_SEQ40)
+    fields, _ = t_make_sequential_numpy(**_SEQ40)
     problem_t = problem_from_numpy(fields, "cpu", torch.float32)
     opts = dict(model_id=0, max_iterations=8, dtype="float32",
                 fused_mode="implicit", fused_ranged="on", matvec_bf16=bf16)
@@ -266,10 +308,104 @@ def test_ranged_implicit_solve_matches_sba_tpu(bf16):
     if not bf16:
         np.testing.assert_allclose(out_t.tvecs.numpy(),
                                    np.asarray(out_j.tvecs), atol=5e-3)
-    else:
-        err_t = np.abs(out_t.tvecs.numpy() - truth["tvecs"]).max()
-        err_j = np.abs(np.asarray(out_j.tvecs) - truth["tvecs"]).max()
-        assert err_t <= 1.5 * err_j + 5e-3, (err_t, err_j)
+        return
+    _fresh_reference_loop(monkeypatch)
+    monkeypatch.setattr(jbk, "fused_reduce", _nudge_jcorr(jbk.fused_reduce))
+    out_n, s_n = jbf.solve_prepared(ctx_j, interpret=True)
+    t_j = np.asarray(out_j.tvecs)
+    spread = {"sba_tpu, 8 couplings nudged": np.asarray(out_n.tvecs),
+              "the port": out_t.tvecs.numpy()}
+    spread = {k: float(np.abs(v - t_j).max()) for k, v in spread.items()}
+    print(f"tvecs max |d| from sba_tpu: {spread}; final cost sba_tpu "
+          f"{float(s_j.final_cost)}, nudged {float(s_n.final_cost)}, port "
+          f"{float(s_t.final_cost)}")
+    assert spread["sba_tpu, 8 couplings nudged"] > 5e-3, spread
+    np.testing.assert_allclose(float(s_n.final_cost), float(s_j.final_cost),
+                               rtol=1e-3)
+    err_t = np.abs(out_t.tvecs.numpy() - truth["tvecs"]).max()
+    err_j = np.abs(t_j - truth["tvecs"]).max()
+    assert err_t <= 1.5 * err_j + 5e-3, (err_t, err_j)
+
+
+def test_bf16_implicit_step_matches_sba_tpu():
+    """One implicit step with bf16 couplings on the 40-image scene, the
+    PCG run to 1e-9: u at 5e-3 of its scale against sba_tpu. The port's
+    own step with f32 couplings must lie more than 4x that tolerance
+    away, so a matvec that read the couplings wrongly could not pass."""
+    problem_j, _ = j_make_sequential(**_SEQ40)
+    fields, _ = t_make_sequential_numpy(**_SEQ40)
+    opts = dict(model_id=0, dtype="float32", fused_mode="implicit",
+                fused_ranged="on", matvec_bf16=True, cg_iterations=200,
+                cg_tolerance=1e-9)
+    statics, lays, pts0, _, prob, opt, free = jbf.prepare(problem_j,
+                                                          JOpt(**opts))
+    u_j, _, _, pred_j, _ = _j_fused_step(
+        statics, lays, opt, prob.qvecs, prob.tvecs, pts0, prob.cam_params,
+        jnp.float32(_LAM), free)
+    statics, lays, pts0, _, prob, opt, free = tbf.prepare(
+        problem_from_numpy(fields, "cpu", torch.float32), TOpt(**opts))
+    assert tbk.jcorr_dtype(lays[0], opt) == torch.bfloat16
+    lam = torch.tensor(_LAM, dtype=torch.float32)
+    u_t, _, _, pred_t, _ = tbf._fused_step(
+        statics, lays, opt, prob.qvecs, prob.tvecs, pts0, prob.cam_params,
+        lam, free)
+    opt32 = TOpt(**dict(opts, matvec_bf16=False))
+    u_32 = tbf._fused_step(statics, lays, opt32, prob.qvecs, prob.tvecs,
+                           pts0, prob.cam_params, lam, free)[0]
+    scale = float(np.abs(np.asarray(u_j)).max())
+    d_ref = float(np.abs(u_t.numpy() - np.asarray(u_j)).max()) / scale
+    d_32 = float((u_t - u_32).abs().max()) / scale
+    print(f"bf16 step: |u - sba_tpu's| {d_ref:.2e}, |u - f32 couplings' "
+          f"u| {d_32:.2e} of scale")
+    assert d_32 > 4 * 5e-3, d_32
+    _close(u_t, u_j, 5e-3, "u_pose")
+    np.testing.assert_allclose(float(pred_t), float(pred_j), rtol=1e-4)
+
+
+def test_pcg_iterations_match_sba_tpu(monkeypatch):
+    """CG iterations (matvecs) per LM iteration at the default stopping
+    rule (cg_tolerance 1e-2, at most 100): the port checks convergence
+    every 8th iteration, so it runs the reference's count or up to 7
+    more, and never past the cap."""
+    kw = dict(num_images=40, num_points=2000, track_len=7, pose_noise=0.005,
+              point_noise=0.02, pixel_noise=0.5, seed=0)
+    opts = dict(model_id=0, max_iterations=3, dtype="float32",
+                fused_mode="implicit", function_tolerance=0.0,
+                gradient_tolerance=0.0, parameter_tolerance=0.0)
+    ref, port = [], []
+    pcg_j, pcg_t = jbf._pcg_2block, tbf._pcg
+
+    def counted_j(matvec, *args, **kw):
+        def mv(p, c):
+            jax.debug.callback(lambda: ref.append(1), ordered=True)
+            return matvec(p, c)
+        jax.debug.callback(lambda: ref.append(0), ordered=True)
+        return pcg_j(mv, *args, **kw)
+
+    def counted_t(matvec, *args, **kw):
+        port.append(0)
+
+        def mv(v):
+            port[-1] += 1
+            return matvec(v)
+        return pcg_t(mv, *args, **kw)
+
+    _fresh_reference_loop(monkeypatch)
+    monkeypatch.setattr(jbf, "_pcg_2block", counted_j)
+    monkeypatch.setattr(tbf, "_pcg", counted_t)
+    problem_j, _ = j_make_sequential(**kw)
+    _, s_j = jbf.bundle_adjust_fused(problem_j, JOpt(**opts),
+                                     interpret=True)
+    jax.effects_barrier()
+    fields, _ = t_make_sequential_numpy(**kw)
+    _, s_t = tbf.bundle_adjust_fused(
+        problem_from_numpy(fields, "cpu", torch.float32), TOpt(**opts))
+    ref = [len(run) for run in "".join(map(str, ref)).split("0")[1:]]
+    print(f"CG iterations per LM iteration: sba_tpu {ref}, port {port}")
+    assert len(ref) == len(port) == int(s_j.num_iterations) == 3
+    for r, p in zip(ref, port):
+        assert r <= p <= min(r + 7, 100), (ref, port)
+    assert min(ref) < 100, ref   # the stopping rule, not only the cap
 
 
 @pytest.mark.parametrize("mode", ["dense", "implicit"])
