@@ -27,10 +27,29 @@ Needs one CUDA card and nvcc (found through torch's CUDA_HOME, else
                      K2-K5 against their twins at these shapes;
 7. cli            -- `python -m sba_tpu_torch.cli bundle_adjuster` on a
                      20-image (dense) and a 160-image (implicit) model;
-8. timing         -- per-kernel CUDA-event times against the twins and
+8. twins-mvs      -- K6 (ncc_cost) against its twin on the same CUDA
+                     tensors at 1600x1200 x 4 sources (r=3 and r=5 with
+                     step 1, r=3 with step 2; one source with a band
+                     outside its image), and the card's hypothesis cost
+                     (packed sampling + K6) against the CPU twins' at
+                     240x320;
+9. mvs            -- the dense chain at full width: an 8-view 1600x1200
+                     SIMPLE_RADIAL scene rendered on the card, written as
+                     images + a sparse model, then `image_undistorter`,
+                     `patch_match_stereo` and `stereo_fuser` of
+                     `python -m sba_tpu_torch.cli` with `--device cuda`;
+                     K6 must launch, each pass's depth maps must meet
+                     MAP_LIMITS against the analytic heightfield, the
+                     cloud must hold MIN_FUSED_POINTS and lie on the
+                     heightfield (median vertical error under 1%, 80th
+                     percentile under 3% of the median depth); then one
+                     warm photometric solve in process
+                     (Mpix*iterations/s, peak device memory);
+10. timing        -- per-kernel CUDA-event times against the twins and
                      the memory/compute bound;
-9. profile        -- device time by kernel over one warm solve of the
-                     headline and of the 1024-image scene
+11. profile       -- device time by kernel over one warm solve of the
+                     headline, of the 1024-image scene and of one
+                     1600x1200 photometric PatchMatch solve
                      (torch.profiler), and the device's busy share.
 
 Prints one progress line per phase, a `{"kernels": [...]}` line, the
@@ -58,14 +77,17 @@ T0 = time.perf_counter()
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
-SOURCE = "sba_tpu_torch/csrc/ba_kernels.cu"
+BA_SOURCE = "sba_tpu_torch/csrc/ba_kernels.cu"
 REPLACES = {
     "fused_schur": "sba_tpu/ops/ba_kernels.py:945",
     "fused_reduce": "sba_tpu/ops/ba_kernels.py:1035",
     "schur_matvec": "sba_tpu/ops/ba_kernels.py:1171",
     "backsub": "sba_tpu/ops/ba_kernels.py:1298",
     "fused_cost": "sba_tpu/ops/ba_kernels.py:1381",
+    "ncc_cost": "sba_tpu/mvs/patch_match.py:253",
 }
+SOURCES = dict({k: BA_SOURCE for k in REPLACES},
+               ncc_cost="sba_tpu_torch/csrc/patch_match_kernels.cu")
 DENSE_KERNELS = ("fused_schur", "backsub", "fused_cost")
 IMPLICIT_KERNELS = ("fused_reduce", "schur_matvec", "backsub", "fused_cost")
 HEADLINE = dict(num_images=128, num_points=30_000, observations_per_point=7,
@@ -74,6 +96,32 @@ HEADLINE = dict(num_images=128, num_points=30_000, observations_per_point=7,
 LARGE = dict(num_images=1024, num_points=120_000, track_len=7,
              pose_noise=0.005, point_noise=0.02, pixel_noise=0.5, seed=0)
 HUGE = dict(LARGE, num_images=10_240, num_points=1_200_000)
+# The dense MVS scene: 8 rendered views at the PatchMatch image cap of
+# COLMAP's medium-quality preset (1600 px), SIMPLE_RADIAL lens; sba_tpu's
+# PatchMatch defaults (window radius 3, 8 iterations, 2 random samples,
+# 4 sources per view, photometric then geometric pass).
+MVS_SCENE = dict(num_images=8, image_size=(1600, 1200),
+                 model_name="SIMPLE_RADIAL", extra_params=(-0.05,), seed=0)
+NCC_CASES = ((3, 1), (5, 1), (3, 2))      # (window radius, window step)
+# sba_tpu's PatchMatch scores a hypothesis by its depth alone (the normal
+# cancels in the collapsed warp), so its normals are not fitted and
+# fusion's 10-degree normal test leaves next to no points; the smoke
+# fuses on depth consistency across 3 views alone.
+FUSION_FLAGS = ("--StereoFusion.max_normal_error", "180")
+# Limits on the scene's depth maps against the heightfield (means over
+# the views, utils/mvs_accuracy.py) and on the fused cloud's size, set
+# from the maps measured on an H100 with a margin. At sba_tpu's defaults
+# the search does not converge (PERF.md section 6): the median and p80
+# errors of its maps are no better than those of its random initial
+# maps, so those two limits only cap a regression. The valid shares,
+# the shares within 1% and the cloud's size are what the solve gains
+# over its start; their limits lie between the measured maps and the
+# random initial ones (0 iterations), which fail them.
+MAP_LIMITS = {
+    "photometric": dict(valid=0.97, median=0.385, p80=0.545, within1=0.012),
+    "geometric": dict(valid=0.002, median=0.25, p80=0.40, within1=0.04),
+}
+MIN_FUSED_POINTS = 30
 # bench.py's solve settings: a fixed iteration count.
 FIXED_IT = dict(dtype="float32", cg_iterations=100, function_tolerance=0.0,
                 gradient_tolerance=0.0, parameter_tolerance=0.0)
@@ -152,7 +200,7 @@ def phase_build():
     path, compiler_log = cuda_build.build()
     dt = time.perf_counter() - t
     for line in compiler_log.splitlines():
-        if "registers" in line or "spill" in line.lower():
+        if any(k in line for k in ("registers", "spill", "entry function")):
             log("build", "ptxas " + line.strip())
     cuda_build.lib()
     log("build", f"built {path.name} in {dt:.1f} s")
@@ -635,6 +683,251 @@ def phase_cli():
         _run_cli(rec, f"{n_img} images", 20, kernels, other)
 
 
+def _mvs_problem(scene, ref, srcs, device):
+    """One PatchMatch problem of a rendered scene as float32 tensors:
+    (ref image, source images, K, Ks, Rs, ts, true depth of ref), with
+    K the pinhole part of the lens."""
+    import numpy as np
+    import torch
+
+    from sba_tpu_torch.mvs.patch_match import relative_pose
+
+    p = scene["camera"]["params"]
+    K = np.array([[p[0], 0, p[1]], [0, p[0], p[2]], [0, 0, 1.0]])
+    imgs = scene["images"].astype(np.float32) / 255.0
+    Rs, ts = zip(*[relative_pose(scene["qvecs"][ref], scene["tvecs"][ref],
+                                 scene["qvecs"][s], scene["tvecs"][s])
+                   for s in srcs])
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                               device=device)
+
+    return (f32(imgs[ref]), f32(imgs[list(srcs)]), f32(K),
+            f32(np.stack([K] * len(srcs))), f32(np.stack(Rs)),
+            f32(np.stack(ts)), f32(scene["depths"][ref]))
+
+
+def phase_twins_mvs(scene):
+    """K6 against its twin at the full shape; the card's hypothesis cost
+    against the CPU twins'. Returns (max abs K6 error, K6's inputs)."""
+    import torch
+
+    from sba_tpu_torch.mvs import patch_match as pm
+    from sba_tpu_torch.ops import patch_match_kernels as pk
+    from sba_tpu_torch.utils.render import render_scene
+
+    ref, srcs, K, Ks, Rs, ts, depth = _mvs_problem(scene, 0, (1, 2, 3, 4),
+                                                   "cuda")
+    packed = [pm._pack_intensity_nbhd(s) for s in srcs]
+    v, inb = pm._warp_sources(ref, srcs, torch.linalg.inv(K), Ks, Rs, ts,
+                              depth, packed)
+    v[3, :, :240] = 0.0            # one source with a band outside it
+    inb[3, :, :240] = False
+    S, H, W = v.shape
+    err = 0.0
+    for r, step in NCC_CASES:
+        c_k = pk.ncc_cost(ref, v, inb, r, step, 3.0, 0.2)
+        c_p = pk.ncc_cost_plain(ref, v, inb, r, step, 3.0, 0.2)
+        torch.cuda.synchronize()
+        e = max_err(c_k, c_p)
+        gated = int((c_k == 2.0).sum())
+        require(e <= 2e-4, f"ncc_cost r={r} step={step}: max |err| {e:.3e} "
+                "> 2e-4")
+        require(0 < gated < c_k.numel(), f"ncc_cost r={r} step={step}: "
+                f"{gated} gated pixels")
+        err = max(err, e)
+        log("twins-mvs", f"ncc_cost {S}x{H}x{W} r={r} step={step}: matches "
+            f"its twin, max |err| {e:.3e} (atol 2e-4), {gated} pixels at "
+            f"cost 2.0")
+    # The hypothesis cost on the card (packed u8 sampling + K6) against
+    # the CPU twins (exact sampling + twin) on one depth state: on 8-bit
+    # images the two samplers agree to float32 rounding, which NCC
+    # amplifies by 1/sqrt(var_r var_v) in flat windows: atol 2e-3.
+    small = render_scene(num_images=5, image_size=(320, 240), seed=1,
+                         device="cuda")
+    gen = torch.Generator().manual_seed(0)
+    noise = 1.0 + 0.05 * (torch.rand(240, 320, generator=gen) - 0.5)
+    normal = torch.zeros(240, 320, 3)
+    normal[..., 2] = -1.0
+    costs = {}
+    for dev in ("cuda", "cpu"):
+        r_, s_, K_, Ks_, Rs_, ts_, d_ = _mvs_problem(small, 2, (0, 1, 3, 4),
+                                                     dev)
+        costs[dev] = pm._cost_for_hypothesis(
+            r_, s_, torch.linalg.inv(K_), Ks_, Rs_, ts_,
+            d_ * noise.to(dev), normal.to(dev), pm.PatchMatchOptions(),
+            src_packed=[pm._pack_intensity_nbhd(x) for x in s_]
+            if dev == "cuda" else None)
+    e = max_err(costs["cuda"].cpu(), costs["cpu"])
+    require(e <= 2e-3, f"hypothesis cost card vs CPU twins: {e:.3e} > 2e-3")
+    log("twins-mvs", f"_cost_for_hypothesis 240x320 x 4 sources, card vs "
+        f"CPU twins: max |err| {e:.3e} (atol 2e-3)")
+    return err, (ref, v, inb)
+
+
+def phase_mvs(scene):
+    """The dense chain through the CLI on the rendered scene, checked
+    against the analytic heightfield; then one warm photometric solve in
+    process. Returns (K6 launches of patch_match_stereo, the in-process
+    solve as a callable, its warm wall ms)."""
+    import numpy as np
+    import torch
+
+    from sba_tpu_torch.mvs import PatchMatchOptions, patch_match_stereo
+    from sba_tpu_torch.ops import cuda_build
+    from sba_tpu_torch.ops import patch_match_kernels as pk
+    from sba_tpu_torch.utils import mvs_accuracy
+    from sba_tpu_torch.utils.render import (_Heightfield,
+                                            gt_sparse_reconstruction,
+                                            write_scene_images)
+
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="mvs_smoke_",
+                                 dir=cuda_build.BUILD_DIR))
+    try:
+        t = time.perf_counter()
+        names = write_scene_images(scene, str(work / "images"))
+        rec = gt_sparse_reconstruction(scene, names, stride=40)
+        rec.write(str(work / "sparse"))
+        log("mvs", f"wrote {len(names)} images and a sparse model of "
+            f"{len(rec.points3D)} points in {time.perf_counter() - t:.1f} s")
+        ws = work / "dense"
+        env = dict(os.environ, PYTHONPATH=str(ROOT))
+        out = {}
+        for args in (
+                ["image_undistorter", "--image_path", work / "images",
+                 "--input_path", work / "sparse", "--output_path", ws],
+                ["patch_match_stereo", "--workspace_path", ws],
+                ["stereo_fuser", "--workspace_path", ws, "--output_path",
+                 ws / "fused.ply", *FUSION_FLAGS]):
+            budget = max(30.0, DEADLINE_S - (time.perf_counter() - T0) - 60)
+            t = time.perf_counter()
+            res = subprocess.run(
+                [sys.executable, "-m", "sba_tpu_torch.cli",
+                 *map(str, args), "--device", "cuda"], cwd=ROOT, env=env,
+                capture_output=True, text=True, timeout=budget)
+            dt = time.perf_counter() - t
+            require(res.returncode == 0, f"{args[0]} exit {res.returncode}:"
+                    f"\n{res.stdout}\n{res.stderr}")
+            out[args[0]] = res.stdout
+            lines = [l for l in res.stdout.splitlines()
+                     if not l.startswith("wall seconds")]
+            log("mvs", f"{args[0]} in {dt:.1f} s: " + " | ".join(
+                l.strip() for l in lines[-4:]))
+        k = re.search(r"kernel launches: (\{.*\})", out["patch_match_stereo"])
+        w = re.search(r"wall seconds per view: (\{.*\})",
+                      out["patch_match_stereo"])
+        require(k is not None and w is not None,
+                f"unexpected patch_match_stereo output:\n"
+                f"{out['patch_match_stereo']}")
+        launches = json.loads(k.group(1))["ncc_cost"]
+        secs = json.loads(w.group(1))
+        n_solves = len(secs["photometric"]) + len(secs["geometric"])
+        require(n_solves == 2 * MVS_SCENE["num_images"],
+                f"{n_solves} solves, not two per view: {secs}")
+        require(launches > 0, "patch_match_stereo never launched K6")
+        W, H = MVS_SCENE["image_size"]
+        its = PatchMatchOptions().num_iterations
+        for kind, per_view in secs.items():
+            t_med = float(np.median(list(per_view.values())))
+            log("mvs", f"{kind} pass: per-view wall s "
+                + ", ".join(f"{v:.3f}" for v in per_view.values())
+                + f"; median {t_med:.3f} s = "
+                f"{H * W * its / t_med / 1e6:.2f} Mpix*iterations/s")
+        log("mvs", f"K6 launches {launches} over {n_solves} solves = "
+            f"{launches / n_solves:.1f} per solve")
+        field = _Heightfield(5.0, 0.55, MVS_SCENE["seed"])
+        for kind, a in mvs_accuracy.depth_map_accuracy(ws, field,
+                                                       "cuda").items():
+            lim = MAP_LIMITS[kind]
+            log("mvs", f"{kind} depth maps vs the heightfield (means over "
+                f"views): valid {a['valid']:.4f} (>= {lim['valid']}), "
+                f"median |err| {a['median']:.4f} (<= {lim['median']}), "
+                f"p80 {a['p80']:.4f} (<= {lim['p80']}), within 1% "
+                f"{a['within1']:.4f} (>= {lim['within1']}) of the valid "
+                "pixels")
+            require(a["valid"] >= lim["valid"]
+                    and a["median"] <= lim["median"]
+                    and a["p80"] <= lim["p80"]
+                    and a["within1"] >= lim["within1"],
+                    f"{kind} depth maps outside their limits")
+        xyz = mvs_accuracy.read_ply_xyz(ws / "fused.ply")
+        c = mvs_accuracy.cloud_accuracy(xyz, field)
+        md = float(np.median(scene["depths"]))
+        log("mvs", f"fused {c['points']} points (>= {MIN_FUSED_POINTS}); "
+            f"vertical distance to the heightfield: median "
+            f"{c['median']:.5f}, p80 {c['p80']:.5f} (median depth "
+            f"{md:.4f}: {100 * c['median'] / md:.3f}% and "
+            f"{100 * c['p80'] / md:.3f}%)")
+        require(c["points"] >= MIN_FUSED_POINTS and np.isfinite(xyz).all(),
+                f"fused cloud: {c['points']} points")
+        require(c["median"] < 0.01 * md and c["p80"] < 0.03 * md,
+                "fused cloud off the heightfield")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # One warm photometric solve in process at the full shape (view 0
+    # against views 1-4, the pinhole part of the lens, the true depths'
+    # range widened as the CLI widens the sparse points').
+    ref, srcs, K, Ks, Rs, ts, depth = _mvs_problem(scene, 0, (1, 2, 3, 4),
+                                                   "cuda")
+    opt = PatchMatchOptions(depth_min=0.5 * float(depth.min()),
+                            depth_max=2.0 * float(depth.max()),
+                            geom_consistency=False)
+
+    def solve():
+        patch_match_stereo(ref, srcs, K, Ks, Rs, ts, options=opt,
+                           generator=torch.Generator("cuda").manual_seed(0))
+        return 1
+
+    solve()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pk.reset_launches()
+    t = time.perf_counter()
+    solve()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    log("mvs", f"warm photometric solve {H}x{W} x 4 sources: {ms:.1f} ms "
+        f"= {H * W * opt.num_iterations / ms / 1e3:.2f} Mpix*iterations/s, "
+        f"{pk.LAUNCHES['ncc_cost']} K6 launches; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    return launches, solve, ms
+
+
+def _ncc_bound(S, H, W, r, step):
+    """Least time of one K6 launch: max(bytes / HBM rate, operations /
+    f32 rate). Bytes: ref, v (f32) and inb (u8) read once, cost written
+    once. Operations (kernel source; a fused multiply-add is 2, expf 1):
+    per tap, 11 that depend on the reference alone (the difference from
+    the centre, its square and scaling, expf, the weight, w*r, SW, SR,
+    SRR), which the function needs once per pixel, and 8 per source (w*v,
+    SV, SVV, SRV, FIN); in the epilogue 5 per pixel and 15 per source."""
+    K = (2 * r // step + 1) ** 2
+    t_b = (H * W * 4 + S * H * W * (4 + 1 + 4)) / HBM_BYTES_PER_S
+    t_f = H * W * (K * (11 + 8 * S) + 5 + 15 * S) / F32_FLOPS_PER_S
+    return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
+
+
+def phase_timing_mvs(inputs, launches, err):
+    """K6 at the full shape (r=3, step 1): ms per launch, its twin's,
+    its bound."""
+    from sba_tpu_torch.ops import patch_match_kernels as pk
+
+    ref, v, inb = inputs
+    S, H, W = v.shape
+    ms = _time_ms(lambda: pk.ncc_cost(ref, v, inb, 3, 1, 3.0, 0.2), 20)
+    plain_ms = _time_ms(lambda: pk.ncc_cost_plain(ref, v, inb, 3, 1, 3.0,
+                                                  0.2), 3)
+    bound = _ncc_bound(S, H, W, 3, 1)
+    log("timing", f"ncc_cost ({S}x{H}x{W}, 49 taps): {ms:.4f} ms per "
+        f"launch, twin {plain_ms:.3f} ms, bound {bound[0]:.4f} ms "
+        f"({bound[1]})")
+    return {"ncc_cost": _kernel_row("ncc_cost", {"ncc_cost": launches},
+                                    {"ncc_cost": err}, ms, plain_ms, bound)}
+
+
 def _time_ms(fn, reps):
     import torch
 
@@ -727,7 +1020,7 @@ def _bounds(statics, lays, opt, kernels):
 
 
 def _kernel_row(name, launches, errs, ms, plain_ms, bound):
-    return dict(name=name, route="cuda", source=SOURCE,
+    return dict(name=name, route="cuda", source=SOURCES[name],
                 replaces=REPLACES[name], launches=launches[name],
                 max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
                 bound_ms=bound[0], bound_by=bound[1], library_ms=None)
@@ -832,21 +1125,21 @@ def phase_timing_implicit(ctx, launches, errs, k3_per_it):
     return rows
 
 
-def phase_profile(ctx, label):
-    """Device time by kernel over one warm solve (torch.profiler). Busy
-    time sums the device-side events only (kernels, copies, sets): an
-    aten op's own device total repeats the kernels it launched."""
+def _profile(label, solve, unit):
+    """Device time by kernel over one warm call of `solve` (which returns
+    its count of `unit`s) under torch.profiler. Busy time sums the
+    device-side events only (kernels, copies, sets): an aten op's own
+    device total repeats the kernels it launched. Returns busy us per
+    unit, or None when the profiler saw no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from sba_tpu_torch.optim import ba_fused
 
     torch.cuda.synchronize()
     t = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, s = ba_fused.solve_prepared(ctx)
+        n = solve()
         torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t) * 1e6
     kernels = [e for e in prof.key_averages()
@@ -862,24 +1155,46 @@ def phase_profile(ctx, label):
             "share not measured")
         return None
     ours = sum(dev_us(e) for e in kernels
-               if re.search(r"\bk[1-5]_\w+_kernel", e.key))
-    its = s.num_iterations
-    log("profile", f"{label}, {its} LM it: device time {busy / 1e3:.2f} ms "
-        f"= {busy / 1e3 / its:.3f} ms/it; our CUDA kernels "
-        f"{ours / 1e3 / its:.3f} ms/it, all other device work "
-        f"{(busy - ours) / 1e3 / its:.3f} ms/it (profiled wall "
+               if re.search(r"\bk[1-6]_\w+_kernel", e.key))
+    log("profile", f"{label}, {n} {unit}: device time {busy / 1e3:.2f} ms "
+        f"= {busy / 1e3 / n:.3f} ms/{unit}; our CUDA kernels "
+        f"{ours / 1e3 / n:.3f} ms/{unit}, all other device work "
+        f"{(busy - ours) / 1e3 / n:.3f} ms/{unit} (profiled wall "
         f"{wall_us / 1e3:.1f} ms, inflated by the profiler)")
     for e in sorted(kernels, key=dev_us, reverse=True)[:12]:
         log("profile", f"{dev_us(e) / 1e3:8.3f} ms {e.count:6d}x "
             f"{e.key[:70]}")
-    return busy / its
+    return busy / n
 
 
-def _log_busy(label, dev_us_per_it, ms_per_it):
-    if dev_us_per_it:
-        log("profile", f"{label}: device busy {dev_us_per_it / 1e3:.3f} ms "
-            f"of the {ms_per_it:.3f} ms warm LM iteration = "
-            f"{100 * dev_us_per_it / 1e3 / ms_per_it:.1f}%")
+def phase_profile(ctx, label):
+    """Device time by kernel over one warm BA solve."""
+    from sba_tpu_torch.optim import ba_fused
+
+    return _profile(label, lambda: ba_fused.solve_prepared(ctx)[1]
+                    .num_iterations, "LM it")
+
+
+def _log_busy(label, dev_us_per_unit, ms_per_unit, unit="LM iteration"):
+    if dev_us_per_unit:
+        log("profile", f"{label}: device busy {dev_us_per_unit / 1e3:.3f} "
+            f"ms of the {ms_per_unit:.3f} ms warm {unit} = "
+            f"{100 * dev_us_per_unit / 1e3 / ms_per_unit:.1f}%")
+
+
+def phase_mvs_scene():
+    """The 8-view 1600x1200 scene, rendered on the card."""
+    import torch
+
+    from sba_tpu_torch.utils.render import render_scene
+
+    t = time.perf_counter()
+    scene = render_scene(device="cuda", **MVS_SCENE)
+    torch.cuda.synchronize()
+    log("mvs", f"rendered {MVS_SCENE['num_images']} views of "
+        f"{MVS_SCENE['image_size']} ({MVS_SCENE['model_name']}) in "
+        f"{time.perf_counter() - t:.1f} s")
+    return scene
 
 
 def main() -> int:
@@ -908,12 +1223,22 @@ def main() -> int:
                                                     phase_main_implicit)
     run("large-ranged", phase_large_ranged, errs)
     run("cli", phase_cli)
+    scene = run("mvs", phase_mvs_scene)
+    ncc_err, ncc_inputs = run("twins-mvs", phase_twins_mvs, scene)
+    ncc_launches, pm_solve, pm_ms = run("mvs", phase_mvs, scene)
+    del scene
     rows = run("timing", phase_timing, ctx, launches, errs)
     rows.update(run("timing", phase_timing_implicit, ctx_i, launches_i,
                     errs, k3_per_it))
+    rows.update(run("timing", phase_timing_mvs, ncc_inputs, ncc_launches,
+                    ncc_err))
+    del ncc_inputs
     for label, c, ms in (("headline (dense)", ctx, ms_per_it),
                          ("1024 images (implicit)", ctx_i, ms_per_it_i)):
         _log_busy(label, run("profile", phase_profile, c, label), ms)
+    label = "PatchMatch photometric 1600x1200"
+    _log_busy(label, run("profile", _profile, label, pm_solve, "solve"),
+              pm_ms, "solve")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

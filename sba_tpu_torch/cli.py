@@ -1,20 +1,30 @@
-"""`colmap`-style command line of the port (global BA only so far).
+"""`colmap`-style command line of the port: global BA and the dense chain.
 
     python -m sba_tpu_torch.cli bundle_adjuster --input_path sparse/0 \
         --output_path ba/ [--device cuda] [--BundleAdjustment.dtype float32]
+    python -m sba_tpu_torch.cli image_undistorter --image_path images \
+        --input_path sparse/0 --output_path ws [--device cuda]
+    python -m sba_tpu_torch.cli patch_match_stereo --workspace_path ws
+    python -m sba_tpu_torch.cli stereo_fuser --workspace_path ws \
+        --output_path ws/fused.ply
 
-Flags follow sba_tpu's dot-namespaced style. ``--device`` (default
-"cuda") selects where the solve runs; with ``--BundleAdjustment.dtype
-float32`` on CUDA it goes through the hand-written kernels and the
-command prints their launch counts.
+Flags, file layout and printed lines follow sba_tpu's CLI. ``--device``
+(default "cuda") selects where a command runs. On CUDA, bundle_adjuster
+with ``--BundleAdjustment.dtype float32`` goes through the BA kernels and
+patch_match_stereo through the NCC kernel, and every command prints the
+launch counts of its kernels.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import sys
+import time
 from typing import List, Optional
+
+import numpy as np
 
 from sba_tpu_torch.options import apply_flags, parse_flags
 
@@ -48,7 +58,307 @@ def run_bundle_adjuster(flags):
         print("kernel launches: " + json.dumps(ba_kernels.LAUNCHES))
 
 
-COMMANDS = {"bundle_adjuster": run_bundle_adjuster}
+def _device(flags) -> str:
+    """--device (default "cuda"); a CUDA device that is absent fails."""
+    import torch
+
+    device = flags.get("device", "cuda")
+    if device != "cpu" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {device}: no CUDA device available")
+    return device
+
+
+def _sync(device):
+    import torch
+
+    if device != "cpu":
+        torch.cuda.synchronize(device)
+
+
+def _print_ncc_launches(device):
+    from sba_tpu_torch.ops import patch_match_kernels
+
+    if device != "cpu":
+        print("kernel launches: " + json.dumps(patch_match_kernels.LAUNCHES))
+
+
+def _rotmat(qvec):
+    w, x, y, z = qvec
+    return np.array([
+        [1 - 2 * y * y - 2 * z * z, 2 * x * y - 2 * z * w, 2 * x * z + 2 * y * w],
+        [2 * x * y + 2 * z * w, 1 - 2 * x * x - 2 * z * z, 2 * y * z - 2 * x * w],
+        [2 * x * z - 2 * y * w, 2 * y * z + 2 * x * w, 1 - 2 * x * x - 2 * y * y]])
+
+
+def _pinhole_K(rec, iid):
+    """3x3 intrinsics of an image's (undistorted, pinhole) camera."""
+    from sba_tpu_torch.geometry import camera_models
+
+    cam = rec.cameras[rec.images[iid].camera_id]
+    spec = camera_models.model_by_id(cam.model_id)
+    p = cam.params
+    fi = spec.focal_idxs
+    return np.array([[p[fi[0]], 0, p[spec.principal_idxs[0]]],
+                     [0, p[fi[-1]], p[spec.principal_idxs[1]]],
+                     [0, 0, 1.0]])
+
+
+def run_image_undistorter(flags):
+    """Undistort images + model for MVS (ref: exe/image.cc:305
+    RunImageUndistorter). --output_type COLMAP writes
+    <out>/{images,sparse,stereo} + patch-match.cfg / fusion.cfg / run
+    scripts (undistortion.cc:271-300); the PMVS and CMP-MVS outputs are
+    not ported yet."""
+    import copy
+
+    import torch
+    from PIL import Image as PILImage
+
+    from sba_tpu_torch.geometry.undistortion import (
+        UndistortCameraOptions,
+        undistort_reconstruction,
+        warp_image_between_cameras,
+        write_colmap_workspace_configs,
+    )
+    from sba_tpu_torch.models.reconstruction import Reconstruction
+
+    image_path, input_path, output_path = _require(
+        flags, "image_path", "input_path", "output_path")
+    output_type = flags.get("output_type", "COLMAP")
+    if output_type not in ("COLMAP", "PMVS", "CMP-MVS"):
+        raise SystemExit("ERROR: Invalid `output_type` - supported values "
+                         "are {'COLMAP', 'PMVS', 'CMP-MVS'}.")
+    if output_type != "COLMAP":
+        raise NotImplementedError(
+            f"--output_type {output_type} is not ported yet (COLMAP only)")
+    device = _device(flags)
+    num_src = int(flags.get("num_patch_match_src_images", "20"))
+    opt = apply_flags(UndistortCameraOptions(), "UndistortCamera", flags)
+    rec = Reconstruction.read(input_path)
+    src_cams = copy.deepcopy(rec.cameras)
+    new_cams = undistort_reconstruction(rec, opt)
+
+    undistorted = {}
+    for iid, image in rec.images.items():
+        src_file = os.path.join(image_path, image.name)
+        if not os.path.exists(src_file):
+            continue
+        arr = np.asarray(PILImage.open(src_file).convert("RGB"),
+                         np.float32) / 255.0
+        warped = warp_image_between_cameras(
+            src_cams[image.camera_id], new_cams[image.camera_id],
+            torch.as_tensor(arr, device=device))
+        undistorted[iid] = torch.clamp(warped * 255, 0, 255).to(
+            torch.uint8).cpu().numpy()
+
+    img_out = os.path.join(output_path, "images")
+    os.makedirs(img_out, exist_ok=True)
+    names = []
+    for iid, image in rec.images.items():
+        if iid not in undistorted:
+            continue
+        dst = os.path.join(img_out, image.name)
+        os.makedirs(os.path.dirname(dst) or img_out, exist_ok=True)
+        PILImage.fromarray(undistorted[iid]).save(dst)
+        names.append(image.name)
+    sparse_out = os.path.join(output_path, "sparse")
+    os.makedirs(sparse_out, exist_ok=True)
+    rec.write(sparse_out)
+    write_colmap_workspace_configs(output_path, sorted(names),
+                                   num_patch_match_src_images=num_src)
+    print(f"undistorted {len(undistorted)} images "
+          f"({output_type}) -> {output_path}")
+    _print_ncc_launches(device)
+
+
+def run_patch_match_stereo(flags):
+    """Dense stereo over an undistorted workspace
+    (ref: exe/mvs.cc:81 RunPatchMatchStereo; workspace layout =
+    images/ + sparse/ + stereo/{depth_maps,normal_maps}). On CUDA every
+    hypothesis cost goes through the NCC kernel; the command then also
+    prints the wall seconds of each view's solve, per pass."""
+    import torch
+
+    from sba_tpu_torch.features.sift import load_image_gray
+    from sba_tpu_torch.models.reconstruction import Reconstruction
+    from sba_tpu_torch.mvs import PatchMatchOptions, patch_match_stereo, \
+        write_colmap_map
+    from sba_tpu_torch.mvs.patch_match import relative_pose
+
+    (workspace,) = _require(flags, "workspace_path")
+    device = _device(flags)
+    opt = apply_flags(PatchMatchOptions(), "PatchMatchStereo", flags)
+    max_src = int(flags.get("PatchMatchStereo.max_num_src_images", "4"))
+    rec = Reconstruction.read(os.path.join(workspace, "sparse"))
+    img_dir = os.path.join(workspace, "images")
+    stereo = os.path.join(workspace, "stereo")
+    os.makedirs(os.path.join(stereo, "depth_maps"), exist_ok=True)
+    os.makedirs(os.path.join(stereo, "normal_maps"), exist_ok=True)
+
+    reg = sorted(i for i in rec.images if rec.is_registered(i))
+    imgs = {}
+    for iid in reg:
+        imgs[iid] = load_image_gray(
+            os.path.join(img_dir, rec.images[iid].name))
+
+    # Source selection: most shared 3D points (ref: Workspace/model
+    # source-image ranking).
+    shared = {a: {} for a in reg}
+    for p in rec.points3D.values():
+        track = [int(i) for i in p.image_ids]
+        for a in track:
+            for b in track:
+                if a != b and a in shared:
+                    shared[a][b] = shared[a].get(b, 0) + 1
+
+    src_of = {iid: sorted(shared[iid], key=lambda b: -shared[iid][b])
+              [:max_src] for iid in reg}
+
+    def depth_range(iid):
+        image = rec.images[iid]
+        pids = [int(p) for p in image.point3D_ids if p != -1]
+        if pids:
+            R0 = _rotmat(image.qvec)
+            zs = np.array([
+                (R0 @ rec.points3D[p].xyz + image.tvec)[2]
+                for p in pids if p in rec.points3D])
+            zs = zs[zs > 0]
+            dmin = float(np.percentile(zs, 2) * 0.5) if len(zs) else 0.1
+            dmax = float(np.percentile(zs, 98) * 2.0) if len(zs) else 100.0
+        else:
+            dmin, dmax = opt.depth_min, opt.depth_max
+        return max(dmin, 1e-3), max(dmax, dmin * 2)
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                               device=device)
+
+    def solve_one(iid, o, src_depths=None, init_depth=None):
+        srcs = src_of[iid]
+        image = rec.images[iid]
+        Rs, ts = [], []
+        for s in srcs:
+            R, t = relative_pose(image.qvec, image.tvec,
+                                 rec.images[s].qvec, rec.images[s].tvec)
+            Rs.append(R)
+            ts.append(t)
+        return patch_match_stereo(
+            f32(imgs[iid]), f32(np.stack([imgs[s] for s in srcs])),
+            f32(_pinhole_K(rec, iid)),
+            f32(np.stack([_pinhole_K(rec, s) for s in srcs])),
+            f32(np.stack(Rs)), f32(np.stack(ts)),
+            generator=torch.Generator(device).manual_seed(iid), options=o,
+            src_depths=None if src_depths is None else f32(src_depths),
+            init_depth=None if init_depth is None else f32(init_depth))
+
+    def write_maps(iid, res, tag):
+        name = rec.images[iid].name
+        write_colmap_map(res.depth.cpu().numpy(), os.path.join(
+            stereo, "depth_maps", f"{name}.{tag}.bin"))
+        write_colmap_map(res.normal.cpu().numpy(), os.path.join(
+            stereo, "normal_maps", f"{name}.{tag}.bin"))
+
+    seconds = {"photometric": {}, "geometric": {}}
+    # Pass 1: photometric (ref: PatchMatchController first-phase
+    # problems; maps named *.photometric.bin).
+    photo_depth = {}
+    opts_of = {}
+    for iid in reg:
+        if not src_of[iid]:
+            continue
+        dmin, dmax = depth_range(iid)
+        o = dataclasses.replace(opt, depth_min=dmin, depth_max=dmax,
+                                geom_consistency=False)
+        opts_of[iid] = o
+        t = time.perf_counter()
+        res = solve_one(iid, o)
+        _sync(device)
+        seconds["photometric"][rec.images[iid].name] = \
+            time.perf_counter() - t
+        photo_depth[iid] = res.depth.cpu().numpy()
+        write_maps(iid, res, "photometric")
+        print(f"  {rec.images[iid].name} [photometric]: depth "
+              f"[{o.depth_min:.2f}, {o.depth_max:.2f}], "
+              f"{len(src_of[iid])} sources, mean cost "
+              f"{float(res.cost.mean()):.3f}")
+
+    # Pass 2: geometric consistency against the photometric depths of
+    # the source views, warm-started from the photometric result
+    # (ref: second-phase problems; *.geometric.bin).
+    if opt.geom_consistency:
+        for iid in photo_depth:
+            srcs = src_of[iid]
+            if any(s not in photo_depth for s in srcs):
+                continue
+            o = dataclasses.replace(opts_of[iid], geom_consistency=True)
+            t = time.perf_counter()
+            res = solve_one(iid, o, src_depths=np.stack(
+                [photo_depth[s] for s in srcs]),
+                init_depth=photo_depth[iid])
+            _sync(device)
+            seconds["geometric"][rec.images[iid].name] = \
+                time.perf_counter() - t
+            write_maps(iid, res, "geometric")
+            print(f"  {rec.images[iid].name} [geometric]: mean cost "
+                  f"{float(res.cost.mean()):.3f}")
+    print(f"stereo maps -> {stereo}")
+    if device != "cpu":
+        print("wall seconds per view: " + json.dumps(seconds))
+    _print_ncc_launches(device)
+
+
+def run_stereo_fuser(flags):
+    """Fuse stereo depth maps into a dense cloud
+    (ref: exe/mvs.cc:138 RunStereoFuser)."""
+    from sba_tpu_torch.features.sift import load_image_gray
+    from sba_tpu_torch.models.reconstruction import Reconstruction
+    from sba_tpu_torch.mvs import StereoFusionOptions, fuse_depth_maps, \
+        read_colmap_map
+    from sba_tpu_torch.mvs.fusion import write_fused_ply, write_fused_vis
+
+    workspace, output_path = _require(flags, "workspace_path", "output_path")
+    device = _device(flags)
+    opt = apply_flags(StereoFusionOptions(), "StereoFusion", flags)
+    rec = Reconstruction.read(os.path.join(workspace, "sparse"))
+    stereo = os.path.join(workspace, "stereo")
+    reg = sorted(i for i in rec.images if rec.is_registered(i))
+
+    depths, normals, images_g, Ks, qs, tvs = [], [], [], [], [], []
+    for iid in reg:
+        name = rec.images[iid].name
+        dp = os.path.join(stereo, "depth_maps", f"{name}.geometric.bin")
+        npth = os.path.join(stereo, "normal_maps", f"{name}.geometric.bin")
+        if not os.path.exists(dp):   # fall back to photometric maps
+            dp = os.path.join(stereo, "depth_maps",
+                              f"{name}.photometric.bin")
+            npth = os.path.join(stereo, "normal_maps",
+                                f"{name}.photometric.bin")
+        if not os.path.exists(dp):
+            continue
+        depths.append(read_colmap_map(dp))
+        normals.append(read_colmap_map(npth))
+        images_g.append(load_image_gray(
+            os.path.join(workspace, "images", name)))
+        Ks.append(_pinhole_K(rec, iid))
+        qs.append(rec.images[iid].qvec)
+        tvs.append(rec.images[iid].tvec)
+    if not depths:
+        raise SystemExit("no depth maps in workspace; run "
+                         "patch_match_stereo first")
+    cloud = fuse_depth_maps(
+        np.stack(depths), np.stack(normals), np.stack(images_g),
+        np.stack(Ks), np.stack(qs), np.stack(tvs), opt, device=device)
+    write_fused_ply(cloud, output_path)
+    # Visibility sidecar (ref: fusion.cc writes fused.ply.vis).
+    write_fused_vis(cloud, output_path + ".vis")
+    print(f"fused {len(cloud.xyz)} points -> {output_path} (+.vis)")
+    _print_ncc_launches(device)
+
+
+COMMANDS = {"bundle_adjuster": run_bundle_adjuster,
+            "image_undistorter": run_image_undistorter,
+            "patch_match_stereo": run_patch_match_stereo,
+            "stereo_fuser": run_stereo_fuser}
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -22,7 +22,8 @@ BUILD_DIR = PKG_DIR / "_build"
 # -fmad=false: products are rounded before they are added, as in the
 # plain twins (separate PyTorch ops), so that kernel and twin agree to
 # the f32 tolerances of the reference tests even where a 3x3 inverse
-# cancels; the kernels are bound by memory, not by these instructions.
+# cancels. K1-K5 are bound by memory, not by these instructions; K6 is
+# bound by its operations and pays for the unfused products.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -77,6 +78,7 @@ def build() -> tuple[Path, str]:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 _SIGNATURES = {
     # model, loss, loss_scale, schur_bf16, TP, K, Pp, Npad, C, Dk,
     # lam, par, free_sta, pts, free_pts, obs_sta, obs_img, obs_cam,
@@ -103,6 +105,10 @@ _SIGNATURES = {
     # par, pts, obs_sta, obs_img, acc, stream
     "sba_fused_cost": [_I, _I, _F, _I, _I, _I, _I,
                        _P, _P, _P, _P, _P, _P],
+    # H, W, S, r, step, sigma_spatial, inv2sc2, fin_min,
+    # ref, v, inb, cost, stream
+    "sba_ncc_cost": [_I, _I, _I, _I, _I, _D, _F, _F,
+                     _P, _P, _P, _P, _P],
 }
 
 

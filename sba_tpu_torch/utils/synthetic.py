@@ -1,7 +1,8 @@
 """Synthetic scenes for tests and benchmarks, built with numpy only.
 
-Port of `make_ba_problem`, `make_sequential_ba_problem` and
-`make_synthetic_reconstruction` from ``sba_tpu/utils/synthetic.py``: the
+Port of `make_ba_problem`, `make_sequential_ba_problem`,
+`make_synthetic_reconstruction` and `_lookat_pose` (used by
+``utils/render.py``) from ``sba_tpu/utils/synthetic.py``: the
 same geometry and the same sequence of draws from
 ``numpy.random.default_rng(seed)``, so one seed gives the same arrays.
 """
@@ -12,7 +13,7 @@ import numpy as np
 import torch
 
 from sba_tpu_torch.geometry import camera_models
-from sba_tpu_torch.geometry.quaternions import np_quat_rotate
+from sba_tpu_torch.geometry.quaternions import np_quat_rotate, rotmat_to_quat
 from sba_tpu_torch.io.colmap_models import Camera, Image
 from sba_tpu_torch.models.reconstruction import Reconstruction
 from sba_tpu_torch.optim.ba import MAXP, problem_from_numpy
@@ -250,3 +251,21 @@ def make_synthetic_reconstruction(num_images: int = 8, num_points: int = 120,
             track.append((img + 1, int(np.searchsorted(kp_rows[img], r))))
         rec.add_point3d(pts[p], track)
     return rec
+
+
+def _lookat_pose(center, target, up=(0.0, 0.0, 1.0)):
+    """World->camera pose (qvec, tvec) for a camera at `center` looking at
+    `target` (camera z forward, y down-ish)."""
+    c = np.asarray(center, np.float64)
+    z = np.asarray(target, np.float64) - c
+    z /= np.linalg.norm(z)
+    upv = np.asarray(up, np.float64)
+    x = np.cross(z, upv)
+    if np.linalg.norm(x) < 1e-8:
+        x = np.cross(z, np.array([0.0, 1.0, 0.0]))
+    x /= np.linalg.norm(x)
+    y = np.cross(z, x)
+    R = np.stack([x, y, z])  # rows = camera axes in world
+    q = rotmat_to_quat(torch.from_numpy(R)).numpy()
+    t = -R @ c
+    return q, t

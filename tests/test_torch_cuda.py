@@ -6,10 +6,13 @@ installed) run them without the repository's JAX conftest:
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
+from sba_tpu_torch.mvs import patch_match as pm
 from sba_tpu_torch.ops import ba_kernels as bk
+from sba_tpu_torch.ops import patch_match_kernels as pk
 from sba_tpu_torch.optim import ba_fused
 from sba_tpu_torch.optim.ba import BAOptions, bundle_adjust
 from sba_tpu_torch.utils.synthetic import make_ba_problem
@@ -116,3 +119,97 @@ def test_unported_pieces_raise_on_card(cuda):
     assert float(s.final_cost) < float(s.initial_cost)
     assert bk.LAUNCHES["fused_reduce"] > 0 and bk.LAUNCHES["schur_matvec"] > 0
     assert bk.LAUNCHES["fused_schur"] == 0
+
+
+@pytest.mark.parametrize("r", [3, 5])
+def test_ncc_kernel_matches_twin(cuda, r):
+    """K6 against its twin at 480x640 x 4 sources, atol 2e-4 (the
+    reference's kernel-vs-XLA tolerance), with bands outside the
+    sources."""
+    gen = torch.Generator().manual_seed(r)
+    ref = torch.rand(480, 640, generator=gen)
+    v = torch.rand(4, 480, 640, generator=gen)
+    inb = torch.ones(4, 480, 640, dtype=torch.bool)
+    inb[1, :, :50] = False
+    inb[2, 400:] = False
+    v = torch.where(inb, v, torch.zeros_like(v))
+    ref, v, inb = ref.to(cuda), v.to(cuda), inb.to(cuda)
+    pk.reset_launches()
+    c_k = pk.ncc_cost(ref, v, inb, r, 1, 3.0, 0.2)
+    c_p = pk.ncc_cost_plain(ref, v, inb, r, 1, 3.0, 0.2)
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES["ncc_cost"] == 1
+    assert float((c_k - c_p).abs().max()) <= 2e-4
+    assert bool((c_k == 2.0).any()) and bool((c_k < 2.0).any())
+    with pytest.raises(ValueError, match="float32"):
+        pk.ncc_cost(ref.double(), v.double(), inb, r, 1, 3.0, 0.2)
+
+
+def _textured_plane_views(H=60, W=80, depth0=4.0, n_src=2, seed=0):
+    """tests/test_mvs.py's fronto-parallel textured plane: a reference
+    camera at the origin and x-translated sources."""
+    from scipy.ndimage import gaussian_filter
+
+    rng = np.random.default_rng(seed)
+    K = np.array([[70.0, 0, W / 2], [0, 70.0, H / 2], [0, 0, 1.0]])
+    G, EXT = 256, 16.0
+    grid = gaussian_filter(rng.standard_normal((G, G)), 1.2)
+    grid = (grid - grid.min()) / (grid.max() - grid.min() + 1e-9)
+
+    def texture(X, Y):
+        gx = (X / EXT + 0.5) * (G - 1)
+        gy = (Y / EXT + 0.5) * (G - 1)
+        x0 = np.clip(np.floor(gx).astype(int), 0, G - 2)
+        y0 = np.clip(np.floor(gy).astype(int), 0, G - 2)
+        fx, fy = np.clip(gx - x0, 0, 1), np.clip(gy - y0, 0, 1)
+        return (grid[y0, x0] * (1 - fy) * (1 - fx)
+                + grid[y0, x0 + 1] * (1 - fy) * fx
+                + grid[y0 + 1, x0] * fy * (1 - fx)
+                + grid[y0 + 1, x0 + 1] * fy * fx)
+
+    yy, xx = np.meshgrid(np.arange(H) + 0.5, np.arange(W) + 0.5,
+                         indexing="ij")
+    rays = np.stack([xx, yy, np.ones_like(xx)], -1) @ np.linalg.inv(K).T
+    P = rays * depth0
+    ts = np.array([[0.4 * (s + 1) * (-1) ** s, 0.15 * s, 0.0]
+                   for s in range(n_src)])
+    srcs = [texture(*(P - t)[..., :2].transpose(2, 0, 1)) for t in ts]
+    # 8-bit images, as the CLI loads them (the packed sampler is lossless).
+    q = lambda a: np.round(a * 255.0) / 255.0
+    return (q(texture(P[..., 0], P[..., 1])), q(np.stack(srcs)), K,
+            np.stack([K] * n_src), np.stack([np.eye(3)] * n_src), ts)
+
+
+def test_patch_match_plane_on_card(cuda):
+    """A 60x80 textured-plane solve on the card (packed sampling, every
+    cost through K6: 161 launches) from depths 5% off the plane: it must
+    come back onto the plane by tests/test_mvs.py:93's measures (80% of
+    the pixels within 3%, median error under 1%, normals facing the
+    camera), as the same solve on the CPU twins does. (From a random
+    init neither sba_tpu nor the port meets them in 10 iterations:
+    sba_tpu puts 3.4% of the pixels within 3%.)"""
+    ref, srcs, K, Ks, Rs, ts = _textured_plane_views()
+    opt = pm.PatchMatchOptions(depth_min=1.0, depth_max=20.0,
+                               num_iterations=10, window_radius=3,
+                               filter=False)
+    gen = torch.Generator().manual_seed(0)
+    init = 4.0 * (1.0 + 0.1 * (torch.rand(60, 80, generator=gen) - 0.5))
+    fronto = torch.zeros(60, 80, 3)
+    fronto[..., 2] = -1.0
+    inner = (slice(10, -10), slice(15, -15))
+    for dev in (torch.device("cpu"), cuda):
+        t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+        pk.reset_launches()
+        res = pm.patch_match_stereo(
+            t(ref), t(srcs), t(K), t(Ks), t(Rs), t(ts),
+            generator=torch.Generator(dev).manual_seed(0), options=opt,
+            init_depth=init.to(dev), init_normal=fronto.to(dev))
+        n_launch = 1 + 10 * 2 * (8 + 2) if dev.type == "cuda" else 0
+        assert pk.LAUNCHES["ncc_cost"] == n_launch
+        rel = (res.depth.cpu().numpy()[inner] - 4.0) / 4.0
+        nz = res.normal.cpu().numpy()[inner][..., 2]
+        print(f"{dev.type}: {(abs(rel) < 0.03).mean():.3f} within 3%, "
+              f"median {np.median(abs(rel)):.4f}, nz {np.median(nz):.3f}")
+        assert (abs(rel) < 0.03).mean() > 0.8
+        assert np.median(abs(rel)) < 0.01
+        assert np.median(nz) < -0.9

@@ -29,7 +29,14 @@ def test_port_and_chip_smoke_import_without_jax():
     modules = ["sba_tpu_torch"] + [
         m.name for m in pkgutil.walk_packages(sba_tpu_torch.__path__,
                                               "sba_tpu_torch.")]
-    assert "sba_tpu_torch.ops.ba_kernels" in modules
+    for name in ("sba_tpu_torch.ops.ba_kernels",
+                 "sba_tpu_torch.ops.patch_match_kernels",
+                 "sba_tpu_torch.mvs.patch_match",
+                 "sba_tpu_torch.mvs.fusion",
+                 "sba_tpu_torch.geometry.undistortion",
+                 "sba_tpu_torch.utils.render",
+                 "sba_tpu_torch.utils.mvs_accuracy"):
+        assert name in modules, name
     res = subprocess.run(
         [sys.executable, "-c", _PROBE.format(root=str(ROOT),
                                              modules=modules)],
