@@ -45,12 +45,35 @@ Needs one CUDA card and nvcc (found through torch's CUDA_HOME, else
                      percentile under 3% of the median depth); then one
                      warm photometric solve in process
                      (Mpix*iterations/s, peak device memory);
-10. timing        -- per-kernel CUDA-event times against the twins and
-                     the memory/compute bound;
-11. profile       -- device time by kernel over one warm solve of the
-                     headline, of the 1024-image scene and of one
-                     1600x1200 photometric PatchMatch solve
-                     (torch.profiler), and the device's busy share.
+10. twins-sba     -- the map-gather kernels against their twins on the
+                     same CUDA tensors, bit for bit: B1-B4's probe entries
+                     at the probes' shapes (50 maps of 640x480 u32 words,
+                     7,526,400 samples) and the SBA path's flat form in
+                     4- and 8-byte words; the forward-mode tangent of the
+                     f64 samplers through the kernels against the CPU
+                     twins';
+11. sba           -- semantic BA at the bench_sba width (bench.py:94: 50
+                     images, 640x480, pixel step 10, soft, float32, 10
+                     LM iterations, tolerances off): the cost, the
+                     rotation error against the truth and the hard label
+                     mismatches must fall, map_gather must launch in
+                     every linearization; warm LM it/s,
+                     launches per LM iteration, peak memory; then the
+                     same scene at 12 labels (the two-map path:
+                     map_gather_pair must launch), and a small solve
+                     through the kernels against the CPU twins';
+12. cli-sba       -- `python -m sba_tpu_torch.cli semantic_bundle_adjuster`
+                     on an 8-image 640x480 model with TIFF maps, at its
+                     defaults (float64, forward mode) and in hard_numeric
+                     mode;
+13. timing        -- per-kernel CUDA-event times against the twins, the
+                     memory/compute bound and, for B1-B4, the PyTorch
+                     library call of the same function;
+14. profile       -- device time by kernel over one warm solve of the
+                     headline, of the 1024-image scene, of one 1600x1200
+                     photometric PatchMatch solve and of the bench_sba
+                     SBA solve (torch.profiler), and the device's busy
+                     share.
 
 Prints one progress line per phase, a `{"kernels": [...]}` line, the
 card's name and power limit, and as its last line
@@ -85,9 +108,36 @@ REPLACES = {
     "backsub": "sba_tpu/ops/ba_kernels.py:1298",
     "fused_cost": "sba_tpu/ops/ba_kernels.py:1381",
     "ncc_cost": "sba_tpu/mvs/patch_match.py:253",
+    # B1-B4, the SBA map-gather probes: B1, B2 and B4 compute one
+    # function (map_gather), B3 another (map_gather_pair).
+    "map_gather_b1": "benchmarks/gather_micro.py:90",
+    "map_gather_b2": "benchmarks/gather_micro.py:121",
+    "map_gather_pair_b3": "benchmarks/gather_micro2.py:113",
+    "map_gather_b4": "benchmarks/gather_micro2.py:145",
 }
+GATHER_SOURCE = "sba_tpu_torch/csrc/map_gather.cu"
 SOURCES = dict({k: BA_SOURCE for k in REPLACES},
-               ncc_cost="sba_tpu_torch/csrc/patch_match_kernels.cu")
+               ncc_cost="sba_tpu_torch/csrc/patch_match_kernels.cu",
+               **{k: GATHER_SOURCE for k in REPLACES if "gather" in k})
+# The kernel each B row times, and the probe entry that drives it.
+PROBES = {"map_gather_b1": ("map_gather", "probe_flat"),
+          "map_gather_b2": ("map_gather", "probe_rows"),
+          "map_gather_pair_b3": ("map_gather_pair", "probe_pair"),
+          "map_gather_b4": ("map_gather", "probe_take")}
+# The probes' shape: 50 maps of 640x480 words, 7,526,400 samples.
+PROBE_MAPS, PROBE_HW, PROBE_PER = 50, 640 * 480, 150_528
+# bench.py:94 bench_sba: the scene and the solve (10 LM iterations,
+# tolerances off).
+SBA_SCENE = dict(num_images=50, image_size=(640, 480), focal=500.0,
+                 pose_noise=0.003, seed=0)
+SBA_OPT = dict(pixel_step=10, max_iterations=10, mode="soft",
+               function_tolerance=0.0, gradient_tolerance=0.0,
+               parameter_tolerance=0.0)
+# The two-map path: the same scene at 12 labels (a palette over 8),
+# cut to 20 images for time.
+SBA_PAIR_SCENE = dict(SBA_SCENE, num_images=20, num_labels=12)
+# The CLI's model: 8 images of the bench_sba scene.
+SBA_CLI_SCENE = dict(SBA_SCENE, num_images=8)
 DENSE_KERNELS = ("fused_schur", "backsub", "fused_cost")
 IMPLICIT_KERNELS = ("fused_reduce", "schur_matvec", "backsub", "fused_cost")
 HEADLINE = dict(num_images=128, num_points=30_000, observations_per_point=7,
@@ -1155,7 +1205,8 @@ def _profile(label, solve, unit):
             "share not measured")
         return None
     ours = sum(dev_us(e) for e in kernels
-               if re.search(r"\bk[1-6]_\w+_kernel", e.key))
+               if re.search(r"\b(k[1-6]_\w+|b_map_gather\w*)_kernel",
+                            e.key))
     log("profile", f"{label}, {n} {unit}: device time {busy / 1e3:.2f} ms "
         f"= {busy / 1e3 / n:.3f} ms/{unit}; our CUDA kernels "
         f"{ours / 1e3 / n:.3f} ms/{unit}, all other device work "
@@ -1197,6 +1248,400 @@ def phase_mvs_scene():
     return scene
 
 
+# ---------------------------------------------------------------------------
+# Semantic bundle adjustment: the map-gather kernels B1-B4
+# ---------------------------------------------------------------------------
+
+
+def probe_inputs():
+    """The probes' tables and indices on the card (u32 words as int32),
+    from a seed: depth and label tables [50 * 640*480], local indices
+    [50, 150,528]; plus the global int64 indices of the library call."""
+    import torch
+
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    n = PROBE_MAPS * PROBE_HW
+
+    def words():
+        return torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), dtype=torch.int32,
+                             generator=gen).cuda()
+
+    depth, label = words(), words()
+    il = torch.randint(0, PROBE_HW, (PROBE_MAPS, PROBE_PER),
+                       dtype=torch.int32, generator=gen).cuda()
+    gi = (il.long() + PROBE_HW * torch.arange(
+        PROBE_MAPS, device="cuda")[:, None]).reshape(-1)
+    inter = torch.stack([depth, label], -1).reshape(
+        PROBE_MAPS, PROBE_HW // 64, 128).contiguous()
+    return dict(depth=depth, label=label, il=il, gi=gi, inter=inter)
+
+
+def probe_calls(inp):
+    """{row: (kernel call, twin call, library call)} at the probes'
+    shapes: B1 flat table, B2 its [rows, 128] view, B3 the interleaved
+    depth|label table, B4 the [maps, rows, 128] view with [maps, 8,
+    per / 8] indices. The library call is `torch.take` on global int64
+    indices (B3: of the table viewed as int64, both words, no sum)."""
+    import torch
+
+    from sba_tpu_torch.ops import map_gather as mg
+
+    d, il, gi, inter = inp["depth"], inp["il"], inp["gi"], inp["inter"]
+    il3 = il.view(PROBE_MAPS, 8, PROBE_PER // 8)
+    d3 = d.view(PROBE_MAPS, PROBE_HW // 128, 128)
+    hw, per = PROBE_HW, PROBE_PER
+    return {
+        "map_gather_b1": (lambda: mg.probe_flat(d, il),
+                          lambda: mg.map_gather_plain(d, il, per, hw),
+                          lambda: torch.take(d, gi)),
+        "map_gather_b2": (lambda: mg.probe_rows(d.view(-1, 128), il),
+                          lambda: mg.map_gather_plain(d, il, per, hw),
+                          lambda: torch.take(d, gi)),
+        "map_gather_pair_b3": (
+            lambda: mg.probe_pair(inter, il3),
+            lambda: mg.map_gather_pair_plain(inter, il3, per, hw, True),
+            lambda: torch.take(inter.view(torch.int64), gi)),
+        "map_gather_b4": (lambda: mg.probe_take(d3, il3),
+                          lambda: mg.map_gather_plain(d3, il3, per, hw),
+                          lambda: torch.take(d, gi)),
+    }
+
+
+def _tangent_check(device):
+    """Primal and x-tangent of the f64 samplers (bilinear_flat, label
+    agreement) under forward mode on `device`, at the same points."""
+    import numpy as np
+    import torch
+    import torch.autograd.forward_ad as fwAD
+
+    from sba_tpu_torch.ops import interpolation as itp
+
+    rng = np.random.default_rng(4)
+    N, H, W = 4, 480, 640
+    depth = torch.tensor(rng.uniform(1, 9, (N * H * W)), device=device)
+    sem = torch.tensor(rng.integers(0, 5, (N * H * W)).astype(np.float64),
+                       device=device)
+    x = torch.tensor(rng.uniform(-3, W + 2, (N, 4096)), device=device)
+    y = torch.tensor(rng.uniform(-3, H + 2, (N, 4096)), device=device)
+    lab = torch.tensor(rng.integers(0, 5, (N, 4096)).astype(np.float64),
+                       device=device)
+    base = torch.arange(N, device=device, dtype=torch.int32)[:, None] * H * W
+    out = []
+    with fwAD.dual_level():
+        xd = fwAD.make_dual(x, torch.ones_like(x))
+        yd = fwAD.make_dual(y, 0.5 * torch.ones_like(y))
+        for v in (itp.bilinear_flat(depth, H, W, base, xd, yd, fill=-1e6),
+                  itp.bilinear_label_agreement_flat_raw(
+                      sem, H, W, base, xd, yd, lab)):
+            p, t = fwAD.unpack_dual(v)
+            out += [p.cpu(), t.cpu()]
+    return out
+
+
+def phase_twins_sba():
+    """map_gather / map_gather_pair against their twins on the same CUDA
+    tensors (bit for bit), at the probes' shapes and in the path's flat
+    form (4- and 8-byte words); the forward-mode tangent through the
+    kernels against the CPU twins'. Returns (probe inputs, errors)."""
+    import torch
+
+    from sba_tpu_torch.ops import map_gather as mg
+
+    inp = probe_inputs()
+    errs = {}
+    for row, (kern, plain, _) in probe_calls(inp).items():
+        a, b = kern(), plain()
+        require(a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a, b), f"{row}: kernel != twin")
+        errs[row] = 0.0
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    n = PROBE_MAPS * PROBE_HW
+    flat = torch.randint(0, n, (1302, 3072), dtype=torch.int32,
+                         generator=gen).cuda()
+    f64 = torch.randn(n, dtype=torch.float64, generator=gen).cuda()
+    for name, tab in (("int32", inp["depth"]),
+                      ("float32", inp["depth"].view(torch.float32)),
+                      ("float64", f64)):
+        a, b = mg.map_gather(tab, flat), mg.map_gather_plain(tab, flat)
+        bits = torch.int64 if tab.element_size() == 8 else torch.int32
+        require(torch.equal(a.view(bits), b.view(bits)),
+                f"map_gather flat form, {name} words: kernel != twin")
+    pair = inp["inter"].view(-1, 2)
+    require(torch.equal(mg.map_gather_pair(pair, flat),
+                        mg.map_gather_pair_plain(pair, flat)),
+            "map_gather_pair flat form: kernel != twin")
+    card, cpu = _tangent_check("cuda"), _tangent_check("cpu")
+    tan_err = max(max_err(a, b) for a, b in zip(card, cpu))
+    require(tan_err <= 1e-12, f"forward mode through the kernels: "
+            f"{tan_err:.3e} from the CPU twins")
+    require(all(float(t.abs().max()) > 0 for t in card[1::2]),
+            "forward mode: a tangent is zero everywhere")
+    log("twins-sba", f"B1-B4 probes and the flat form (4- and 8-byte "
+        f"words, pair) bit-equal to their twins; forward-mode primal and "
+        f"tangent {tan_err:.2e} from the CPU twins'; launches "
+        f"{json.dumps(mg.LAUNCHES)}")
+    return inp, errs
+
+
+def _pose_errors(q, t, q_gt, t_gt):
+    """(largest rotation angle in degrees, largest translation error)."""
+    import numpy as np
+
+    q = np.asarray(q, np.float64)
+    d = np.abs(np.sum(q * q_gt, axis=-1)) / np.linalg.norm(q, axis=-1)
+    ang = 2 * np.degrees(np.arccos(np.clip(d, -1.0, 1.0)))
+    return float(ang.max()), float(np.abs(np.asarray(t) - t_gt).max())
+
+
+def _sba_solve_on_card(scene, opt, tag):
+    """Build and solve one SBA problem on the card. Gates: the cost, the
+    rotation error against the truth and the hard label mismatches fall.
+    The translation error is printed, not gated: sba_tpu's own solve
+    raises it over the first iterations, trading it against the rotation
+    (tests/test_torch_sba.py::test_pose_errors_track_sba_tpu_640x480).
+    Returns (problem, summary, launches)."""
+    import torch
+
+    from sba_tpu_torch.ops import map_gather as mg
+    from sba_tpu_torch.optim.sba import (build_sba_problem, evaluate_hard,
+                                         semantic_bundle_adjust)
+
+    q_gt, t_gt, cam, depth, sem, q0, t0 = scene
+    problem = build_sba_problem(q0, t0, cam, depth, sem, opt,
+                                dtype=torch.float32, device="cuda")
+    mis0 = int(evaluate_hard(problem, opt)["num_label_mismatch"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mg.reset_launches()
+    t = time.perf_counter()
+    out, s = semantic_bundle_adjust(problem, opt)
+    c0, c1 = float(s.initial_cost), float(s.final_cost)
+    wall = time.perf_counter() - t
+    launches = dict(mg.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    require(c1 < c0, f"{tag}: SBA cost did not decrease: {c0} -> {c1}")
+    for name, v in (("qvecs", out.qvecs), ("tvecs", out.tvecs)):
+        require(bool(torch.isfinite(v).all()), f"{tag}: non-finite {name}")
+    e0 = _pose_errors(q0, t0, q_gt, t_gt)
+    e1 = _pose_errors(out.qvecs.cpu(), out.tvecs.cpu(), q_gt, t_gt)
+    mis1 = int(s.num_label_mismatch)
+    require(e1[0] < e0[0] and mis1 < mis0,
+            f"{tag}: rotation error {e0[0]} -> {e1[0]} deg, hard label "
+            f"mismatches {mis0} -> {mis1}")
+    log("sba", f"{tag}: {problem.pair_src.shape[0]} pairs x "
+        f"{problem.pix_xy.shape[0]} pixels: cost {c0:.6g} -> {c1:.6g} in "
+        f"{s.num_iterations} it, {wall:.2f} s cold; rotation error "
+        f"{e0[0]:.4f} -> {e1[0]:.4f} deg, translation {e0[1]:.5f} -> "
+        f"{e1[1]:.5f}; hard label mismatches {mis0} -> {mis1}; "
+        f"launches {json.dumps(launches)}; peak {peak:.1f} MiB")
+    return problem, s, launches
+
+
+def phase_sba():
+    """The bench_sba solve at full width (joint path), the 12-label
+    two-map path, and a small solve on the card against the CPU twins.
+    Returns (map_gather launches of the bench_sba solve, its problem and
+    options, warm ms of the 10-iteration solve per LM iteration,
+    map_gather_pair launches of the two-map solve)."""
+    import numpy as np
+    import torch
+
+    from sba_tpu_torch.optim import sba as tsba
+    from sba_tpu_torch.utils.synthetic import make_sba_scene
+
+    t = time.perf_counter()
+    scene = make_sba_scene(**SBA_SCENE)
+    log("sba", f"bench_sba scene ({SBA_SCENE['num_images']} x "
+        f"{SBA_SCENE['image_size']}) made on the host in "
+        f"{time.perf_counter() - t:.1f} s")
+    opt = tsba.SBAOptions(**SBA_OPT)
+    problem, s, launches = _sba_solve_on_card(scene, opt, "bench_sba")
+    require(problem.joint_packed is not None, "bench_sba: not joint-packed")
+    chunks = -(-problem.pair_src.shape[0] // tsba._chunk_size(problem, opt))
+    lins = s.num_iterations + 1
+    require(launches["map_gather"] >= lins * chunks,
+            f"map_gather launched {launches['map_gather']} times for "
+            f"{lins} linearizations of {chunks} chunks")
+    require(launches["map_gather_pair"] == 0,
+            "the joint path launched map_gather_pair")
+    del scene
+
+    def run(n_it):
+        o = tsba.SBAOptions(**dict(SBA_OPT, max_iterations=n_it))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, s = tsba.semantic_bundle_adjust(problem, o)
+        float(s.final_cost)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    run(2)
+    t10 = [run(10) for _ in range(3)]
+    t2 = [run(2) for _ in range(3)]
+    m10, m2 = float(np.median(t10)), float(np.median(t2))
+    ms_it = (m10 - m2) / 8 * 1e3
+    log("sba", f"warm 10-iteration solves {[round(x * 1e3, 1) for x in t10]}"
+        f" ms, median {m10 * 1e3:.1f} ms = {10 / m10:.2f} LM it/s with its "
+        f"fixed costs; 2-iteration median {m2 * 1e3:.1f} ms; per LM "
+        f"iteration (10 - 2) / 8 = {ms_it:.2f} ms = {1e3 / ms_it:.2f} LM "
+        f"it/s; map_gather launches per LM iteration "
+        f"{launches['map_gather'] / s.num_iterations:.1f} ({chunks} "
+        f"chunks per linearization)")
+
+    t = time.perf_counter()
+    scene2 = make_sba_scene(**SBA_PAIR_SCENE)
+    log("sba", f"12-label scene ({SBA_PAIR_SCENE['num_images']} images) "
+        f"made in {time.perf_counter() - t:.1f} s")
+    p2, _, l2 = _sba_solve_on_card(scene2, opt, "12 labels, two-map path")
+    require(p2.pair_packed is not None and l2["map_gather_pair"] > 0,
+            f"two-map path: map_gather_pair launches {l2}")
+    del scene2, p2
+
+    # A small solve through the kernels against the CPU twins
+    # (tests/test_sba.py:245's scene, float32, analytic).
+    small = make_sba_scene(num_images=4, image_size=(64, 48),
+                           pose_noise=0.01, seed=11)
+    o = tsba.SBAOptions(pixel_step=4, max_iterations=15)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        p = tsba.build_sba_problem(small[5], small[6], *small[2:5], o,
+                                   dtype=torch.float32, device=dev)
+        out, s_small = tsba.semantic_bundle_adjust(p, o)
+        res[dev] = (float(s_small.final_cost), out.tvecs.cpu(),
+                    out.qvecs.cpu())
+    gap_c = abs(res["cuda"][0] - res["cpu"][0]) / res["cpu"][0]
+    gap_t = max(max_err(res["cuda"][i], res["cpu"][i]) for i in (1, 2))
+    require(gap_c <= 1e-3 and gap_t <= 5e-3,
+            f"small solve: card vs CPU cost {gap_c:.3e}, poses {gap_t:.3e}")
+    log("sba", f"small solve (4 x 64x48, f32): card vs CPU twins final "
+        f"cost {gap_c:.2e} relative, poses {gap_t:.2e}")
+    return launches, (problem, opt), m10 * 1e3 / 10, l2
+
+
+def _write_sba_workspace(work, scene):
+    """A SIMPLE_PINHOLE model of the scene's initial poses + TIFF maps."""
+    import numpy as np
+
+    from sba_tpu_torch.geometry import camera_models
+    from sba_tpu_torch.io.colmap_models import Camera, Image
+    from sba_tpu_torch.io.maps import write_float_map_tiff
+    from sba_tpu_torch.models.reconstruction import Reconstruction
+
+    q_gt, t_gt, cam, depth, sem, q0, t0 = scene
+    n, h, w = depth.shape
+    rec = Reconstruction()
+    sp = camera_models.model_by_name("SIMPLE_PINHOLE").model_id
+    rec.add_camera(Camera(camera_id=1, model_id=sp, width=w, height=h,
+                          params=np.asarray(cam[0], np.float64)))
+    (work / "maps").mkdir(parents=True)
+    for i in range(n):
+        rec.add_image(Image(image_id=i + 1, qvec=q0[i], tvec=t0[i],
+                            camera_id=1, name=f"im{i}.png",
+                            xys=np.zeros((0, 2)),
+                            point3D_ids=np.zeros(0, np.int64)),
+                      registered=True)
+        write_float_map_tiff(depth[i], work / "maps" / f"im{i}_depth.tiff")
+        write_float_map_tiff(sem[i], work / "maps" / f"im{i}_semantic.tiff")
+    rec.write(str(work / "in"))
+
+
+def phase_cli_sba():
+    """semantic_bundle_adjuster on the card: defaults (float64, forward
+    mode) and hard_numeric."""
+    from sba_tpu_torch.ops import cuda_build
+    from sba_tpu_torch.utils.synthetic import make_sba_scene
+
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="cli_sba_",
+                                 dir=cuda_build.BUILD_DIR))
+    try:
+        _write_sba_workspace(work, make_sba_scene(**SBA_CLI_SCENE))
+        for tag, extra in (("defaults", ()),
+                           ("hard_numeric", (
+                               "--SemanticBundleAdjustment.mode",
+                               "hard_numeric",
+                               "--SemanticBundleAdjustment.max_iterations",
+                               "5"))):
+            cmd = [sys.executable, "-m", "sba_tpu_torch.cli",
+                   "semantic_bundle_adjuster", "--device", "cuda",
+                   "--input_path", str(work / "in"),
+                   "--output_path", str(work / f"out_{tag}"),
+                   "--data_path", str(work / "maps"), *extra]
+            env = dict(os.environ, PYTHONPATH=str(ROOT))
+            budget = max(30.0, DEADLINE_S - (time.perf_counter() - T0) - 60)
+            t = time.perf_counter()
+            res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                                 text=True, timeout=budget)
+            wall = time.perf_counter() - t
+            require(res.returncode == 0, f"CLI exit {res.returncode}:\n"
+                    f"{res.stdout}\n{res.stderr}")
+            m = re.search(r"SBA: cost (\S+) -> (\S+) in (\d+) iters",
+                          res.stdout)
+            k = re.search(r"kernel launches: (\{.*\})", res.stdout)
+            require(m is not None and k is not None,
+                    f"unexpected CLI output:\n{res.stdout}")
+            c0, c1 = float(m.group(1)), float(m.group(2))
+            launches = json.loads(k.group(1))
+            require(c1 < c0, f"CLI {tag}: cost did not decrease: {c0} -> "
+                    f"{c1}")
+            require(launches["map_gather"] > 0,
+                    f"CLI {tag}: map_gather never launched")
+            log("cli-sba", f"{tag}: cost {c0:.6g} -> {c1:.6g} in "
+                f"{m.group(3)} it, {wall:.1f} s wall; launches "
+                f"{json.dumps(launches)}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _gather_bound(inp):
+    """Least time of each probe's work: the table words this run's
+    indices touch (4 bytes each; 8 for B3's pairs), the 4-byte indices
+    read once and the outputs written once, over the HBM rate (a gather
+    does no arithmetic to speak of). Also returns the whole-table
+    bytes, for the record."""
+    import torch
+
+    touched = int(torch.unique(inp["gi"]).numel())
+    n = inp["il"].numel()
+    out = {}
+    for row, (kernel, _) in PROBES.items():
+        word = 8 if kernel == "map_gather_pair" else 4
+        by = touched * word + n * 4 + n * 4
+        whole = PROBE_MAPS * PROBE_HW * word + n * 8
+        out[row] = (by / HBM_BYTES_PER_S * 1e3, "bytes",
+                    whole / HBM_BYTES_PER_S * 1e3)
+    return out, touched
+
+
+def phase_timing_sba(inp, launches, errs):
+    """B1-B4 at the probes' shapes: kernel, twin and library ms, and the
+    bound."""
+    bounds, touched = _gather_bound(inp)
+    rows = {}
+    for row, (kern, plain, library) in probe_calls(inp).items():
+        ms = _time_ms(kern, 50)
+        plain_ms = _time_ms(plain, 5)
+        lib_ms = _time_ms(library, 50)
+        rows[row] = _kernel_row(row, {row: launches[PROBES[row][0]]}, errs,
+                                ms, plain_ms, bounds[row][:2])
+        rows[row]["library_ms"] = lib_ms
+        log("timing", f"{row} ({PROBES[row][1]}, {PROBE_MAPS} x "
+            f"{PROBE_HW} words, {inp['il'].numel()} samples): {ms:.4f} ms, "
+            f"twin {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+            f"{bounds[row][0]:.4f} ms ({touched} table words touched; "
+            f"{bounds[row][2]:.4f} ms over the whole table)")
+    return rows
+
+
+def phase_profile_sba(problem, opt):
+    """Device time by kernel over one warm 10-iteration bench_sba
+    solve."""
+    from sba_tpu_torch.optim.sba import semantic_bundle_adjust
+
+    return _profile("bench_sba SBA", lambda: semantic_bundle_adjust(
+        problem, opt)[1].num_iterations, "LM it")
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(DEADLINE_S, exit=True)
     import torch
@@ -1227,18 +1672,27 @@ def main() -> int:
     ncc_err, ncc_inputs = run("twins-mvs", phase_twins_mvs, scene)
     ncc_launches, pm_solve, pm_ms = run("mvs", phase_mvs, scene)
     del scene
+    probe_in, gather_errs = run("twins-sba", phase_twins_sba)
+    gather_launches, sba_ctx, sba_ms, pair_launches = run("sba", phase_sba)
+    gather_launches["map_gather_pair"] = pair_launches["map_gather_pair"]
+    run("cli-sba", phase_cli_sba)
     rows = run("timing", phase_timing, ctx, launches, errs)
     rows.update(run("timing", phase_timing_implicit, ctx_i, launches_i,
                     errs, k3_per_it))
     rows.update(run("timing", phase_timing_mvs, ncc_inputs, ncc_launches,
                     ncc_err))
     del ncc_inputs
+    rows.update(run("timing", phase_timing_sba, probe_in, gather_launches,
+                    gather_errs))
+    del probe_in
     for label, c, ms in (("headline (dense)", ctx, ms_per_it),
                          ("1024 images (implicit)", ctx_i, ms_per_it_i)):
         _log_busy(label, run("profile", phase_profile, c, label), ms)
     label = "PatchMatch photometric 1600x1200"
     _log_busy(label, run("profile", _profile, label, pm_solve, "solve"),
               pm_ms, "solve")
+    _log_busy("bench_sba SBA", run("profile", phase_profile_sba, *sba_ctx),
+              sba_ms)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

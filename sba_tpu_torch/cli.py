@@ -1,7 +1,11 @@
-"""`colmap`-style command line of the port: global BA and the dense chain.
+"""`colmap`-style command line of the port: global BA, semantic BA and
+the dense chain.
 
     python -m sba_tpu_torch.cli bundle_adjuster --input_path sparse/0 \
         --output_path ba/ [--device cuda] [--BundleAdjustment.dtype float32]
+    python -m sba_tpu_torch.cli semantic_bundle_adjuster \
+        --input_path sparse/0 --output_path sba/ --data_path maps/ \
+        [--run_path run/] [--SemanticBundleAdjustment.mode hard_numeric]
     python -m sba_tpu_torch.cli image_undistorter --image_path images \
         --input_path sparse/0 --output_path ws [--device cuda]
     python -m sba_tpu_torch.cli patch_match_stereo --workspace_path ws
@@ -10,9 +14,10 @@
 
 Flags, file layout and printed lines follow sba_tpu's CLI. ``--device``
 (default "cuda") selects where a command runs. On CUDA, bundle_adjuster
-with ``--BundleAdjustment.dtype float32`` goes through the BA kernels and
-patch_match_stereo through the NCC kernel, and every command prints the
-launch counts of its kernels.
+with ``--BundleAdjustment.dtype float32`` goes through the BA kernels,
+semantic_bundle_adjuster samples every map through the map-gather
+kernels and patch_match_stereo scores through the NCC kernel, and every
+command prints the launch counts of its kernels.
 """
 
 from __future__ import annotations
@@ -56,6 +61,31 @@ def run_bundle_adjuster(flags):
           f"{float(s.final_cost):.6g} in {int(s.num_iterations)} iters")
     if device != "cpu":
         print("kernel launches: " + json.dumps(ba_kernels.LAUNCHES))
+
+
+def run_semantic_bundle_adjuster(flags):
+    """Semantic bundle adjustment of a COLMAP model against per-image
+    depth and semantic TIFF maps (ref: exe/sfm.cc:169
+    RunSemanticBundleAdjuster)."""
+    from sba_tpu_torch.controllers.semantic_ba import (
+        SemanticBAControllerOptions,
+        run_semantic_bundle_adjustment,
+    )
+    from sba_tpu_torch.ops import map_gather
+
+    input_path, output_path, data_path = _require(
+        flags, "input_path", "output_path", "data_path")
+    device = _device(flags)
+    opt = SemanticBAControllerOptions(
+        input_path=input_path, output_path=output_path, data_path=data_path,
+        run_path=flags.get("run_path"))
+    opt.sba = apply_flags(opt.sba, "SemanticBundleAdjustment", flags)
+    rec = run_semantic_bundle_adjustment(opt, device=device)
+    s = rec._last_sba_summary
+    print(f"SBA: cost {float(s.initial_cost):.6g} -> "
+          f"{float(s.final_cost):.6g} in {int(s.num_iterations)} iters")
+    if device != "cpu":
+        print("kernel launches: " + json.dumps(map_gather.LAUNCHES))
 
 
 def _device(flags) -> str:
@@ -356,6 +386,7 @@ def run_stereo_fuser(flags):
 
 
 COMMANDS = {"bundle_adjuster": run_bundle_adjuster,
+            "semantic_bundle_adjuster": run_semantic_bundle_adjuster,
             "image_undistorter": run_image_undistorter,
             "patch_match_stereo": run_patch_match_stereo,
             "stereo_fuser": run_stereo_fuser}

@@ -215,9 +215,15 @@ def write_cameras_text(cameras: Cameras, path) -> None:
 
 def read_images_text(path) -> Images:
     images: Images = {}
+    # Two lines per image; the POINTS2D line of an image without
+    # keypoints is empty and is kept, so that the pairs stay aligned.
     with open(path) as f:
-        lines = [l.strip() for l in f if l.strip() and not l.strip().startswith("#")]
-    for i in range(0, len(lines), 2):
+        lines = [l.strip() for l in f if not l.strip().startswith("#")]
+    i = 0
+    while i < len(lines):
+        if not lines[i]:
+            i += 1
+            continue
         elems = lines[i].split()
         image_id = int(elems[0])
         qvec = np.array([float(x) for x in elems[1:5]])
@@ -225,6 +231,7 @@ def read_images_text(path) -> Images:
         camera_id = int(elems[8])
         name = elems[9]
         pts = lines[i + 1].split() if i + 1 < len(lines) else []
+        i += 2
         if pts:
             arr = np.array(pts, dtype=np.float64).reshape(-1, 3)
             xys = arr[:, :2]

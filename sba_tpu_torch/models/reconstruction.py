@@ -2,9 +2,10 @@
 
 Port of the part of ``sba_tpu/models/reconstruction.py`` that global
 bundle adjustment needs: construction and registration, reprojection
-errors, COLMAP IO and the dense view. `Reconstruction` is a host-side
-dict container; `SceneArrays` is the dense struct-of-arrays numpy view
-the solvers consume.
+errors, COLMAP IO and the dense view; and the observation deletion and
+negative-depth filter that semantic bundle adjustment runs first.
+`Reconstruction` is a host-side dict container; `SceneArrays` is the
+dense struct-of-arrays numpy view the solvers consume.
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ import numpy as np
 import torch
 
 from sba_tpu_torch.geometry import camera_models
-from sba_tpu_torch.geometry.quaternions import np_quat_to_rotmat
+from sba_tpu_torch.geometry.quaternions import (np_quat_rotate,
+                                                np_quat_to_rotmat)
 from sba_tpu_torch.io import colmap_models as cm
 from sba_tpu_torch.io.colmap_models import Camera, Image, Point3D
 
@@ -102,6 +104,55 @@ class Reconstruction:
         for image_id, idx in track:
             self.images[image_id].point3D_ids[idx] = pid
         return pid
+
+    # -- observation edits ------------------------------------------------
+
+    def _remove_observation(self, point3D_id: int, image_id: int,
+                            point2D_idx: int):
+        p = self.points3D.get(point3D_id)
+        if p is None:
+            return
+        keep = ~((p.image_ids == image_id) & (p.point2D_idxs == point2D_idx))
+        p.image_ids = p.image_ids[keep]
+        p.point2D_idxs = p.point2D_idxs[keep]
+        if len(p.image_ids) == 0:
+            del self.points3D[point3D_id]
+
+    def delete_observation(self, image_id: int, point2D_idx: int):
+        """Unlink one observation; a track left shorter than 2 goes."""
+        pid = int(self.images[image_id].point3D_ids[point2D_idx])
+        if pid == -1:
+            return
+        self.images[image_id].point3D_ids[point2D_idx] = -1
+        self._remove_observation(pid, image_id, point2D_idx)
+        p = self.points3D.get(pid)
+        if p is not None and len(p.image_ids) < 2:
+            self.delete_point3d(pid)
+
+    def delete_point3d(self, point3D_id: int):
+        p = self.points3D.pop(point3D_id, None)
+        if p is None:
+            return
+        for image_id, idx in zip(p.image_ids, p.point2D_idxs):
+            self.images[int(image_id)].point3D_ids[int(idx)] = -1
+
+    def filter_observations_with_negative_depth(self) -> int:
+        """Delete observations whose point lies behind its camera; returns
+        how many (ref: src/controllers/semantic_bundle_adjustment.cc:
+        96-101)."""
+        num_filtered = 0
+        for image_id in list(self.registered_image_ids):
+            im = self.images[image_id]
+            tri = np.nonzero(im.point3D_ids != -1)[0]
+            if len(tri) == 0:
+                continue
+            xyz = np.stack([self.points3D[int(im.point3D_ids[i])].xyz
+                            for i in tri])
+            p_cam = np_quat_rotate(im.qvec, xyz) + im.tvec
+            for idx in tri[p_cam[:, 2] <= 0]:
+                self.delete_observation(image_id, int(idx))
+                num_filtered += 1
+        return num_filtered
 
     # -- reprojection errors ----------------------------------------------
 

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-All ``csrc/*.cu`` sources are compiled by ONE ``nvcc`` call for
-``sm_90a`` into a shared library with a plain C interface, loaded with
-``ctypes``. The library lands in ``sba_tpu_torch/_build/`` (ignored by
-git) under a name keyed by a hash of the sources, so an edited source
-is rebuilt and concurrent processes never load a half-written file.
+Each ``csrc/*.cu`` source is compiled for ``sm_90a`` by its own ``nvcc``
+process, all started together, and one more ``nvcc`` links the objects
+into a shared library with a plain C interface, loaded with ``ctypes``.
+The library lands in ``sba_tpu_torch/_build/`` (ignored by git) under
+a name keyed by a hash of the sources, so an edited source is rebuilt
+and concurrent processes never load a half-written file.
 Nothing here runs at import time.
 """
 
@@ -25,8 +26,8 @@ BUILD_DIR = PKG_DIR / "_build"
 # cancels. K1-K5 are bound by memory, not by these instructions; K6 is
 # bound by its operations and pays for the unfused products.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _LIB = None
 
@@ -53,7 +54,7 @@ def library_path() -> Path:
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     return BUILD_DIR / f"libsba_kernels_{h.hexdigest()[:16]}.so"
 
 
@@ -65,20 +66,40 @@ def build() -> tuple[Path, str]:
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC_DIR.glob("*.cu"))]]
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    nvcc = nvcc_path()
+    srcs = sorted(CSRC_DIR.glob("*.cu"))
+    objs = [tmp.with_name(f"{tmp.name}.{s.stem}.o") for s in srcs]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+            for s, o in zip(srcs, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    log = []
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        text, _ = proc.communicate(timeout=600)
+        log.append(text)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{text}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    link = [nvcc, *LINK_FLAGS, "-o", str(tmp), *[str(o) for o in objs]]
+    res = subprocess.run(link, capture_output=True, text=True, timeout=600)
+    for o in objs:
+        o.unlink(missing_ok=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                           f"{' '.join(link)}\n{res.stdout}{res.stderr}")
     os.replace(tmp, out)
-    return out, res.stdout + res.stderr
+    return out, "".join(log) + res.stdout + res.stderr
 
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _D = ctypes.c_double
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # model, loss, loss_scale, schur_bf16, TP, K, Pp, Npad, C, Dk,
     # lam, par, free_sta, pts, free_pts, obs_sta, obs_img, obs_cam,
@@ -109,6 +130,10 @@ _SIGNATURES = {
     # ref, v, inb, cost, stream
     "sba_ncc_cost": [_I, _I, _I, _I, _I, _D, _F, _F,
                      _P, _P, _P, _P, _P],
+    # word_bytes, n, per, hw, table, idx, out, stream
+    "sba_map_gather": [_I, _L, _L, _L, _P, _P, _P, _P],
+    # n, per, hw, sum, table, idx, out, stream
+    "sba_map_gather_pair": [_L, _L, _L, _I, _P, _P, _P, _P],
 }
 
 

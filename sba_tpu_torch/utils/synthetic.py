@@ -269,3 +269,103 @@ def _lookat_pose(center, target, up=(0.0, 0.0, 1.0)):
     q = rotmat_to_quat(torch.from_numpy(R)).numpy()
     t = -R @ c
     return q, t
+
+
+def _np_quat_rotate_raw(q, v):
+    """q [N, 4] w-first (NOT normalized), v [N, 3]: sba_tpu's scene
+    generators rotate so, and the port keeps their arithmetic."""
+    w = q[:, 0:1]
+    u = q[:, 1:]
+    uv = np.cross(u, v)
+    return v + 2.0 * (w * uv + np.cross(u, uv))
+
+
+def _sba_scene_cameras(rng, num_images, image_size, focal):
+    """The draws of make_sba_scene's cameras, in its order."""
+    w, h = image_size
+    cam = np.array([focal, w / 2.0, h / 2.0])
+    qvecs = np.zeros((num_images, 4))
+    tvecs = np.zeros((num_images, 3))
+    centers = np.zeros((num_images, 3))
+    for i in range(num_images):
+        aa = rng.normal(scale=0.05, size=3)
+        angle = np.linalg.norm(aa)
+        axis = aa / max(angle, 1e-12)
+        qvecs[i] = np.concatenate([[np.cos(angle / 2)],
+                                   np.sin(angle / 2) * axis])
+        centers[i] = np.array([rng.uniform(-1, 1), rng.uniform(-1, 1),
+                               rng.uniform(-0.3, 0.3)])
+        tvecs[i] = -_np_quat_rotate_raw(qvecs[i][None], centers[i][None])[0]
+    return cam, qvecs, tvecs, centers
+
+
+def _sba_scene_noise(rng, qvecs, tvecs, pose_noise):
+    """make_sba_scene's initial poses: noise on all but the gauge."""
+    q0 = qvecs.copy()
+    t0 = tvecs.copy()
+    if pose_noise > 0:
+        q0 = q0 + rng.normal(scale=pose_noise, size=q0.shape)
+        q0 = q0 / np.maximum(np.linalg.norm(q0, axis=-1, keepdims=True),
+                             1e-12)
+        t0 = t0 + rng.normal(scale=pose_noise, size=t0.shape)
+        q0[0], t0[0] = qvecs[0], tvecs[0]
+        if len(qvecs) > 1:
+            t0[1, 0] = tvecs[1, 0]
+    return q0, t0
+
+
+def make_sba_scene(
+    num_images: int = 4,
+    image_size=(64, 48),
+    focal: float = 60.0,
+    plane_z: float = 5.0,
+    cell: float = 1.0,
+    num_labels: int = 5,
+    pose_noise: float = 0.0,
+    seed: int = 0,
+    relief: float = 0.6,
+):
+    """Synthetic scene for semantic BA, port of sba_tpu's (numpy, the
+    same draws): cameras above a labeled relief surface z = plane_z +
+    relief * sin(1.3 x) sin(1.7 y), with ray-marched depth and aperiodic
+    semantic maps (a random label per `cell` from a 97x89 lookup tile).
+    A flat plane would leave the pairwise cost degenerate (the
+    plane-induced homography ambiguity). Returns (qvecs_gt [N,4],
+    tvecs_gt [N,3], cam_params [N,3], depth [N,H,W], semantic [N,H,W],
+    qvecs_init, tvecs_init), float64."""
+    rng = np.random.default_rng(seed)
+    w, h = image_size
+    cam, qvecs, tvecs, centers = _sba_scene_cameras(rng, num_images,
+                                                    image_size, focal)
+    xs, ys = np.meshgrid(np.arange(w, dtype=np.float64),
+                         np.arange(h, dtype=np.float64))
+    dir_cam = np.stack([(xs - cam[1]) / cam[0], (ys - cam[2]) / cam[0],
+                        np.ones_like(xs)], axis=-1)  # [H, W, 3]
+
+    def surface_z(x, y):
+        return plane_z + relief * np.sin(1.3 * x) * np.sin(1.7 * y)
+
+    depth = np.zeros((num_images, h, w))
+    semantic = np.zeros((num_images, h, w))
+    lut = np.random.default_rng(seed + 1000).integers(0, num_labels,
+                                                      size=(97, 89))
+    for i in range(num_images):
+        qc = qvecs[i] * np.array([1.0, -1.0, -1.0, -1.0])
+        dirs = dir_cam.reshape(-1, 3)
+        d_world = _np_quat_rotate_raw(
+            np.broadcast_to(qc, (len(dirs), 4)), dirs).reshape(h, w, 3)
+        # Fixed-point ray march on the ray parameter.
+        s = (plane_z - centers[i, 2]) / d_world[..., 2]
+        for _ in range(25):
+            hit = centers[i][None, None, :] + s[..., None] * d_world
+            s = (surface_z(hit[..., 0], hit[..., 1])
+                 - centers[i, 2]) / d_world[..., 2]
+        hit = centers[i][None, None, :] + s[..., None] * d_world
+        depth[i] = s
+        ix = np.floor(hit[..., 0] / cell).astype(np.int64) % 97
+        iy = np.floor(hit[..., 1] / cell).astype(np.int64) % 89
+        semantic[i] = lut[ix, iy].astype(np.float64)
+
+    q0, t0 = _sba_scene_noise(rng, qvecs, tvecs, pose_noise)
+    cam_params = np.tile(cam, (num_images, 1))
+    return qvecs, tvecs, cam_params, depth, semantic, q0, t0

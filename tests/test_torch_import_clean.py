@@ -35,7 +35,13 @@ def test_port_and_chip_smoke_import_without_jax():
                  "sba_tpu_torch.mvs.fusion",
                  "sba_tpu_torch.geometry.undistortion",
                  "sba_tpu_torch.utils.render",
-                 "sba_tpu_torch.utils.mvs_accuracy"):
+                 "sba_tpu_torch.utils.mvs_accuracy",
+                 "sba_tpu_torch.ops.map_gather",
+                 "sba_tpu_torch.ops.interpolation",
+                 "sba_tpu_torch.optim.sba",
+                 "sba_tpu_torch.io.maps",
+                 "sba_tpu_torch.controllers.semantic_ba",
+                 "sba_tpu_torch.utils.card_repeat"):
         assert name in modules, name
     res = subprocess.run(
         [sys.executable, "-c", _PROBE.format(root=str(ROOT),
