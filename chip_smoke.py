@@ -13,9 +13,12 @@ Needs one CUDA card and nvcc (found through torch's CUDA_HOME, else
                      same solve through the twins on the CPU, and bf16
                      against f32 S_corr;
 3. twins-implicit -- K2-K5 against their twins at the 1024-image
-                     sequential scene (f32 and bf16 coupling stores) and
-                     on a two-camera scene, whose implicit step on the
-                     card is held against the same step on the CPU;
+                     sequential scene (f32 and bf16 coupling stores), K3
+                     also with the scene's image ids permuted (every
+                     block's window spans several chunks; the count of
+                     such blocks is printed), and on a two-camera scene,
+                     whose implicit step on the card is held against the
+                     same step on the CPU;
 4. main           -- `bundle_adjust` on the headline problem in float32
                      (dense path: K1, K4, K5 must launch), cost must
                      fall; LM it/s of a warm `solve_prepared`;
@@ -28,9 +31,10 @@ Needs one CUDA card and nvcc (found through torch's CUDA_HOME, else
 7. cli            -- `python -m sba_tpu_torch.cli bundle_adjuster` on a
                      20-image (dense) and a 160-image (implicit) model;
 8. twins-mvs      -- K6 (ncc_cost) against its twin on the same CUDA
-                     tensors at 1600x1200 x 4 sources (r=3 and r=5 with
-                     step 1, r=3 with step 2; one source with a band
-                     outside its image), and the card's hypothesis cost
+                     tensors, bit for bit, at 1600x1200 x 4 sources (r=3
+                     and r=5 with step 1, r=3 with step 2; one source
+                     with a band outside its image) and x 7 sources (past
+                     the kernel's chunk of 4), and the card's hypothesis cost
                      (packed sampling + K6) against the CPU twins' at
                      240x320;
 9. mvs            -- the dense chain at full width: an 8-view 1600x1200
@@ -68,7 +72,8 @@ Needs one CUDA card and nvcc (found through torch's CUDA_HOME, else
                      mode;
 13. timing        -- per-kernel CUDA-event times against the twins, the
                      memory/compute bound and, for B1-B4, the PyTorch
-                     library call of the same function;
+                     library call of the same function (K3 and K6 also
+                     beside their first designs' times, "was");
 14. profile       -- device time by kernel over one warm solve of the
                      headline, of the 1024-image scene, of one 1600x1200
                      photometric PatchMatch solve and of the bench_sba
@@ -153,6 +158,12 @@ HUGE = dict(LARGE, num_images=10_240, num_points=1_200_000)
 MVS_SCENE = dict(num_images=8, image_size=(1600, 1200),
                  model_name="SIMPLE_RADIAL", extra_params=(-0.05,), seed=0)
 NCC_CASES = ((3, 1), (5, 1), (3, 2))      # (window radius, window step)
+NCC_SOURCE_CHUNK = 4     # sources K6 stages per chunk (csrc kSrc)
+# Times of the kernels' first designs (a block per tile and source for
+# K6; a thread per point with a float atomic per lane and row for K3) at
+# the timing phase's shapes, on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md kernel table), printed beside the current times.
+WAS_MS = {"ncc_cost": 0.6771, "schur_matvec": 0.2602}
 # sba_tpu's PatchMatch scores a hypothesis by its depth alone (the normal
 # cancels in the collapsed warp), so its normals are not fitted and
 # fusion's 10-degree normal test leaves next to no points; the smoke
@@ -436,6 +447,41 @@ def _check_implicit_twins(tag, st, lay, par, pts, lam, dup, duc, opt):
     return e2, e3, e4, e5
 
 
+def _k3_windows(st, lay):
+    """K3's block windows on a bucket, as a phrase (the kernel sums each
+    block's scatter over chunks of K3_WINDOW images)."""
+    from sba_tpu_torch.ops import ba_kernels as bk
+
+    _, _, chunks = bk.schur_matvec_windows(st, lay)
+    n = int((chunks > 0).sum())
+    multi = int((chunks > 1).sum())
+    return (f"blocks {n}, of which {multi} needed more than one window "
+            f"chunk of {bk.K3_WINDOW} images (at most {int(chunks.max())})")
+
+
+def _check_k3_permuted(tag, st, lay, par, pts, lam, dup, duc, opt):
+    """K3 against its twin on the bucket with its image ids permuted: no
+    locality, so every block's window spans several chunks."""
+    import torch
+
+    from sba_tpu_torch.ops import ba_kernels as bk
+    from sba_tpu_torch.utils.synthetic import spread_image_ids
+
+    jc = bk.fused_reduce(st, par, pts, lam, lay, opt)[3]
+    perm = torch.as_tensor(spread_image_ids(lay.N), device="cuda")
+    stp = st._replace(obs_img=perm[st.obs_img.long()].contiguous())
+    _, _, chunks = bk.schur_matvec_windows(stp, lay)
+    require(bool((chunks[chunks > 0] > 1).all()),
+            f"{tag} permuted: a block's window fits one chunk")
+    m_k = bk.schur_matvec(stp, dup, duc, jc, lay, opt)
+    m_p = bk.schur_matvec_plain(stp, dup, duc, jc, lay, opt)
+    torch.cuda.synchronize()
+    e = close(f"{tag} permuted matvec", m_k, m_p, 3e-5)
+    log("twins-implicit", f"{tag} image ids permuted: K3 matches its twin, "
+        f"|dmatvec| {e:.2e}; {_k3_windows(stp, lay)}")
+    return e
+
+
 def _fold(errs, e2345):
     for name, e in zip(IMPLICIT_KERNELS, e2345):
         errs[name] = max(errs[name], e)
@@ -482,7 +528,11 @@ def phase_twins_implicit(errs):
             log("twins-implicit", f"{tag} (K={lay.K}, Pp={lay.Pp}, jcorr "
                 f"{str(ba_fused.bk.jcorr_dtype(lay, opt))[6:]}): K2-K5 match "
                 f"their twins; |dimg_red| {e[0]:.2e} |dmatvec| {e[1]:.2e} "
-                f"|ddp| {e[2]:.2e} |dcost| {e[3]:.2e}")
+                f"|ddp| {e[2]:.2e} |dcost| {e[3]:.2e}; K3 "
+                f"{_k3_windows(st, lay)}")
+            e3 = _check_k3_permuted(tag, st, lay, par, pts, lam, dup, duc,
+                                    opt)
+            errs["schur_matvec"] = max(errs["schur_matvec"], e3)
     del problem, ctx
     # Two cameras: the camera rows of the payload and of the matvec are
     # keyed by image and summed by camera in the epilogue.
@@ -665,8 +715,9 @@ def phase_large_ranged(errs):
         log("large-ranged", f"{tag} (K={lay.K}, Pp={lay.Pp}, "
             f"{lay.Pp * lay.K} lanes, jcorr bf16): K2-K5 match their twins; "
             f"|dimg_red| {e[0]:.2e} |dmatvec| {e[1]:.2e} |ddp| {e[2]:.2e} "
-            f"|dcost| {e[3]:.2e}; closest to its tolerance so far: "
-            f"{WORST['name']} at {WORST['ratio']:.3f}")
+            f"|dcost| {e[3]:.2e}; K3 {_k3_windows(st, lay)}; closest to "
+            f"its tolerance so far: {WORST['name']} at "
+            f"{WORST['ratio']:.3f}")
 
 
 def _run_cli(rec, tag, max_iterations, kernels, other):
@@ -767,29 +818,43 @@ def phase_twins_mvs(scene):
     from sba_tpu_torch.ops import patch_match_kernels as pk
     from sba_tpu_torch.utils.render import render_scene
 
-    ref, srcs, K, Ks, Rs, ts, depth = _mvs_problem(scene, 0, (1, 2, 3, 4),
-                                                   "cuda")
-    packed = [pm._pack_intensity_nbhd(s) for s in srcs]
-    v, inb = pm._warp_sources(ref, srcs, torch.linalg.inv(K), Ks, Rs, ts,
-                              depth, packed)
-    v[3, :, :240] = 0.0            # one source with a band outside it
-    inb[3, :, :240] = False
-    S, H, W = v.shape
+    def warped(srcs_idx):
+        ref, srcs, K, Ks, Rs, ts, depth = _mvs_problem(scene, 0, srcs_idx,
+                                                       "cuda")
+        packed = [pm._pack_intensity_nbhd(s) for s in srcs]
+        v, inb = pm._warp_sources(ref, srcs, torch.linalg.inv(K), Ks, Rs,
+                                  ts, depth, packed)
+        v[3, :, :240] = 0.0        # one source with a band outside it
+        inb[3, :, :240] = False
+        return ref, v, inb
+
+    # The main path's 4 sources at each window, then 7 sources (past
+    # K6's chunk of NCC_SOURCE_CHUNK) at the main path's window. Bit for
+    # bit, and within the reference's kernel-vs-XLA tolerance.
+    ref, v, inb = warped((1, 2, 3, 4))
     err = 0.0
-    for r, step in NCC_CASES:
-        c_k = pk.ncc_cost(ref, v, inb, r, step, 3.0, 0.2)
-        c_p = pk.ncc_cost_plain(ref, v, inb, r, step, 3.0, 0.2)
+    cases = [(v, inb, r, step) for r, step in NCC_CASES]
+    v7, inb7 = warped(tuple(range(1, 8)))[1:]
+    require(v7.shape[0] > NCC_SOURCE_CHUNK, f"{v7.shape[0]} sources")
+    cases.append((v7, inb7, 3, 1))
+    for v_, inb_, r, step in cases:
+        S, H, W = v_.shape
+        c_k = pk.ncc_cost(ref, v_, inb_, r, step, 3.0, 0.2)
+        c_p = pk.ncc_cost_plain(ref, v_, inb_, r, step, 3.0, 0.2)
         torch.cuda.synchronize()
         e = max_err(c_k, c_p)
         gated = int((c_k == 2.0).sum())
-        require(e <= 2e-4, f"ncc_cost r={r} step={step}: max |err| {e:.3e} "
-                "> 2e-4")
-        require(0 < gated < c_k.numel(), f"ncc_cost r={r} step={step}: "
-                f"{gated} gated pixels")
+        require(e <= 2e-4, f"ncc_cost S={S} r={r} step={step}: max |err| "
+                f"{e:.3e} > 2e-4")
+        require(torch.equal(c_k, c_p), f"ncc_cost S={S} r={r} step={step}: "
+                f"not bit-equal to its twin (max |err| {e:.3e})")
+        require(0 < gated < c_k.numel(), f"ncc_cost S={S} r={r} "
+                f"step={step}: {gated} gated pixels")
         err = max(err, e)
-        log("twins-mvs", f"ncc_cost {S}x{H}x{W} r={r} step={step}: matches "
-            f"its twin, max |err| {e:.3e} (atol 2e-4), {gated} pixels at "
-            f"cost 2.0")
+        log("twins-mvs", f"ncc_cost {S}x{H}x{W} r={r} step={step}: equals "
+            f"its twin bit for bit, max |err| {e:.3e} (atol 2e-4), {gated} "
+            f"pixels at cost 2.0")
+    del v7, inb7, cases
     # The hypothesis cost on the card (packed u8 sampling + K6) against
     # the CPU twins (exact sampling + twin) on one depth state: on 8-bit
     # images the two samplers agree to float32 rounding, which NCC
@@ -972,8 +1037,9 @@ def phase_timing_mvs(inputs, launches, err):
                                                   0.2), 3)
     bound = _ncc_bound(S, H, W, 3, 1)
     log("timing", f"ncc_cost ({S}x{H}x{W}, 49 taps): {ms:.4f} ms per "
-        f"launch, twin {plain_ms:.3f} ms, bound {bound[0]:.4f} ms "
-        f"({bound[1]})")
+        f"launch (was {WAS_MS['ncc_cost']:.4f} ms), twin {plain_ms:.3f} ms, "
+        f"bound {bound[0]:.4f} ms ({bound[1]}), {100 * bound[0] / ms:.1f}% "
+        f"of it")
     return {"ncc_cost": _kernel_row("ncc_cost", {"ncc_cost": launches},
                                     {"ncc_cost": err}, ms, plain_ms, bound)}
 
@@ -1166,9 +1232,11 @@ def phase_timing_implicit(ctx, launches, errs, k3_per_it):
         rows[name] = _kernel_row(name, launches, errs, ms, plain_ms,
                                  bounds[name])
         unit = "LM iteration" if name == "fused_reduce" else "matvec"
-        log("timing", f"{name} (1024 img): {ms:.4f} ms per {unit} "
+        was = (f" (was {WAS_MS[name]:.4f} ms)" if name in WAS_MS else "")
+        log("timing", f"{name} (1024 img): {ms:.4f} ms per {unit}{was} "
             f"({len(groups)} bucket launches), twin {plain_ms:.3f} ms, "
-            f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]})")
+            f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]}), "
+            f"{100 * bounds[name][0] / ms:.1f}% of it")
     log("timing", f"schur_matvec per LM iteration of the 1024-image solve: "
         f"{k3_per_it:.1f} matvecs x {rows['schur_matvec']['ms']:.4f} ms = "
         f"{k3_per_it * rows['schur_matvec']['ms']:.3f} ms")

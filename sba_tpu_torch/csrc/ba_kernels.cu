@@ -522,20 +522,53 @@ cudaError_t launch_fused_schur(const K1Args& a, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// K3: the implicit PCG's correction matvec, one thread per point.
+// K3: the implicit PCG's correction matvec.
 //
 // Replaces schur_matvec (_schur_matvec_kernel): for each point,
 // etu = EL^T p = sum over its live slots of WL^T (du_pose[:, img],
 // du_cam[:, cam]), then out[img, i] += WL[i] . etu for each live slot
 // (rows i < 6 pose, then NP camera rows keyed by image). WL comes from
 // jw's WL rows (f32) or the bf16 jcorr store (widened here); either way
-// rows 0..3*(6+NP) of a [rows, O'] array. On the TPU the
-// gathers and the scatter are one-hot MXU contractions over a
-// sequential grid; here the gathers read the small du tables (cache
-// resident) by index and the scatter is float atomics.
-// Bound: device memory, one read of the 3*(6+NP) coupling rows and
-// the index and mask rows per lane; it runs once per CG iteration.
+// rows 0..3*(6+NP) of a [rows, O'] array. On the TPU the gathers and the
+// scatter are one-hot MXU contractions over a sequential grid, looping
+// over IB-wide image sub-blocks of each point block's image range.
+//
+// Bound: device memory, one read of the 3*(6+NP) coupling rows and the
+// index and mask rows per live lane (0.030 ms at 1024 images); it runs
+// once per CG iteration. A scatter with one float atomic per (live
+// lane, row), 7.56M per matvec at 1024 images onto 9,216 addresses,
+// stays far from it: `prepare` sorts the points by mean observing
+// image, so the 32 lanes of a warp (32 neighbouring points, one slot)
+// mostly hit one image row, and each such atomic serialises 32 deep in
+// L2. This design:
+//
+// - One thread per observation lane. A block covers kK3Points points of
+//   one point block (threadIdx.x) and min(K, kK3Slots) slots
+//   (threadIdx.y): a warp reads 32 neighbouring lanes of one coupling
+//   row. Each thread keeps its lane's 3*(6+NP) couplings in registers,
+//   the slots' shares of etu are summed per point through shared
+//   memory, and the scatter works from the registers: each coupling word
+//   is read from device memory once. With K > kK3Slots the block walks
+//   the slots in passes and re-reads the earlier passes' couplings.
+// - The scatter is privatised. The block takes the image window [lo, hi]
+//   of its live lanes (min and max of obs_img, as the reference's
+//   _block_range) and sums into shared memory over chunks of kK3Window
+//   images; the lanes of a warp that share an image are first summed by
+//   a shuffle tree (__match_any_sync), and one shared atomic per group
+//   and row remains. Each chunk then adds its nonzero rows to `out` with
+//   one global atomic per (image, row) and block. A window wider than a
+//   chunk (a point order without locality) takes more chunks of the same
+//   loop; every input goes through the one code path.
+// The float atomics make the summation order vary from run to run (the
+// twin's tolerance, 3e-5 of scale).
 // ---------------------------------------------------------------------------
+
+// kK3Points and kK3Window are mirrored by ops/ba_kernels.py
+// (K3_POINTS_PER_BLOCK, K3_WINDOW), whose schur_matvec_windows reports
+// the blocks' windows.
+constexpr int kK3Points = 64;    // points per block (threadIdx.x)
+constexpr int kK3Slots = 8;      // slots per pass (threadIdx.y)
+constexpr int kK3Window = 256;   // images per shared-memory window chunk
 
 struct K3Args {
   int TP, K, Pp, Npad, C;
@@ -552,50 +585,172 @@ template <> __device__ inline float widen<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-template <int NP, typename T>
-__global__ void __launch_bounds__(kThreads) k3_matvec_kernel(K3Args a) {
-  constexpr int DV = 6 + NP;
-  const int pt = blockIdx.x * blockDim.x + threadIdx.x;
-  if (pt >= a.Pp) return;
-  const T* jc = static_cast<const T*>(a.jcorr);
-  const int64_t O = (int64_t)a.Pp * a.K;
-  const int64_t base = (int64_t)(pt / a.TP) * a.TP * a.K + pt % a.TP;
-  float etu[3] = {0.f, 0.f, 0.f};
-  for (int s = 0; s < a.K; ++s) {
-    const int64_t c = base + (int64_t)s * a.TP;
-    if (a.obs_sta[2 * O + c] == 0.f) continue;
-    const int n = a.obs_img[c], cam = a.obs_cam[c];
-    for (int j = 0; j < 3; ++j) {
-      float vp = 0.f, vc = 0.f;
-      for (int i = 0; i < 6; ++i)
-        vp += widen<T>(jc[(i * 3 + j) * O + c]) * a.du_pose_t[i * a.Npad + n];
-      for (int m = 0; m < NP; ++m)
-        vc += widen<T>(jc[(18 + m * 3 + j) * O + c]) *
-              a.du_cam_t[m * a.C + cam];
-      etu[j] += vp + vc;
+// Sum v over the lanes of `peers` (the lanes of this warp with this
+// lane's key) by a shuffle tree; the lowest lane of each group ends with
+// its group's sum. Every lane of the warp must call it.
+template <int N>
+__device__ inline void peer_sum(unsigned peers, float (&v)[N]) {
+  const int lane = threadIdx.x & 31;
+  int rank = __popc(peers & ((1u << lane) - 1u));
+  unsigned rest = peers & (0xfffffffeu << lane);   // peers above this lane
+  while (__any_sync(0xffffffffu, rest != 0u)) {
+    const int next = __ffs(rest);                  // 1-based; 0: none
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const float o = __shfl_sync(0xffffffffu, v[i], (next - 1) & 31);
+      if (next) v[i] += o;
     }
+    // Odd ranks were just added into their lower neighbour: drop them.
+    rest &= __ballot_sync(0xffffffffu, (rank & 1) == 0);
+    rank >>= 1;
   }
-  for (int s = 0; s < a.K; ++s) {
-    const int64_t c = base + (int64_t)s * a.TP;
-    if (a.obs_sta[2 * O + c] == 0.f) continue;
-    float* row = a.out + (int64_t)a.obs_img[c] * DV;
-    for (int i = 0; i < DV; ++i) {
-      const float w[3] = {widen<T>(jc[(i * 3) * O + c]),
-                          widen<T>(jc[(i * 3 + 1) * O + c]),
-                          widen<T>(jc[(i * 3 + 2) * O + c])};
-      atomicAdd(row + i, dot3(w, etu));
+}
+
+// Lane `c`'s couplings (3*DV words), image and liveness.
+// WL[i] . etu, in dot3's order.
+template <int N>
+__device__ inline float k3_row(const float (&w)[N], int i, const float e[3]) {
+  return w[i * 3] * e[0] + w[i * 3 + 1] * e[1] + w[i * 3 + 2] * e[2];
+}
+
+template <int DV, typename T>
+__device__ inline bool k3_load(const K3Args& a, int64_t O, int64_t c,
+                               bool lane_ok, float (&w)[3 * DV], int& img) {
+  const bool live = lane_ok && a.obs_sta[2 * O + c] != 0.f;
+  img = live ? a.obs_img[c] : 0;
+  const T* jc = static_cast<const T*>(a.jcorr);
+#pragma unroll
+  for (int r = 0; r < 3 * DV; ++r)
+    w[r] = live ? widen<T>(jc[r * O + c]) : 0.f;
+  return live;
+}
+
+template <int NP, typename T>
+__global__ void __launch_bounds__(kK3Points * kK3Slots)
+k3_matvec_kernel(K3Args a) {
+  constexpr int DV = 6 + NP;
+  __shared__ float s_part[kK3Slots][3][kK3Points];
+  __shared__ float s_etu[3][kK3Points];
+  __shared__ float s_out[kK3Window * DV];
+  __shared__ int s_lo, s_hi;
+
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int ns = blockDim.y;                        // slots per pass
+  const int passes = (a.K + ns - 1) / ns;
+  const int groups = (a.TP + kK3Points - 1) / kK3Points;
+  const int b = blockIdx.x / groups;
+  const int p = (blockIdx.x - b * groups) * kK3Points + tx;
+  const int64_t O = (int64_t)a.Pp * a.K;
+  const int64_t lane0 = (int64_t)b * a.TP * a.K + p;   // slot 0's lane
+  const int tid = ty * kK3Points + tx, nt = kK3Points * ns;
+  if (tid == 0) {
+    s_lo = 0x7fffffff;
+    s_hi = -1;
+  }
+
+  // Pass 1: each lane's share of its point's etu, summed over the slots
+  // in order; the window of the live lanes' images.
+  float w[3 * DV];
+  int img = 0, lo = 0x7fffffff, hi = -1, held = 0;
+  bool live = false;
+  float etu[3] = {0.f, 0.f, 0.f};
+  for (int q = 0; q < passes; ++q) {
+    const int s = q * ns + ty;
+    const int64_t c = lane0 + (int64_t)s * a.TP;
+    live = k3_load<DV, T>(a, O, c, p < a.TP && s < a.K, w, img);
+    held = q;
+    float part[3] = {0.f, 0.f, 0.f};
+    if (live) {
+      lo = min(lo, img);
+      hi = max(hi, img);
+      const int cam = a.obs_cam[c];
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        float vp = 0.f, vc = 0.f;
+#pragma unroll
+        for (int i = 0; i < 6; ++i)
+          vp += w[i * 3 + j] * a.du_pose_t[i * a.Npad + img];
+#pragma unroll
+        for (int m = 0; m < NP; ++m)
+          vc += w[18 + m * 3 + j] * a.du_cam_t[m * a.C + cam];
+        part[j] = vp + vc;
+      }
     }
+#pragma unroll
+    for (int j = 0; j < 3; ++j) s_part[ty][j][tx] = part[j];
+    __syncthreads();
+    if (ty == 0)
+      for (int t = 0; t < ns; ++t)
+#pragma unroll
+        for (int j = 0; j < 3; ++j) etu[j] += s_part[t][j][tx];
+    __syncthreads();
+  }
+  if (ty == 0)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) s_etu[j][tx] = etu[j];
+  lo = __reduce_min_sync(0xffffffffu, lo);
+  hi = __reduce_max_sync(0xffffffffu, hi);
+  if ((tid & 31) == 0) {
+    atomicMin(&s_lo, lo);
+    atomicMax(&s_hi, hi);
+  }
+  __syncthreads();
+  const float e[3] = {s_etu[0][tx], s_etu[1][tx], s_etu[2][tx]};
+  const int blo = s_lo, bhi = s_hi;
+
+  // Pass 2: out[img, i] += WL[i] . etu, through the window chunks.
+  float val[DV];
+#pragma unroll
+  for (int i = 0; i < DV; ++i) val[i] = k3_row(w, i, e);
+  for (int w0 = blo; w0 <= bhi; w0 += kK3Window) {
+    const int width = min(kK3Window, bhi - w0 + 1);
+    for (int i = tid; i < width * DV; i += nt) s_out[i] = 0.f;
+    __syncthreads();
+    for (int k = 0, first = held; k < passes; ++k) {
+      const int q = (first + k) % passes;
+      if (q != held) {                // only with K > kK3Slots
+        const int s = q * ns + ty;
+        const int64_t c = lane0 + (int64_t)s * a.TP;
+        live = k3_load<DV, T>(a, O, c, p < a.TP && s < a.K, w, img);
+        held = q;
+#pragma unroll
+        for (int i = 0; i < DV; ++i) val[i] = k3_row(w, i, e);
+      }
+      const bool in = live && img >= w0 && img < w0 + width;
+      float sum[DV];
+#pragma unroll
+      for (int i = 0; i < DV; ++i) sum[i] = in ? val[i] : 0.f;
+      const unsigned peers =
+          __match_any_sync(0xffffffffu, in ? img : -1 - (tid & 31));
+      peer_sum<DV>(peers, sum);
+      if (in && (tid & 31) == __ffs(peers) - 1) {
+        float* row = s_out + (img - w0) * DV;
+#pragma unroll
+        for (int i = 0; i < DV; ++i) atomicAdd(row + i, sum[i]);
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < width * DV; i += nt) {
+      const float v = s_out[i];
+      if (v != 0.f) atomicAdd(a.out + (int64_t)w0 * DV + i, v);
+    }
+    __syncthreads();                  // before the next chunk's zeroing
   }
 }
 
 template <int NP>
 cudaError_t launch_schur_matvec(const K3Args& a, int bf16,
                                 cudaStream_t stream) {
-  const int blocks = (a.Pp + kThreads - 1) / kThreads;
+  if (a.TP <= 0 || a.K <= 0 || a.Pp % a.TP != 0)
+    return cudaErrorInvalidValue;
+  const int groups = (a.TP + kK3Points - 1) / kK3Points;
+  const dim3 block(kK3Points, a.K < kK3Slots ? a.K : kK3Slots);
+  const int blocks = a.Pp / a.TP * groups;
+  if (blocks == 0) return cudaSuccess;
   if (bf16)
-    k3_matvec_kernel<NP, __nv_bfloat16><<<blocks, kThreads, 0, stream>>>(a);
+    k3_matvec_kernel<NP, __nv_bfloat16><<<blocks, block, 0, stream>>>(a);
   else
-    k3_matvec_kernel<NP, float><<<blocks, kThreads, 0, stream>>>(a);
+    k3_matvec_kernel<NP, float><<<blocks, block, 0, stream>>>(a);
   return cudaGetLastError();
 }
 

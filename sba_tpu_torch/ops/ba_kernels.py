@@ -44,6 +44,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from sba_tpu_torch.geometry import camera_models
 from sba_tpu_torch.ops import cuda_build
@@ -57,6 +58,11 @@ CUDA_MAX_K = 1024
 
 # The ranged regime starts here (see the module docstring).
 RANGED_MIN_NPAD = 2048
+
+# K3's block shape in csrc/ba_kernels.cu: points per block (kK3Points)
+# and images per shared-memory window chunk (kK3Window).
+K3_POINTS_PER_BLOCK = 64
+K3_WINDOW = 256
 
 # Launch counts of the CUDA kernels (a wrapper adds one per launch).
 LAUNCHES = {"fused_schur": 0, "fused_reduce": 0, "schur_matvec": 0,
@@ -201,6 +207,31 @@ def build_static(problem, opt, lay: KernelLayout, device) -> KernelStatic:
     return KernelStatic(obs_sta=dev(obs_sta), obs_img=dev(obs_img),
                         obs_cam=dev(obs_cam), free_sta=dev(free_sta),
                         free_pts=dev(free_pts), image_cam=dev(image_cam))
+
+
+def schur_matvec_windows(static: KernelStatic, lay: KernelLayout):
+    """The image windows of K3's blocks, as the kernel takes them.
+
+    A block covers K3_POINTS_PER_BLOCK points of one TP-point block (all
+    their slots); its window is [lo, hi], the least and greatest image of
+    its live lanes, summed in chunks of K3_WINDOW images. Returns (lo, hi,
+    chunks), each [blocks] int64 in block order; a block without live
+    lanes has lo = 2^31 - 1, hi = -1 and 0 chunks."""
+    TP, K, nb = lay.TP, lay.K, lay.nb
+    groups = -(-TP // K3_POINTS_PER_BLOCK)
+    pad = groups * K3_POINTS_PER_BLOCK - TP
+    img = static.obs_img.long().reshape(nb, K, TP)
+    live = static.obs_sta[2].reshape(nb, K, TP) != 0
+    big = torch.full_like(img, 2 ** 31 - 1)
+    lo = torch.where(live, img, big)
+    hi = torch.where(live, img, torch.full_like(img, -1))
+    lo = F.pad(lo, (0, pad), value=2 ** 31 - 1)
+    hi = F.pad(hi, (0, pad), value=-1)
+    shape = (nb, K, groups, K3_POINTS_PER_BLOCK)
+    lo = lo.reshape(shape).amin(dim=(1, 3)).reshape(-1)
+    hi = hi.reshape(shape).amax(dim=(1, 3)).reshape(-1)
+    chunks = torch.clamp(hi - lo + K3_WINDOW, min=0) // K3_WINDOW
+    return lo, hi, chunks
 
 
 def pack_params(qvecs, tvecs, cam_params, image_cam, lay: KernelLayout):

@@ -45,29 +45,30 @@ def nvcc_path() -> str:
     raise RuntimeError(f"nvcc not found (looked at {candidates})")
 
 
-def _sources():
-    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+def _sources(csrc: Path = CSRC_DIR):
+    return sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
 
 
-def library_path() -> Path:
+def library_path(csrc: Path = CSRC_DIR) -> Path:
     h = hashlib.sha256()
-    for src in _sources():
+    for src in _sources(csrc):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     return BUILD_DIR / f"libsba_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build() -> tuple[Path, str]:
-    """Compile the kernels unless this source state is already built.
-    Returns (library path, compiler log; empty when nothing was built)."""
-    out = library_path()
+def build(csrc: Path = CSRC_DIR) -> tuple[Path, str]:
+    """Compile the kernel sources in `csrc` (the package's own by
+    default) unless this source state is already built. Returns (library
+    path, compiler log; empty when nothing was built)."""
+    out = library_path(csrc)
     if out.is_file():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     nvcc = nvcc_path()
-    srcs = sorted(CSRC_DIR.glob("*.cu"))
+    srcs = sorted(csrc.glob("*.cu"))
     objs = [tmp.with_name(f"{tmp.name}.{s.stem}.o") for s in srcs]
     cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
             for s, o in zip(srcs, objs)]
@@ -137,19 +138,23 @@ _SIGNATURES = {
 }
 
 
+def load(path: Path) -> ctypes.CDLL:
+    """Load a built kernel library and declare its C entry points."""
+    cdll = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(cdll, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    cdll.sba_error_string.argtypes = [_I]
+    cdll.sba_error_string.restype = ctypes.c_char_p
+    return cdll
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
     global _LIB
     if _LIB is None:
-        path, _ = build()
-        cdll = ctypes.CDLL(str(path))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(cdll, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        cdll.sba_error_string.argtypes = [_I]
-        cdll.sba_error_string.restype = ctypes.c_char_p
-        _LIB = cdll
+        _LIB = load(build()[0])
     return _LIB
 
 

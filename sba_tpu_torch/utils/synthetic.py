@@ -211,6 +211,19 @@ def make_sequential_ba_problem(*args, dtype=torch.float32, device="cuda",
     return problem_from_numpy(fields, device=device, dtype=dtype), truth
 
 
+def spread_image_ids(num_images: int) -> np.ndarray:
+    """A permutation of image ids that sends neighbouring images far
+    apart: image i gets id i*m mod n, with m the first integer from
+    0.45 n up that is coprime with n. Mapped through it, a sequential
+    scene's points, each seen by a few consecutive images, have no image
+    locality left (K3's wide-window case)."""
+    n = int(num_images)
+    m = int(np.ceil(0.45 * n))
+    while np.gcd(m, n) != 1:
+        m += 1
+    return (np.arange(n, dtype=np.int64) * m % n).astype(np.int32)
+
+
 def make_synthetic_reconstruction(num_images: int = 8, num_points: int = 120,
                                   seed: int = 0, image_size=(640, 480),
                                   focal: float = 500.0) -> Reconstruction:

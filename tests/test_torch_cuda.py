@@ -168,6 +168,97 @@ def test_ncc_kernel_matches_twin(cuda, r):
         pk.ncc_cost(ref.double(), v.double(), inb, r, 1, 3.0, 0.2)
 
 
+@pytest.mark.parametrize("S", [1, 4, 7, 20])
+@pytest.mark.parametrize("r,step", [(3, 1), (5, 1), (3, 2)])
+def test_ncc_kernel_bit_equal_to_twin(cuda, S, r, step):
+    """K6 equals its twin bit for bit on the same CUDA tensors, for one
+    source, a whole chunk of sources, and S past the chunk (7, 20), on a
+    481x643 image (not a multiple of the tile), with a flat patch (where
+    the NCC's variances cancel) and a band outside the last source, so
+    that both outcomes of the half-window gate occur."""
+    rng = np.random.default_rng(100 * S + 10 * r + step)
+    H, W = 481, 643
+    ref = rng.random((H, W), dtype=np.float32)
+    ref[200:260, 300:400] = 0.5
+    v = rng.random((S, H, W), dtype=np.float32)
+    v[:, 200:260, 300:400] = 0.25
+    inb = np.ones((S, H, W), dtype=bool)
+    inb[S - 1, :, :150] = False
+    v[~inb] = 0.0
+    ref, v, inb = (torch.as_tensor(a, device=cuda) for a in (ref, v, inb))
+    pk.reset_launches()
+    c_k = pk.ncc_cost(ref, v, inb, r, step, 3.0, 0.2)
+    c_p = pk.ncc_cost_plain(ref, v, inb, r, step, 3.0, 0.2)
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES["ncc_cost"] == 1
+    assert torch.equal(c_k, c_p)
+    gated = c_k == 2.0
+    assert bool(gated.any()) and bool((~gated).any())
+    assert bool(gated[S - 1, :, :140].all())
+
+
+def _sequential_bucket(device, model_id, ranged, order):
+    """The one bucket of a 1024-image sequential scene (20,000 points,
+    track 7; SIMPLE_PINHOLE, or PINHOLE for 4 intrinsics), and K3's
+    inputs on it. `order` "permuted" maps the image ids through
+    `spread_image_ids`, so that every block's window spans several
+    chunks."""
+    from sba_tpu_torch.optim.ba import problem_from_numpy
+    from sba_tpu_torch.utils.synthetic import (
+        make_sequential_ba_problem_numpy, spread_image_ids)
+
+    f, _ = make_sequential_ba_problem_numpy(
+        num_images=1024, num_points=20_000, track_len=7, seed=4)
+    if model_id == 1:
+        c = f["cam_params"]
+        c[0, :4] = [c[0, 0], c[0, 0], c[0, 1], c[0, 2]]
+    problem = problem_from_numpy(f, device, torch.float32)
+    opt = BAOptions(model_id=model_id, dtype="float32", fused_ranged=ranged)
+    statics, lays, pts0, _, prob, _, _ = ba_fused.prepare(problem, opt)
+    st, lay, pts = statics[0], lays[0], pts0[0]
+    par = bk.pack_params(prob.qvecs, prob.tvecs, prob.cam_params,
+                         st.image_cam, lay)
+    jc = bk.fused_reduce(st, par, pts, torch.tensor(1e-3, device=device),
+                         lay, opt)[3]
+    gen = torch.Generator().manual_seed(5)
+    if order == "permuted":
+        perm = torch.as_tensor(spread_image_ids(lay.N), device=device)
+        st = st._replace(obs_img=perm[st.obs_img.long()].contiguous())
+    dup = torch.zeros(6, lay.Npad)
+    dup[:, :lay.N] = 1e-3 * torch.randn(6, lay.N, generator=gen)
+    duc = torch.zeros(12, lay.C)
+    duc[:lay.nparams] = 1e-2 * torch.randn(lay.nparams, lay.C, generator=gen)
+    return st, lay, opt, dup.to(device), duc.to(device), jc
+
+
+@pytest.mark.parametrize("order", ["sorted", "permuted"])
+@pytest.mark.parametrize("ranged", ["off", "on"])
+@pytest.mark.parametrize("model_id", [0, 1])
+def test_schur_matvec_windows_match_twin(cuda, model_id, ranged, order):
+    """K3 within 3e-5 of its twin (float atomics sum in no fixed order) on
+    a sequential scene, whose blocks see narrow image windows, and on the
+    same bucket with its image ids permuted, whose every block takes
+    several window chunks; f32 and bf16 couplings, 3 and 4 intrinsics."""
+    st, lay, opt, dup, duc, jc = _sequential_bucket(cuda, model_id, ranged,
+                                                    order)
+    assert jc.dtype == (torch.bfloat16 if ranged == "on" else torch.float32)
+    assert lay.nparams == (3 if model_id == 0 else 4)
+    _, _, chunks = bk.schur_matvec_windows(st, lay)
+    live = chunks > 0
+    if order == "sorted":
+        assert int(chunks.max()) == 1
+    else:
+        assert bool((chunks[live] > 1).all())
+    bk.reset_launches()
+    m_k = bk.schur_matvec(st, dup, duc, jc, lay, opt)
+    m_p = bk.schur_matvec_plain(st, dup, duc, jc, lay, opt)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES["schur_matvec"] == 1
+    assert tuple(m_k.shape) == (lay.Npad, 6 + lay.nparams)
+    assert float(m_p.abs().max()) > 0
+    assert _rel_err(m_k, m_p) <= 3e-5
+
+
 def _textured_plane_views(H=60, W=80, depth0=4.0, n_src=2, seed=0):
     """tests/test_mvs.py's fronto-parallel textured plane: a reference
     camera at the origin and x-translated sources."""
