@@ -9,19 +9,21 @@ Needs one CUDA card and nvcc (found through torch's CUDA_HOME, else
 2. twins          -- K1/K4/K5 against their plain PyTorch twins on the
                      same CUDA tensors at the headline shapes (128 images,
                      30,000 points, ~7 observations per point), models 0
-                     and 2; a small solve through the kernels against the
-                     same solve through the twins on the CPU, and bf16
-                     against f32 S_corr;
+                     and 2 (K1's S_corr exactly symmetric); a small solve
+                     through the kernels against the same solve through
+                     the twins on the CPU, and bf16 against f32 S_corr;
 3. twins-implicit -- K2-K5 against their twins at the 1024-image
                      sequential scene (f32 and bf16 coupling stores), K3
-                     also with the scene's image ids permuted (every
+                     also with the scene's image ids permuted and K2 with
+                     its images renamed by `spread_image_ids` (every
                      block's window spans several chunks; the count of
                      such blocks is printed), and on a two-camera scene,
                      whose implicit step on the card is held against the
                      same step on the CPU;
 4. main           -- `bundle_adjust` on the headline problem in float32
                      (dense path: K1, K4, K5 must launch), cost must
-                     fall; LM it/s of a warm `solve_prepared`;
+                     fall; host prep (`ba_fused.prepare`) and LM it/s
+                     of a warm `solve_prepared`;
 5. main-implicit  -- `bundle_adjust` on the 1024-image scene (implicit
                      path: K2, K3, K4, K5 must launch, K1 must not); LM
                      it/s, K3 launches per LM iteration, peak memory;
@@ -70,15 +72,19 @@ Needs one CUDA card and nvcc (found through torch's CUDA_HOME, else
                      on an 8-image 640x480 model with TIFF maps, at its
                      defaults (float64, forward mode) and in hard_numeric
                      mode;
-13. timing        -- per-kernel CUDA-event times against the twins, the
+13. timing        -- per-kernel CUDA-event times (the stream sleeps
+                     while the host enqueues the timed calls, so they are
+                     the device's) against the twins, the
                      memory/compute bound and, for B1-B4, the PyTorch
-                     library call of the same function (K3 and K6 also
-                     beside their first designs' times, "was");
+                     library call of the same function (K1, K2, K3 and
+                     K6 also beside their first designs' times, "was");
 14. profile       -- device time by kernel over one warm solve of the
-                     headline, of the 1024-image scene, of one 1600x1200
-                     photometric PatchMatch solve and of the bench_sba
-                     SBA solve (torch.profiler), and the device's busy
-                     share.
+                     headline (with K1's split between its linearize-and-
+                     reduce kernel and its three Schur kernels, and its
+                     share of its bound), of the
+                     1024-image scene, of one 1600x1200 photometric
+                     PatchMatch solve and of the bench_sba SBA solve
+                     (torch.profiler), and the device's busy share.
 
 Prints one progress line per phase, a `{"kernels": [...]}` line, the
 card's name and power limit, and as its last line
@@ -160,10 +166,17 @@ MVS_SCENE = dict(num_images=8, image_size=(1600, 1200),
 NCC_CASES = ((3, 1), (5, 1), (3, 2))      # (window radius, window step)
 NCC_SOURCE_CHUNK = 4     # sources K6 stages per chunk (csrc kSrc)
 # Times of the kernels' first designs (a block per tile and source for
-# K6; a thread per point with a float atomic per lane and row for K3) at
-# the timing phase's shapes, on an NVIDIA H100 80GB HBM3 at 700 W
-# (PERF.md kernel table), printed beside the current times.
-WAS_MS = {"ncc_cost": 0.6771, "schur_matvec": 0.2602}
+# K6; a thread per point with a float atomic per lane and row for K1, K2
+# and K3, and per outer-product entry for K1's S_corr) at the timing
+# phase's shapes, on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md kernel
+# table), printed beside the current times.
+WAS_MS = {"ncc_cost": 0.6771, "schur_matvec": 0.2602, "fused_schur": 2.3427,
+          "fused_reduce": 1.7302}
+# K1's CUDA kernels by part, for the profile phase's split; its device
+# time in all is held against its bound there.
+K1_PARTS = {"K1a linearize-and-reduce": r"k12_reduce_kernel",
+            "K1b Schur": r"k1b_\w+_kernel",
+            "K1": r"k12_reduce_kernel|k1b_\w+_kernel"}
 # sba_tpu's PatchMatch scores a hypothesis by its depth alone (the normal
 # cancels in the collapsed warp), so its normals are not fitted and
 # fusion's 10-degree normal test leaves next to no points; the smoke
@@ -336,6 +349,8 @@ def phase_twins():
                 close(f"m{model_id} b{b} img_red[:, {a0}:{a1}]",
                       img_k[:, a0:a1], img_p[:, a0:a1], 1e-5)
             e1 = close(f"m{model_id} b{b} S_corr", s_k, s_p, 3e-5)
+            require(torch.equal(s_k, s_k.T),
+                    f"m{model_id} b{b} S_corr is not exactly symmetric")
             close(f"m{model_id} b{b} ey", ey_k, ey_p, 3e-5)
             errs["fused_schur"] = max(errs["fused_schur"], e1)
 
@@ -482,6 +497,39 @@ def _check_k3_permuted(tag, st, lay, par, pts, lam, dup, duc, opt):
     return e
 
 
+def _check_k2_spread(tag, st, lay, par, pts, lam, opt):
+    """K2 against its twin on the bucket with its images renamed by
+    `spread_image_ids` (the same function, no image locality): every
+    block's payload window spans several chunks. Returns the image
+    payload's max abs error."""
+    import torch
+
+    from sba_tpu_torch.ops import ba_kernels as bk
+    from sba_tpu_torch.utils.synthetic import (rename_images,
+                                               spread_image_ids)
+
+    sts, pars = rename_images(st, par, spread_image_ids(lay.N))
+    _, _, chunks = bk.fused_reduce_windows(sts, lay)
+    live = chunks > 0
+    require(bool((chunks[live] > 1).all()),
+            f"{tag} spread: a block's payload window fits one chunk")
+    img_k, pt_k, jw_k, jc_k = bk.fused_reduce(sts, pars, pts, lam, lay, opt)
+    img_p, pt_p, jw_p, jc_p = bk.fused_reduce_plain(sts, pars, pts, lam, lay,
+                                                    opt)
+    torch.cuda.synchronize()
+    e = close(f"{tag} spread img_red", img_k, img_p, 1e-4)
+    close(f"{tag} spread pt_pay", pt_k, pt_p, 1e-4)
+    close(f"{tag} spread jw", jw_k, jw_p, 1e-4)
+    close(f"{tag} spread jcorr", jc_k.float(), jc_p.float(),
+          2.0 ** -8 if jc_k.dtype == torch.bfloat16 else 1e-4)
+    log("twins-implicit", f"{tag} images renamed by spread_image_ids: K2 "
+        f"matches its twin, |dimg_red| {e:.2e}; blocks {int(live.sum())}, "
+        f"of which {int((chunks > 1).sum())} took more than one payload "
+        f"window chunk of {bk.K12_WINDOW} images (at most "
+        f"{int(chunks.max())})")
+    return e
+
+
 def _fold(errs, e2345):
     for name, e in zip(IMPLICIT_KERNELS, e2345):
         errs[name] = max(errs[name], e)
@@ -533,6 +581,8 @@ def phase_twins_implicit(errs):
             e3 = _check_k3_permuted(tag, st, lay, par, pts, lam, dup, duc,
                                     opt)
             errs["schur_matvec"] = max(errs["schur_matvec"], e3)
+            e2 = _check_k2_spread(tag, st, lay, par, pts, lam, opt)
+            errs["fused_reduce"] = max(errs["fused_reduce"], e2)
     del problem, ctx
     # Two cameras: the camera rows of the payload and of the matvec are
     # keyed by image and summed by camera in the epilogue.
@@ -596,7 +646,11 @@ def phase_main():
         f"{s.num_iterations} it, {wall:.2f} s incl. prep; launches "
         f"{json.dumps(launches)}")
 
+    torch.cuda.synchronize()
+    t = time.perf_counter()
     ctx = ba_fused.prepare(problem, opt)
+    torch.cuda.synchronize()
+    t_prep = time.perf_counter() - t
     ba_fused.solve_prepared(ctx)            # warm
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -605,7 +659,8 @@ def phase_main():
     torch.cuda.synchronize()
     dt = time.perf_counter() - t
     its = s2.num_iterations
-    log("main", f"warm solve_prepared: {its} LM it in {dt * 1e3:.1f} ms = "
+    log("main", f"host prep (ba_fused.prepare) {t_prep * 1e3:.1f} ms; "
+        f"warm solve_prepared: {its} LM it in {dt * 1e3:.1f} ms = "
         f"{its / dt:.2f} LM it/s, {dt * 1e3 / its:.2f} ms/it; peak device "
         f"memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     return launches, ctx, dt * 1e3 / its
@@ -1029,12 +1084,13 @@ def phase_timing_mvs(inputs, launches, err):
     """K6 at the full shape (r=3, step 1): ms per launch, its twin's,
     its bound."""
     from sba_tpu_torch.ops import patch_match_kernels as pk
+    from sba_tpu_torch.utils.kernel_timing import time_ms
 
     ref, v, inb = inputs
     S, H, W = v.shape
-    ms = _time_ms(lambda: pk.ncc_cost(ref, v, inb, 3, 1, 3.0, 0.2), 20)
-    plain_ms = _time_ms(lambda: pk.ncc_cost_plain(ref, v, inb, 3, 1, 3.0,
-                                                  0.2), 3)
+    ms = time_ms(lambda: pk.ncc_cost(ref, v, inb, 3, 1, 3.0, 0.2), 20)
+    plain_ms = time_ms(lambda: pk.ncc_cost_plain(ref, v, inb, 3, 1, 3.0,
+                                                 0.2), 3)
     bound = _ncc_bound(S, H, W, 3, 1)
     log("timing", f"ncc_cost ({S}x{H}x{W}, 49 taps): {ms:.4f} ms per "
         f"launch (was {WAS_MS['ncc_cost']:.4f} ms), twin {plain_ms:.3f} ms, "
@@ -1042,21 +1098,6 @@ def phase_timing_mvs(inputs, launches, err):
         f"of it")
     return {"ncc_cost": _kernel_row("ncc_cost", {"ncc_cost": launches},
                                     {"ncc_cost": err}, ms, plain_ms, bound)}
-
-
-def _time_ms(fn, reps):
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def _bounds(statics, lays, opt, kernels):
@@ -1143,10 +1184,12 @@ def _kernel_row(name, launches, errs, ms, plain_ms, bound):
 
 
 def phase_timing(ctx, launches, errs):
-    """K1/K4/K5 at the headline: ms per LM iteration (all buckets)."""
+    """K1/K4/K5 at the headline: ms per LM iteration (all buckets), and
+    the host's ms to enqueue one."""
     import torch
 
     from sba_tpu_torch.ops import ba_kernels as bk
+    from sba_tpu_torch.utils.kernel_timing import host_ms, time_ms
 
     statics, lays, pts0, _, prob, opt, _ = ctx
     par = bk.pack_params(prob.qvecs, prob.tvecs, prob.cam_params,
@@ -1182,13 +1225,16 @@ def phase_timing(ctx, launches, errs):
     bounds = _bounds(statics, lays, opt, tuple(fns))
     rows = {}
     for name, (kern, plain) in fns.items():
-        ms = _time_ms(kern, 20)
-        plain_ms = _time_ms(plain, 3)
+        ms = time_ms(kern, 20)
+        plain_ms = time_ms(plain, 3)
         rows[name] = _kernel_row(name, launches, errs, ms, plain_ms,
                                  bounds[name])
-        log("timing", f"{name}: {ms:.4f} ms per LM iteration "
-            f"({len(groups)} bucket launches), twin {plain_ms:.3f} ms, "
-            f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]})")
+        was = (f" (was {WAS_MS[name]:.4f} ms)" if name in WAS_MS else "")
+        log("timing", f"{name}: {ms:.4f} ms per LM iteration{was} "
+            f"({len(groups)} bucket launches; host {host_ms(kern, 20):.4f}"
+            f" ms to enqueue), twin {plain_ms:.3f} ms, "
+            f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]}), "
+            f"{100 * bounds[name][0] / ms:.1f}% of it")
     return rows
 
 
@@ -1198,6 +1244,7 @@ def phase_timing_implicit(ctx, launches, errs, k3_per_it):
     import torch
 
     from sba_tpu_torch.ops import ba_kernels as bk
+    from sba_tpu_torch.utils.kernel_timing import host_ms, time_ms
 
     statics, lays, pts0, _, prob, opt, _ = ctx
     par = bk.pack_params(prob.qvecs, prob.tvecs, prob.cam_params,
@@ -1227,14 +1274,15 @@ def phase_timing_implicit(ctx, launches, errs, k3_per_it):
     bounds = _bounds(statics, lays, opt, tuple(fns))
     rows = {}
     for name, (kern, plain) in fns.items():
-        ms = _time_ms(kern, 20)
-        plain_ms = _time_ms(plain, 3)
+        ms = time_ms(kern, 20)
+        plain_ms = time_ms(plain, 3)
         rows[name] = _kernel_row(name, launches, errs, ms, plain_ms,
                                  bounds[name])
         unit = "LM iteration" if name == "fused_reduce" else "matvec"
         was = (f" (was {WAS_MS[name]:.4f} ms)" if name in WAS_MS else "")
         log("timing", f"{name} (1024 img): {ms:.4f} ms per {unit}{was} "
-            f"({len(groups)} bucket launches), twin {plain_ms:.3f} ms, "
+            f"({len(groups)} bucket launches; host {host_ms(kern, 20):.4f}"
+            f" ms to enqueue), twin {plain_ms:.3f} ms, "
             f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]}), "
             f"{100 * bounds[name][0] / ms:.1f}% of it")
     log("timing", f"schur_matvec per LM iteration of the 1024-image solve: "
@@ -1243,12 +1291,15 @@ def phase_timing_implicit(ctx, launches, errs, k3_per_it):
     return rows
 
 
-def _profile(label, solve, unit):
+def _profile(label, solve, unit, parts=None, bounds=None):
     """Device time by kernel over one warm call of `solve` (which returns
     its count of `unit`s) under torch.profiler. Busy time sums the
     device-side events only (kernels, copies, sets): an aten op's own
-    device total repeats the kernels it launched. Returns busy us per
-    unit, or None when the profiler saw no device time."""
+    device total repeats the kernels it launched. `parts` maps a label to
+    a kernel-name pattern whose summed device time per unit is logged,
+    beside its share of `bounds[label]` (ms per unit) where given.
+    Returns busy us per unit, or None when the profiler saw no device
+    time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1273,7 +1324,7 @@ def _profile(label, solve, unit):
             "share not measured")
         return None
     ours = sum(dev_us(e) for e in kernels
-               if re.search(r"\b(k[1-6]_\w+|b_map_gather\w*)_kernel",
+               if re.search(r"\b(k[1-6]\w*|b_map_gather\w*)_kernel",
                             e.key))
     log("profile", f"{label}, {n} {unit}: device time {busy / 1e3:.2f} ms "
         f"= {busy / 1e3 / n:.3f} ms/{unit}; our CUDA kernels "
@@ -1283,15 +1334,22 @@ def _profile(label, solve, unit):
     for e in sorted(kernels, key=dev_us, reverse=True)[:12]:
         log("profile", f"{dev_us(e) / 1e3:8.3f} ms {e.count:6d}x "
             f"{e.key[:70]}")
+    for part, pattern in (parts or {}).items():
+        sel = [e for e in kernels if re.search(pattern, e.key)]
+        ms = sum(map(dev_us, sel)) / 1e3 / n
+        share = ((bounds or {}).get(part) or 0.0) / ms if ms else 0.0
+        log("profile", f"{label}: {part} {ms:.4f} ms/{unit} over "
+            f"{sum(e.count for e in sel)} launches"
+            + (f", {100 * share:.1f}% of its bound" if share else ""))
     return busy / n
 
 
-def phase_profile(ctx, label):
+def phase_profile(ctx, label, parts=None, bounds=None):
     """Device time by kernel over one warm BA solve."""
     from sba_tpu_torch.optim import ba_fused
 
     return _profile(label, lambda: ba_fused.solve_prepared(ctx)[1]
-                    .num_iterations, "LM it")
+                    .num_iterations, "LM it", parts, bounds)
 
 
 def _log_busy(label, dev_us_per_unit, ms_per_unit, unit="LM iteration"):
@@ -1684,12 +1742,14 @@ def _gather_bound(inp):
 def phase_timing_sba(inp, launches, errs):
     """B1-B4 at the probes' shapes: kernel, twin and library ms, and the
     bound."""
+    from sba_tpu_torch.utils.kernel_timing import time_ms
+
     bounds, touched = _gather_bound(inp)
     rows = {}
     for row, (kern, plain, library) in probe_calls(inp).items():
-        ms = _time_ms(kern, 50)
-        plain_ms = _time_ms(plain, 5)
-        lib_ms = _time_ms(library, 50)
+        ms = time_ms(kern, 50)
+        plain_ms = time_ms(plain, 5)
+        lib_ms = time_ms(library, 50)
         rows[row] = _kernel_row(row, {row: launches[PROBES[row][0]]}, errs,
                                 ms, plain_ms, bounds[row][:2])
         rows[row]["library_ms"] = lib_ms
@@ -1753,9 +1813,12 @@ def main() -> int:
     rows.update(run("timing", phase_timing_sba, probe_in, gather_launches,
                     gather_errs))
     del probe_in
-    for label, c, ms in (("headline (dense)", ctx, ms_per_it),
-                         ("1024 images (implicit)", ctx_i, ms_per_it_i)):
-        _log_busy(label, run("profile", phase_profile, c, label), ms)
+    k1_bound = {"K1": rows["fused_schur"]["bound_ms"]}
+    for label, c, ms, parts in (
+            ("headline (dense)", ctx, ms_per_it, K1_PARTS),
+            ("1024 images (implicit)", ctx_i, ms_per_it_i, None)):
+        _log_busy(label, run("profile", phase_profile, c, label, parts,
+                             k1_bound), ms)
     label = "PatchMatch photometric 1600x1200"
     _log_busy(label, run("profile", _profile, label, pm_solve, "solve"),
               pm_ms, "solve")

@@ -244,17 +244,38 @@ __device__ inline float dot3(const float a[3], const float b[3]) {
   return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
 }
 
+// Sum v over the lanes of `peers` (the lanes of this warp with this
+// lane's key) by a shuffle tree; the lowest lane of each group ends with
+// its group's sum. Every lane of the warp must call it.
+template <int N>
+__device__ inline void peer_sum(unsigned peers, float (&v)[N]) {
+  const int lane = threadIdx.x & 31;
+  int rank = __popc(peers & ((1u << lane) - 1u));
+  unsigned rest = peers & (0xfffffffeu << lane);   // peers above this lane
+  while (__any_sync(0xffffffffu, rest != 0u)) {
+    const int next = __ffs(rest);                  // 1-based; 0: none
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const float o = __shfl_sync(0xffffffffu, v[i], (next - 1) & 31);
+      if (next) v[i] += o;
+    }
+    // Odd ranks were just added into their lower neighbour: drop them.
+    rest &= __ballot_sync(0xffffffffu, (rank & 1) == 0);
+    rank >>= 1;
+  }
+}
+
 // ---------------------------------------------------------------------------
-// K1a / K2: linearize + reduce, one thread per point.
+// K1a / K2: linearize + reduce, one thread per observation lane.
 //
 // K1a replaces the linearize/reduce half of fused_schur
 // (_linearize_and_reduce): per observation the residual and analytic
 // Jacobians; per point g_p, Hpp, the damped Hpp^-1 and its Cholesky Lp;
 // the whitened couplings WL = (Ju^T Jx) Lp; per image the g/H payload
 // and Ey = EL (Lp^T g_p). On the TPU the per-image reductions are
-// one-hot MXU contractions; here they are atomics into img_red / ey.
+// one-hot MXU contractions.
 //
-// With Implicit (K2, replacing fused_reduce / _fused_reduce_kernel) the
+// With a K2 mode (replacing fused_reduce / _fused_reduce_kernel) the
 // same body writes no Ey vector: each live observation adds its Ey rows
 // (ey_pose 6, ey_cam NP) and its share of the PCG preconditioner (the
 // 6x6 pose block of WL WL^T as 21 upper-triangle rows when bj, else its
@@ -265,259 +286,663 @@ __device__ inline float dot3(const float a[3], const float b[3]) {
 // 3*NP rows, rounded to nearest even) for the matvec K3; in f32 K3 reads
 // them from jw's WL rows, so nothing is stored twice.
 //
-// Bound: device memory. The kernel writes jw (JW rows per observation),
-// and for K2 the bf16 jcorr, reads jw's Jacobian rows back once for the
-// whitening pass, and reads the observation rows once; the arithmetic
-// per byte is low. Design: lanes are laid out so that a warp's accesses
-// to each row are contiguous; the second pass re-reads the Jacobian
-// rows this thread just wrote (L1/L2-resident) instead of keeping K
-// slots in registers. Every image-payload term is a float atomic; on a
-// sequential scene the threads of a block see few images, so these
-// atomics contend (correct, slow; not addressed here).
+// Bound: device memory, one write of jw (and of K2's bf16 jcorr) and one
+// read of the observation rows; the arithmetic per byte is low. A first
+// design (one thread per point, a float atomic per lane and payload
+// column) took 29-98x that bound: the 32 lanes of a warp mostly share
+// one image on a sorted sequential scene, so its 72-105 atomics per lane
+// serialised in L2. This design:
+//
+// - One thread per observation lane. A block covers kK12Points points of
+//   one point block (threadIdx.x) and min(K, kK12Slots) slots
+//   (threadIdx.y), so a warp reads 32 neighbouring lanes of one row. A
+//   thread keeps its lane's Jacobians in registers; the slots' shares of
+//   g_p and Hpp are summed per point through shared memory (in slot
+//   order), one thread per point inverts Hpp and shares Lp and
+//   y = Lp^T g_p, and each lane whitens its own couplings. With
+//   K > kK12Slots the block walks the slots in passes and linearizes the
+//   earlier passes' lanes again when it needs their Jacobians.
+// - The image payload is privatised, as K3's scatter: the block takes
+//   the image window [lo, hi] of its live lanes and sums its payload rows
+//   (and K1's Ey rows, keyed by image) into shared memory over chunks of
+//   kK12Window images; lanes of a warp that share an image are first
+//   summed by a shuffle tree (__match_any_sync), one shared atomic per
+//   group and column remains. Each chunk then adds its nonzero (image,
+//   column) entries to img_red with one global atomic per block; K1's
+//   Ey camera rows are first summed over the chunk's images of one camera
+//   within a warp. A window wider than a chunk takes more chunks of the
+//   same loop (each walks the passes again); every input takes this path.
+// The float atomics still sum in no fixed order (the twins' tolerances).
 // ---------------------------------------------------------------------------
 
-template <int M, bool Implicit>
-__global__ void __launch_bounds__(kThreads) k1_linearize_kernel(K1Args a) {
-  constexpr int NP = Head<M>::NP;
-  constexpr int DI = 42 + 7 * NP + NP * NP;
-  constexpr int kJk = 18, kWLp = 18 + 2 * NP, kWLc = 36 + 2 * NP;
-  const int pt = blockIdx.x * blockDim.x + threadIdx.x;
-  if (pt >= a.Pp) return;
-  const int stride = Implicit ? DI + 6 + 2 * NP + (a.bj ? 21 : 6) : DI;
-  const int64_t O = (int64_t)a.Pp * a.K;
-  const int64_t base = (int64_t)(pt / a.TP) * a.TP * a.K + pt % a.TP;
-  const float x[3] = {a.pts[pt], a.pts[a.Pp + pt], a.pts[2 * a.Pp + pt]};
-  const float fp = a.free_pts[pt];
-  const float lam = *a.lam;
+// kK12Points, kK12Slots and kK12Window are mirrored by ops/ba_kernels.py
+// (K12_POINTS_PER_BLOCK, K12_SLOTS, K12_WINDOW), whose
+// fused_reduce_windows reports the blocks' windows.
+constexpr int kK12Points = 64;   // points per block (threadIdx.x)
+constexpr int kK12Slots = 8;     // slots per pass (threadIdx.y)
+constexpr int kK12Window = 128;  // images per shared-memory window chunk
 
-  float g[3] = {0.f, 0.f, 0.f};
-  float H[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int s = 0; s < a.K; ++s) {
-    const int64_t c = base + (int64_t)s * a.TP;
-    const int n = a.obs_img[c];
-    const float mask = a.obs_sta[2 * O + c];
-    float r[2], Jc[12], Jx[6], Jk[2 * NP];
-    linearize<M>(a.par, a.free_sta, a.Npad, n, x, fp, a.obs_sta[c],
-                 a.obs_sta[O + c], mask, a.loss, a.a2, r, Jc, Jx, Jk);
-    for (int i = 0; i < 12; ++i) a.jw[i * O + c] = Jc[i];
-    for (int i = 0; i < 6; ++i) a.jw[(12 + i) * O + c] = Jx[i];
-    for (int i = 0; i < 2 * NP; ++i) a.jw[(kJk + i) * O + c] = Jk[i];
-    for (int j = 0; j < 3; ++j) g[j] += Jx[j] * r[0] + Jx[3 + j] * r[1];
-    H[0] += Jx[0] * Jx[0] + Jx[3] * Jx[3];
-    H[1] += Jx[0] * Jx[1] + Jx[3] * Jx[4];
-    H[2] += Jx[0] * Jx[2] + Jx[3] * Jx[5];
-    H[3] += Jx[1] * Jx[1] + Jx[4] * Jx[4];
-    H[4] += Jx[1] * Jx[2] + Jx[4] * Jx[5];
-    H[5] += Jx[2] * Jx[2] + Jx[5] * Jx[5];
-    if (mask == 0.f) continue;  // every payload term of this lane is 0
-    float* row = a.img_red + (int64_t)n * stride;
-    int o = 0;
-    for (int i = 0; i < 6; ++i)
-      atomicAdd(row + o++, Jc[i] * r[0] + Jc[6 + i] * r[1]);
-    for (int i = 0; i < 6; ++i)
-      for (int j = 0; j < 6; ++j)
-        atomicAdd(row + o++, Jc[i] * Jc[j] + Jc[6 + i] * Jc[6 + j]);
-    for (int i = 0; i < 6; ++i)
-      for (int m = 0; m < NP; ++m)
-        atomicAdd(row + o++, Jc[i] * Jk[m] + Jc[6 + i] * Jk[NP + m]);
+// Payload modes: K1 (dense payload and Ey), K2 with the pose diagonal
+// of EL EL^T, K2 with its 6x6 upper triangle (bj).
+enum { kModeSchur = 0, kModeDiag = 1, kModeBlock = 2 };
+
+// A lane's payload in shared memory: img_red's columns with the
+// symmetric Hcc_pose and Hcc_cam blocks by their upper triangles
+// (k12_dest maps them back), then Ey pose and camera rows (K1: to ey;
+// K2: img_red's) and K2's Jacobi columns.
+template <int NP, int Mode>
+struct K12Cols {
+  static constexpr int DI = 42 + 7 * NP + NP * NP;   // img_red's dense part
+  static constexpr int DC = 27 + 7 * NP + NP * (NP + 1) / 2;  // compact
+  static constexpr int Tail = Mode == kModeSchur ? 0
+                            : NP + (Mode == kModeBlock ? 21 : 6);
+  static constexpr int N = DC + 6 + NP + Tail;       // shared columns
+  static constexpr int Out = DI + 6 + NP + Tail;     // K2's img_red width
+  static constexpr int Stride = N | 1;  // odd: images on distinct banks
+  static constexpr int Window = kK12Window * Stride;
+  static constexpr int Stage = kK12Points * kK12Slots * (32 + 1);
+  static constexpr int Words =          // payload window + staging, or s_part
+      Window + Stage > kK12Slots * 9 * kK12Points
+          ? Window + Stage : kK12Slots * 9 * kK12Points;
+  static constexpr size_t Smem =
+      Words * 4 + (Mode == kModeSchur ? kK12Window * 4 : 0);
+};
+
+// (i, j), i <= j, of entry t of an n x n upper triangle, row-major.
+__host__ __device__ constexpr void k12_tri(int t, int n, int& i, int& j) {
+  i = 0;
+  while (t >= n - i) t -= n - i++;
+  j = i + t;
+}
+
+// Stage shared columns [c0, c0 + 32) of one lane at st[0..32), products
+// in the twins' order. c0 is a compile-time constant once unrolled, and
+// so is every column index: all loops unroll and the out-of-range
+// columns fold away.
+template <int NP, int Mode>
+__device__ inline void k12_stage(int c0, float* st, const float (&r)[2],
+                                 const float (&Jc)[12],
+                                 const float (&Jk)[2 * NP],
+                                 const float (&WL)[6 + NP][3],
+                                 const float (&y)[3]) {
+  int c = -c0;
+  auto put = [&](float v) {
+    if (c >= 0 && c < 32) st[c] = v;
+    ++c;
+  };
+#pragma unroll
+  for (int i = 0; i < 6; ++i) put(Jc[i] * r[0] + Jc[6 + i] * r[1]);
+#pragma unroll
+  for (int i = 0; i < 6; ++i)
+#pragma unroll
+    for (int j = i; j < 6; ++j) put(Jc[i] * Jc[j] + Jc[6 + i] * Jc[6 + j]);
+#pragma unroll
+  for (int i = 0; i < 6; ++i)
+#pragma unroll
     for (int m = 0; m < NP; ++m)
-      atomicAdd(row + o++, Jk[m] * r[0] + Jk[NP + m] * r[1]);
-    for (int m = 0; m < NP; ++m)
-      for (int m2 = 0; m2 < NP; ++m2)
-        atomicAdd(row + o++, Jk[m] * Jk[m2] + Jk[NP + m] * Jk[NP + m2]);
+      put(Jc[i] * Jk[m] + Jc[6 + i] * Jk[NP + m]);
+#pragma unroll
+  for (int m = 0; m < NP; ++m) put(Jk[m] * r[0] + Jk[NP + m] * r[1]);
+#pragma unroll
+  for (int m = 0; m < NP; ++m)
+#pragma unroll
+    for (int m2 = m; m2 < NP; ++m2)
+      put(Jk[m] * Jk[m2] + Jk[NP + m] * Jk[NP + m2]);
+#pragma unroll
+  for (int i = 0; i < 6 + NP; ++i) put(dot3(WL[i], y));      // Ey rows
+  if constexpr (Mode == kModeBlock) {
+#pragma unroll
+    for (int i = 0; i < 6; ++i)
+#pragma unroll
+      for (int j = i; j < 6; ++j) put(dot3(WL[i], WL[j]));
+  } else if constexpr (Mode == kModeDiag) {
+#pragma unroll
+    for (int i = 0; i < 6; ++i) put(dot3(WL[i], WL[i]));
+  }
+  if constexpr (Mode != kModeSchur) {
+#pragma unroll
+    for (int m = 6; m < 6 + NP; ++m) put(dot3(WL[m], WL[m]));  // camera diag
+  }
+}
+
+// img_red column(s) of shared column c < DC, or DI + (c - DC) beyond it;
+// d2 is the mirror of an off-diagonal symmetric entry, else -1.
+template <int NP>
+__device__ inline void k12_dest(int c, int& d1, int& d2) {
+  constexpr int DC = K12Cols<NP, kModeSchur>::DC;
+  int i, j;
+  d2 = -1;
+  if (c < 6) {
+    d1 = c;
+  } else if (c < 27) {
+    k12_tri(c - 6, 6, i, j);
+    d1 = 6 + 6 * i + j;
+    if (i != j) d2 = 6 + 6 * j + i;
+  } else if (c < 27 + 7 * NP) {
+    d1 = c + 15;                      // Hpc, g_cam: 42 + (c - 27)
+  } else if (c < DC) {
+    k12_tri(c - 27 - 7 * NP, NP, i, j);
+    d1 = 42 + 7 * NP + NP * i + j;
+    if (i != j) d2 = 42 + 7 * NP + NP * j + i;
+  } else {
+    d1 = 42 + 7 * NP + NP * NP + c - DC;
+  }
+}
+
+// Lane c linearized (all zero when !ok); returns whether it is live.
+template <int M>
+__device__ inline bool k12_lane(const K1Args& a, int64_t O, int64_t c,
+                                bool ok, const float x[3], float fp,
+                                int& img, int& cam, float r[2], float Jc[12],
+                                float Jx[6], float Jk[2 * Head<M>::NP]) {
+  constexpr int NP = Head<M>::NP;
+  if (!ok) {
+    img = cam = 0;
+    r[0] = r[1] = 0.f;
+    for (int i = 0; i < 12; ++i) Jc[i] = 0.f;
+    for (int i = 0; i < 6; ++i) Jx[i] = 0.f;
+    for (int i = 0; i < 2 * NP; ++i) Jk[i] = 0.f;
+    return false;
+  }
+  img = a.obs_img[c];
+  cam = a.obs_cam[c];
+  const float mask = a.obs_sta[2 * O + c];
+  linearize<M>(a.par, a.free_sta, a.Npad, img, x, fp, a.obs_sta[c],
+               a.obs_sta[O + c], mask, a.loss, a.a2, r, Jc, Jx, Jk);
+  return mask != 0.f;
+}
+
+template <int M, int Mode>
+__global__ void __launch_bounds__(kK12Points * kK12Slots)
+k12_reduce_kernel(K1Args a) {
+  constexpr int NP = Head<M>::NP;
+  using Cols = K12Cols<NP, Mode>;
+  constexpr int DC = Cols::DC, NC = Cols::N, SS = Cols::Stride;
+  constexpr int kJk = 18, kWLp = 18 + 2 * NP, kWLc = 36 + 2 * NP;
+  extern __shared__ float smem[];
+  float* s_part = smem;   // pass 1: [kK12Slots][9][kK12Points]
+  float* s_pay = smem;    // window chunks: [kK12Window][SS]
+  int* s_cam = reinterpret_cast<int*>(smem + Cols::Words);  // K1
+  __shared__ float s_pt[9][kK12Points];  // Lp (6) and y (3) per point
+  __shared__ int s_lo, s_hi;
+
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int ns = blockDim.y;                        // slots per pass
+  const int passes = (a.K + ns - 1) / ns;
+  const int groups = (a.TP + kK12Points - 1) / kK12Points;
+  const int b = blockIdx.x / groups;
+  const int p = (blockIdx.x - b * groups) * kK12Points + tx;
+  const bool pt_ok = p < a.TP;
+  const int pt = b * a.TP + p;
+  const int64_t O = (int64_t)a.Pp * a.K;
+  const int64_t lane0 = (int64_t)b * a.TP * a.K + p;   // slot 0's lane
+  const int tid = ty * kK12Points + tx, nt = kK12Points * ns;
+  const int wl = tid & 31;
+  // This warp's staging rows: [32 lanes][32 columns + 1].
+  float* s_stage = smem + Cols::Window + (tid >> 5) * 32 * 33;
+  const float x[3] = {pt_ok ? a.pts[pt] : 0.f,
+                      pt_ok ? a.pts[a.Pp + pt] : 0.f,
+                      pt_ok ? a.pts[2 * a.Pp + pt] : 0.f};
+  const float fp = pt_ok ? a.free_pts[pt] : 0.f;
+  if (tid == 0) {
+    s_lo = 0x7fffffff;
+    s_hi = -1;
+  }
+
+  // Pass 1: linearize every lane, store its Jacobian rows, sum g_p and
+  // Hpp over the slots (in slot order); the live lanes' image window.
+  float r[2], Jc[12], Jx[6], Jk[2 * NP];
+  int img = 0, cam = 0, held = 0, lo = 0x7fffffff, hi = -1;
+  bool live = false;
+  float acc[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int q = 0; q < passes; ++q) {
+    const int s = q * ns + ty;
+    const int64_t c = lane0 + (int64_t)s * a.TP;
+    const bool ok = pt_ok && s < a.K;
+    live = k12_lane<M>(a, O, c, ok, x, fp, img, cam, r, Jc, Jx, Jk);
+    held = q;
+    if (ok) {
+      for (int i = 0; i < 12; ++i) a.jw[i * O + c] = Jc[i];
+      for (int i = 0; i < 6; ++i) a.jw[(12 + i) * O + c] = Jx[i];
+      for (int i = 0; i < 2 * NP; ++i) a.jw[(kJk + i) * O + c] = Jk[i];
+    }
+    if (live) {
+      lo = min(lo, img);
+      hi = max(hi, img);
+    }
+    const float v[9] = {
+        Jx[0] * r[0] + Jx[3] * r[1], Jx[1] * r[0] + Jx[4] * r[1],
+        Jx[2] * r[0] + Jx[5] * r[1],
+        Jx[0] * Jx[0] + Jx[3] * Jx[3], Jx[0] * Jx[1] + Jx[3] * Jx[4],
+        Jx[0] * Jx[2] + Jx[3] * Jx[5], Jx[1] * Jx[1] + Jx[4] * Jx[4],
+        Jx[1] * Jx[2] + Jx[4] * Jx[5], Jx[2] * Jx[2] + Jx[5] * Jx[5]};
+#pragma unroll
+    for (int j = 0; j < 9; ++j) s_part[(ty * 9 + j) * kK12Points + tx] = v[j];
+    __syncthreads();
+    if (ty == 0)
+      for (int t = 0; t < ns; ++t)
+#pragma unroll
+        for (int j = 0; j < 9; ++j)
+          acc[j] += s_part[(t * 9 + j) * kK12Points + tx];
+    __syncthreads();
   }
 
   // ---- per-point payload: damped Hpp^-1 and its Cholesky factor ----
-  const float hd[3] = {H[0], H[3], H[5]};
-  float d_l[3];
-  for (int j = 0; j < 3; ++j) d_l[j] = lam * clampf(hd[j], 1e-6f, 1e32f);
-  const float A = H[0] + d_l[0] + 1e-12f, B = H[1], Cc = H[2];
-  const float D = H[3] + d_l[1] + 1e-12f, E = H[4];
-  const float F = H[5] + d_l[2] + 1e-12f;
-  const float co00 = D * F - E * E, co01 = Cc * E - B * F,
-              co02 = B * E - Cc * D, co11 = A * F - Cc * Cc,
-              co12 = B * Cc - A * E, co22 = A * D - B * B;
-  const float det = A * co00 + B * co01 + Cc * co02;
-  const float inv_det = 1.f / (fabsf(det) > 1e-12f ? det : 1e-12f);
-  const float hi[6] = {co00 * inv_det, co01 * inv_det, co02 * inv_det,
-                       co11 * inv_det, co12 * inv_det, co22 * inv_det};
-  float L[6];  // l00, l10, l20, l11, l21, l22
-  L[0] = sqrtf(fmaxf(hi[0], 1e-20f));
-  L[1] = hi[1] / L[0];
-  L[2] = hi[2] / L[0];
-  L[3] = sqrtf(fmaxf(hi[3] - L[1] * L[1], 1e-20f));
-  L[4] = (hi[4] - L[2] * L[1]) / L[3];
-  L[5] = sqrtf(fmaxf(hi[5] - L[2] * L[2] - L[4] * L[4], 1e-20f));
-  float* pp = a.pt_pay + pt;
-  for (int j = 0; j < 3; ++j) pp[j * a.Pp] = g[j];
-  for (int j = 0; j < 3; ++j) pp[(3 + j) * a.Pp] = hd[j];
-  for (int j = 0; j < 6; ++j) pp[(6 + j) * a.Pp] = hi[j];
-  for (int j = 0; j < 6; ++j) pp[(12 + j) * a.Pp] = L[j];
-  pp[18 * a.Pp] = fp;
-  const float y[3] = {L[0] * g[0] + L[1] * g[1] + L[2] * g[2],
-                      L[3] * g[1] + L[4] * g[2], L[5] * g[2]};
+  if (ty == 0) {
+    const float* g = acc;
+    const float* H = acc + 3;
+    const float lam = *a.lam;
+    const float hd[3] = {H[0], H[3], H[5]};
+    float d_l[3];
+    for (int j = 0; j < 3; ++j) d_l[j] = lam * clampf(hd[j], 1e-6f, 1e32f);
+    const float A = H[0] + d_l[0] + 1e-12f, B = H[1], Cc = H[2];
+    const float D = H[3] + d_l[1] + 1e-12f, E = H[4];
+    const float F = H[5] + d_l[2] + 1e-12f;
+    const float co00 = D * F - E * E, co01 = Cc * E - B * F,
+                co02 = B * E - Cc * D, co11 = A * F - Cc * Cc,
+                co12 = B * Cc - A * E, co22 = A * D - B * B;
+    const float det = A * co00 + B * co01 + Cc * co02;
+    const float inv_det = 1.f / (fabsf(det) > 1e-12f ? det : 1e-12f);
+    const float hi6[6] = {co00 * inv_det, co01 * inv_det, co02 * inv_det,
+                          co11 * inv_det, co12 * inv_det, co22 * inv_det};
+    float L[6];  // l00, l10, l20, l11, l21, l22
+    L[0] = sqrtf(fmaxf(hi6[0], 1e-20f));
+    L[1] = hi6[1] / L[0];
+    L[2] = hi6[2] / L[0];
+    L[3] = sqrtf(fmaxf(hi6[3] - L[1] * L[1], 1e-20f));
+    L[4] = (hi6[4] - L[2] * L[1]) / L[3];
+    L[5] = sqrtf(fmaxf(hi6[5] - L[2] * L[2] - L[4] * L[4], 1e-20f));
+    if (pt_ok) {
+      float* pp = a.pt_pay + pt;
+      for (int j = 0; j < 3; ++j) pp[j * a.Pp] = g[j];
+      for (int j = 0; j < 3; ++j) pp[(3 + j) * a.Pp] = hd[j];
+      for (int j = 0; j < 6; ++j) pp[(6 + j) * a.Pp] = hi6[j];
+      for (int j = 0; j < 6; ++j) pp[(12 + j) * a.Pp] = L[j];
+      pp[18 * a.Pp] = fp;
+    }
+    for (int j = 0; j < 6; ++j) s_pt[j][tx] = L[j];
+    s_pt[6][tx] = L[0] * g[0] + L[1] * g[1] + L[2] * g[2];
+    s_pt[7][tx] = L[3] * g[1] + L[4] * g[2];
+    s_pt[8][tx] = L[5] * g[2];
+  }
+  lo = __reduce_min_sync(0xffffffffu, lo);
+  hi = __reduce_max_sync(0xffffffffu, hi);
+  if (wl == 0) {
+    atomicMin(&s_lo, lo);
+    atomicMax(&s_hi, hi);
+  }
+  __syncthreads();
+  float L[6], y[3];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) L[j] = s_pt[j][tx];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) y[j] = s_pt[6 + j][tx];
+  const int bhi = s_hi, blo = s_lo <= bhi ? s_lo : 0;
+  const int chunks = bhi >= blo ? (bhi - blo) / kK12Window + 1 : 1;
 
-  // ---- whitened couplings WL = W Lp, then Ey (K1) or the implicit
-  // payload and the bf16 jcorr (K2) ----
+  // Pass 2, per window chunk: the whitened couplings (stored in the
+  // first chunk) and the payload rows of the chunk's images.
   __nv_bfloat16* jc16 = static_cast<__nv_bfloat16*>(a.jcorr);
-  for (int s = 0; s < a.K; ++s) {
-    const int64_t c = base + (int64_t)s * a.TP;
-    const bool live = a.obs_sta[2 * O + c] != 0.f;
-    float Jc[12], Jx[6], Jk[2 * NP];
-    for (int i = 0; i < 12; ++i) Jc[i] = live ? a.jw[i * O + c] : 0.f;
-    for (int i = 0; i < 6; ++i) Jx[i] = live ? a.jw[(12 + i) * O + c] : 0.f;
-    for (int i = 0; i < 2 * NP; ++i)
-      Jk[i] = live ? a.jw[(kJk + i) * O + c] : 0.f;
-    const int n = a.obs_img[c], cam = a.obs_cam[c];
-    float WL[6 + NP][3];  // rows i*3 + j: WLp (i < 6), then WLc
-    for (int i = 0; i < 6 + NP; ++i) {
-      float W[3];
-      for (int j = 0; j < 3; ++j)
-        W[j] = i < 6 ? Jc[i] * Jx[j] + Jc[6 + i] * Jx[3 + j]
-                     : Jk[i - 6] * Jx[j] + Jk[NP + i - 6] * Jx[3 + j];
-      WL[i][0] = W[0] * L[0] + W[1] * L[1] + W[2] * L[2];
-      WL[i][1] = W[1] * L[3] + W[2] * L[4];
-      WL[i][2] = W[2] * L[5];
-      const int row0 = i < 6 ? kWLp + i * 3 : kWLc + (i - 6) * 3;
-      for (int j = 0; j < 3; ++j) a.jw[(row0 + j) * O + c] = WL[i][j];
-    }
-    if (Implicit && a.jcorr_bf16) {
-      for (int r = 0; r < 3 * (6 + NP); ++r)
-        jc16[r * O + c] = __float2bfloat16_rn(WL[r / 3][r % 3]);
-    }
-    if (!live) continue;
-    if (!Implicit) {
+  for (int ch = 0; ch < chunks; ++ch) {
+    const int w0 = blo + ch * kK12Window;
+    const int width = max(0, min(kK12Window, bhi - w0 + 1));
+    for (int i = tid; i < width * SS; i += nt) s_pay[i] = 0.f;
+    if constexpr (Mode == kModeSchur)
+      for (int i = tid; i < width; i += nt) s_cam[i] = -1;
+    __syncthreads();
+    for (int k = 0, first = held; k < passes; ++k) {
+      const int q = (first + k) % passes;
+      const int s = q * ns + ty;
+      const int64_t c = lane0 + (int64_t)s * a.TP;
+      const bool ok = pt_ok && s < a.K;
+      if (q != held) {                // only with K > kK12Slots
+        live = k12_lane<M>(a, O, c, ok, x, fp, img, cam, r, Jc, Jx, Jk);
+        held = q;
+      }
+      float WL[6 + NP][3];  // rows i: WLp (i < 6), then WLc; 0 if masked
+#pragma unroll
       for (int i = 0; i < 6 + NP; ++i) {
-        const int64_t erow = i < 6 ? (int64_t)i * a.Npad + n
-                                   : 6LL * a.Npad + (int64_t)(i - 6) * a.C + cam;
-        atomicAdd(a.ey + erow, dot3(WL[i], y));
+        float W[3];
+#pragma unroll
+        for (int j = 0; j < 3; ++j)
+          W[j] = !live ? 0.f
+                 : i < 6 ? Jc[i] * Jx[j] + Jc[6 + i] * Jx[3 + j]
+                         : Jk[i - 6] * Jx[j] + Jk[NP + i - 6] * Jx[3 + j];
+        WL[i][0] = W[0] * L[0] + W[1] * L[1] + W[2] * L[2];
+        WL[i][1] = W[1] * L[3] + W[2] * L[4];
+        WL[i][2] = W[2] * L[5];
       }
-      continue;
+      if (ch == 0 && ok) {
+#pragma unroll
+        for (int i = 0; i < 6 + NP; ++i) {
+          const int row0 = i < 6 ? kWLp + i * 3 : kWLc + (i - 6) * 3;
+#pragma unroll
+          for (int j = 0; j < 3; ++j) a.jw[(row0 + j) * O + c] = WL[i][j];
+        }
+        if (Mode != kModeSchur && a.jcorr_bf16) {
+#pragma unroll
+          for (int rr = 0; rr < 3 * (6 + NP); ++rr)
+            jc16[rr * O + c] = __float2bfloat16_rn(WL[rr / 3][rr % 3]);
+        }
+      }
+      // The payload of the warp's lanes in this chunk, 32 columns at a
+      // time: each lane stages its values, then lane j sums column j
+      // over each group of lanes that share an image (in lane order) and
+      // adds the sum to the group's shared row.
+      const bool in = live && img >= w0 && img < w0 + width;
+      const unsigned inmask = __ballot_sync(0xffffffffu, in);
+      if (inmask == 0u) continue;     // warp-uniform
+      const unsigned peers =
+          __match_any_sync(0xffffffffu, in ? img : -1 - wl);
+      if (Mode == kModeSchur && in) s_cam[img - w0] = cam;
+#pragma unroll
+      for (int c0 = 0; c0 < NC; c0 += 32) {
+        k12_stage<NP, Mode>(c0, s_stage + wl * 33, r, Jc, Jk, WL, y);
+        __syncwarp();
+        for (unsigned rest = inmask; rest != 0u;) {
+          const int l = __ffs(rest) - 1;
+          const unsigned grp = __shfl_sync(0xffffffffu, peers, l);
+          const int gimg = __shfl_sync(0xffffffffu, img, l);
+          // Four partial sums shorten the chain of dependent adds; a
+          // warp-wide group takes fixed offsets, a lone lane one load.
+          float part[4] = {0.f, 0.f, 0.f, 0.f};
+          if (grp == 0xffffffffu) {
+#pragma unroll
+            for (int m = 0; m < 32; ++m) part[m & 3] += s_stage[m * 33 + wl];
+          } else if ((grp & (grp - 1u)) == 0u) {
+            part[0] = s_stage[l * 33 + wl];
+          } else {
+            for (unsigned mm = grp; mm != 0u;) {
+#pragma unroll
+              for (int k = 0; k < 4; ++k) {
+                if (mm != 0u) {
+                  part[k] += s_stage[(__ffs(mm) - 1) * 33 + wl];
+                  mm &= mm - 1u;
+                }
+              }
+            }
+          }
+          const float sum = (part[0] + part[1]) + (part[2] + part[3]);
+          if (c0 + wl < NC) atomicAdd(s_pay + (gimg - w0) * SS + c0 + wl, sum);
+          rest &= ~grp;
+        }
+        __syncwarp();
+      }
     }
-    float* row = a.img_red + (int64_t)n * stride + DI;
-    int o = 0;
-    for (int i = 0; i < 6 + NP; ++i) atomicAdd(row + o++, dot3(WL[i], y));
-    if (a.bj) {
-      for (int i = 0; i < 6; ++i)
-        for (int j = i; j < 6; ++j) atomicAdd(row + o++, dot3(WL[i], WL[j]));
-    } else {
-      for (int i = 0; i < 6; ++i) atomicAdd(row + o++, dot3(WL[i], WL[i]));
+    __syncthreads();
+    // One global atomic per nonzero (image, img_red column) of the
+    // chunk: K2's whole row to img_red; K1's dense columns to img_red,
+    // its Ey pose columns to ey, its Ey camera columns (below) by camera.
+    constexpr int NF = Mode == kModeSchur ? DC + 6 : NC;
+    constexpr int OUT = Mode == kModeSchur ? Cols::DI : Cols::Out;
+    for (int i = tid; i < width * NF; i += nt) {
+      const int n = i / NF, col = i - n * NF;
+      const float v = s_pay[n * SS + col];
+      if (v == 0.f) continue;
+      if (Mode == kModeSchur && col >= DC) {
+        atomicAdd(a.ey + (int64_t)(col - DC) * a.Npad + w0 + n, v);
+        continue;
+      }
+      int d1, d2;
+      k12_dest<NP>(col, d1, d2);
+      float* row = a.img_red + (int64_t)(w0 + n) * OUT;
+      atomicAdd(row + d1, v);
+      if (d2 >= 0) atomicAdd(row + d2, v);
     }
-    for (int m = 6; m < 6 + NP; ++m) atomicAdd(row + o++, dot3(WL[m], WL[m]));
+    if constexpr (Mode == kModeSchur) {
+      for (int n0 = tid - wl; n0 < width; n0 += nt) {
+        const int n = n0 + wl;
+        const int key = n < width ? s_cam[n] : -1;
+        float v[NP];
+#pragma unroll
+        for (int m = 0; m < NP; ++m)
+          v[m] = key >= 0 ? s_pay[n * SS + DC + 6 + m] : 0.f;
+        const unsigned peers =
+            __match_any_sync(0xffffffffu, key >= 0 ? key : -1 - wl);
+        peer_sum<NP>(peers, v);
+        if (key >= 0 && wl == __ffs(peers) - 1) {
+#pragma unroll
+          for (int m = 0; m < NP; ++m)
+            if (v[m] != 0.f)
+              atomicAdd(a.ey + 6LL * a.Npad + (int64_t)m * a.C + key, v[m]);
+        }
+      }
+    }
+    __syncthreads();                  // before the next chunk's zeroing
   }
 }
 
+template <int M, int Mode>
+cudaError_t launch_k12(const K1Args& a, cudaStream_t stream) {
+  constexpr size_t smem = K12Cols<Head<M>::NP, Mode>::Smem;
+  static_assert(smem + sizeof(float) * 9 * kK12Points + 8 <= kMaxSmem,
+                "k12_reduce_kernel's shared memory exceeds the opt-in limit");
+  if (a.TP <= 0 || a.K <= 0 || a.Pp % a.TP != 0)
+    return cudaErrorInvalidValue;
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        k12_reduce_kernel<M, Mode>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    attr = true;
+  }
+  const int groups = (a.TP + kK12Points - 1) / kK12Points;
+  const dim3 block(kK12Points, a.K < kK12Slots ? a.K : kK12Slots);
+  const int blocks = a.Pp / a.TP * groups;
+  if (blocks == 0) return cudaSuccess;
+  k12_reduce_kernel<M, Mode><<<blocks, block, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 // ---------------------------------------------------------------------------
-// K1b: Schur correction S_corr += EL EL^T, one warp per point.
+// K1b: Schur correction S_corr = EL EL^T, owner-computed tiles.
 //
-// Replaces the ELb construction + MXU product of _fused_schur_kernel.
-// A point's column block of EL has one 6x3 block per distinct observing
-// image and one NPx3 block per distinct camera: the warp sums the WL
-// blocks of slots that share an image (or camera) in shared memory,
-// rounds them to bf16 when schur_bf16 (as the TPU kernel rounds ELb),
-// and adds every entry of the point's (6*ni + NP*nc)^2 outer product
-// into S with a float atomic. Bound: the atomics into the 3.2 MB S (L2
-// resident), ~2k per point at the headline; a tensor-core formulation
-// is later work.
+// Replaces the ELb construction + MXU product of _fused_schur_kernel. A
+// point's column block of EL has one 6x3 block per distinct observing
+// image and one NPx3 block per distinct camera (its nodes): the WL blocks
+// of its slots that share the node, summed and, when schur_bf16, rounded
+// to bf16 (as the TPU kernel rounds ELb). S's block of a node pair
+// (a, b) is the sum over the points that see both of their blocks'
+// products. The sparsity is fixed for a solve, so `build_schur_tiles`
+// (ops/ba_kernels.py) lists, once per solve, the work items of every
+// node pair a <= b (one per point that sees both) and cuts each list
+// into units of at most kK1bUnit items. Three launches:
+//
+// - k1b_group_kernel, one thread per (point, node) group: sums the
+//   group's WL rows from jw (in slot order), rounds them, and stores the
+//   block (20 floats, 16-byte aligned) in the scratch `grp`.
+// - k1b_unit_kernel, one warp per unit: each lane accumulates the node
+//   pair's block (6x6, 6xNP or NPxNP; the upper triangle when a == b)
+//   over its items in registers, the warp sums it through shared memory
+//   and stores the unit's partial block in the scratch `part`.
+// - k1b_pair_kernel, one thread per (entry, node pair): sums the pair's
+//   partial blocks in unit order and stores the entry and its mirror in
+//   S with plain stores.
+//
+// S gets no atomics: it is exactly symmetric and the same from run to
+// run. A first design (one warp per point, a float atomic into S per
+// entry of the point's (6 ni + NP nc)^2 outer product: 66.9M per LM
+// iteration at the headline, every point onto the same camera rows)
+// took ~98x K1's bound. Bound of this part: the L2-resident reads of two
+// group blocks per item; the arithmetic is ~100 flops per item.
 // ---------------------------------------------------------------------------
 
+constexpr int kK1bUnit = 128;     // items per unit (4 per lane); mirrored
+                                  // by ops/ba_kernels.py K1B_UNIT_ITEMS
+constexpr int kK1bGroupWords = 20;  // floats per group block
+constexpr int kK1bEntries = 36;     // floats per unit partial block
+
+// The tile table (SchurTiles.table, int32) and the scratch, as views.
+struct TileArgs {
+  int n_groups, n_img_groups, n_units, n_pairs;
+  const int2* items;      // [n_items] group pair (a, b), by node pair
+  const int2* pair_node;  // [n_pairs] node ids (image n, camera Npad + c)
+  const int* grp_off;     // [n_groups + 1] member lanes of each group in
+  const int* grp_lane;    //   grp_lane, in slot order
+  const int* unit_off;    // [n_units + 1] items of each unit
+  const int* unit_pair;   // [n_units] its node pair
+  const int* pair_unit;   // [n_pairs + 1] units of each pair
+  float* grp;             // [n_groups][kK1bGroupWords] merged WL blocks
+  float* part;            // [n_units][kK1bEntries] partial blocks
+};
+
 template <int NP>
-__host__ __device__ constexpr int k1b_words_per_slot() {
-  return 4 + 18 + 3 * NP;  // 4 int tables + merged WLp and WLc rows
+__global__ void __launch_bounds__(256) k1b_group_kernel(K1Args a,
+                                                        TileArgs t) {
+  constexpr int kWLp = 18 + 2 * NP, kWLc = 36 + 2 * NP;
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= t.n_groups) return;
+  const bool pose = g < t.n_img_groups;
+  const int row0 = pose ? kWLp : kWLc, nr = pose ? 18 : 3 * NP;
+  const int64_t O = (int64_t)a.Pp * a.K;
+  float v[kK1bGroupWords];
+#pragma unroll
+  for (int i = 0; i < kK1bGroupWords; ++i) v[i] = 0.f;
+#pragma unroll 4
+  for (int k = t.grp_off[g]; k < t.grp_off[g + 1]; ++k) {
+    const int64_t c = t.grp_lane[k];
+#pragma unroll
+    for (int i = 0; i < 18; ++i)
+      if (i < nr) v[i] += a.jw[(row0 + i) * O + c];
+  }
+  if (a.schur_bf16) {
+#pragma unroll
+    for (int i = 0; i < 18; ++i)
+      v[i] = __bfloat162float(__float2bfloat16_rn(v[i]));
+  }
+  float4* out = reinterpret_cast<float4*>(t.grp + (int64_t)g * kK1bGroupWords);
+#pragma unroll
+  for (int i = 0; i < kK1bGroupWords / 4; ++i)
+    out[i] = make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+}
+
+// R*3 floats of a group block.
+template <int R>
+__device__ inline void k1b_load(const float* p, float (&v)[3 * R]) {
+  const float4* p4 = reinterpret_cast<const float4*>(p);
+#pragma unroll
+  for (int i = 0; i < 3 * R / 4; ++i) {
+    const float4 w = __ldg(p4 + i);
+    v[4 * i] = w.x;
+    v[4 * i + 1] = w.y;
+    v[4 * i + 2] = w.z;
+    v[4 * i + 3] = w.w;
+  }
+#pragma unroll
+  for (int i = 3 * R / 4 * 4; i < 3 * R; ++i) v[i] = __ldg(p + i);
+}
+
+// A unit's partial block: rows RA of node a x rows RB of node b (the
+// upper triangle when Self), entries row-major.
+template <int RA, int RB, bool Self>
+__device__ inline void k1b_unit(const TileArgs& t, int u, int lane,
+                                float* buf) {
+  constexpr int NE = Self ? RA * (RA + 1) / 2 : RA * RB;
+  float acc[NE];
+#pragma unroll
+  for (int e = 0; e < NE; ++e) acc[e] = 0.f;
+#pragma unroll 4
+  for (int it = t.unit_off[u] + lane; it < t.unit_off[u + 1]; it += 32) {
+    const int2 ab = t.items[it];
+    float A[3 * RA], B[3 * RB];
+    k1b_load<RA>(t.grp + (int64_t)ab.x * kK1bGroupWords, A);
+    if (Self) {
+#pragma unroll
+      for (int i = 0; i < 3 * RB; ++i) B[i] = A[i];
+    } else {
+      k1b_load<RB>(t.grp + (int64_t)ab.y * kK1bGroupWords, B);
+    }
+    int e = 0;
+#pragma unroll
+    for (int i = 0; i < RA; ++i)
+#pragma unroll
+      for (int j = Self ? i : 0; j < RB; ++j, ++e)
+        acc[e] += A[3 * i] * B[3 * j] + A[3 * i + 1] * B[3 * j + 1] +
+                  A[3 * i + 2] * B[3 * j + 2];
+  }
+  // Sum over the lanes through shared memory (lane order): lane e
+  // takes entry e.
+#pragma unroll
+  for (int e = 0; e < NE; ++e) buf[lane * 37 + e] = acc[e];
+  __syncwarp();
+  float* part = t.part + (int64_t)u * kK1bEntries;
+  for (int e = lane; e < NE; e += 32) {
+    float v = 0.f;
+#pragma unroll 8
+    for (int m = 0; m < 32; ++m) v += buf[m * 37 + e];
+    part[e] = v;
+  }
 }
 
 template <int NP>
-__global__ void k1_schur_kernel(K1Args a) {
-  extern __shared__ float smem[];
-  constexpr int kWLp = 18 + 2 * NP, kWLc = 36 + 2 * NP;
-  const int K = a.K;
-  const int wpb = blockDim.x >> 5;
-  const int wid = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int pt = blockIdx.x * wpb + wid;
-  if (pt >= a.Pp) return;  // whole warps only; no block barrier follows
-  const int64_t O = (int64_t)a.Pp * K;
-  const int64_t base = (int64_t)(pt / a.TP) * a.TP * K + pt % a.TP;
-  int* gimg = reinterpret_cast<int*>(smem + wid * K * k1b_words_per_slot<NP>());
-  int* gcam = gimg + K;
-  int* sgrp = gcam + K;
-  int* scg = sgrp + K;
-  float* elp = reinterpret_cast<float*>(scg + K);
-  float* elc = elp + 18 * K;
+__global__ void __launch_bounds__(256) k1b_unit_kernel(K1Args a, TileArgs t) {
+  __shared__ float s_red[8][32 * 37];   // per warp: [lane][entry]
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int u = blockIdx.x * 8 + w;
+  if (u >= t.n_units) return;         // whole warps
+  const int2 nd = t.pair_node[t.unit_pair[u]];
+  const bool cam_a = nd.x >= a.Npad, cam_b = nd.y >= a.Npad;
+  float* buf = s_red[w];
+  if (!cam_b) {
+    if (nd.x == nd.y) k1b_unit<6, 6, true>(t, u, lane, buf);
+    else k1b_unit<6, 6, false>(t, u, lane, buf);
+  } else if (!cam_a) {
+    k1b_unit<6, NP, false>(t, u, lane, buf);
+  } else {
+    if (nd.x == nd.y) k1b_unit<NP, NP, true>(t, u, lane, buf);
+    else k1b_unit<NP, NP, false>(t, u, lane, buf);
+  }
+}
 
-  int ni = 0, nc = 0;
-  if (lane == 0) {
-    for (int s = 0; s < K; ++s) {
-      const int64_t c = base + (int64_t)s * a.TP;
-      sgrp[s] = scg[s] = -1;
-      if (a.obs_sta[2 * O + c] == 0.f) continue;
-      const int n = a.obs_img[c], cam = a.obs_cam[c];
-      int gi = 0;
-      while (gi < ni && gimg[gi] != n) ++gi;
-      if (gi == ni) gimg[ni++] = n;
-      sgrp[s] = gi;
-      int gc = 0;
-      while (gc < nc && gcam[gc] != cam) ++gc;
-      if (gc == nc) gcam[nc++] = cam;
-      scg[s] = gc;
-    }
+template <int NP>
+__global__ void __launch_bounds__(256) k1b_pair_kernel(K1Args a, TileArgs t) {
+  // Entry-major: neighbouring threads take neighbouring pairs, whose
+  // entries lie in neighbouring columns of S.
+  const int64_t gi = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int e = (int)(gi / t.n_pairs), k = (int)(gi % t.n_pairs);
+  if (e >= kK1bEntries) return;
+  const int2 nd = t.pair_node[k];
+  const bool cam_a = nd.x >= a.Npad, cam_b = nd.y >= a.Npad;
+  const int ra = cam_a ? NP : 6, rb = cam_b ? NP : 6;
+  const bool self = nd.x == nd.y;
+  int i, j;
+  if (self) {                         // row-major upper triangle
+    if (e >= ra * (ra + 1) / 2) return;
+    i = 0;
+    int rest = e;
+    while (rest >= ra - i) rest -= ra - i++;
+    j = i + rest;
+  } else {
+    if (e >= ra * rb) return;
+    i = e / rb;
+    j = e - i * rb;
   }
-  ni = __shfl_sync(0xffffffffu, ni, 0);
-  nc = __shfl_sync(0xffffffffu, nc, 0);
-  __syncwarp();
-  for (int e = lane; e < 18 * ni + 3 * NP * nc; e += 32) {
-    const bool pose = e < 18 * ni;
-    const int gidx = pose ? e / 18 : (e - 18 * ni) / (3 * NP);
-    const int r = pose ? e % 18 : (e - 18 * ni) % (3 * NP);
-    const int* grp = pose ? sgrp : scg;
-    const int row = (pose ? kWLp : kWLc) + r;
-    float v = 0.f;
-    for (int s = 0; s < K; ++s)
-      if (grp[s] == gidx) v += a.jw[row * O + base + (int64_t)s * a.TP];
-    if (a.schur_bf16) v = __bfloat162float(__float2bfloat16_rn(v));
-    if (pose) elp[e] = v; else elc[e - 18 * ni] = v;
-  }
-  __syncwarp();
-  const int nr = 6 * ni + NP * nc;
-  for (int e = lane; e < nr * nr; e += 32) {
-    int rr[2] = {e / nr, e % nr};
-    const float* vec[2];
-    int64_t R[2];
-    for (int q = 0; q < 2; ++q) {
-      const int r = rr[q];
-      if (r < 6 * ni) {
-        vec[q] = elp + (r / 6) * 18 + (r % 6) * 3;
-        R[q] = (int64_t)(r % 6) * a.Npad + gimg[r / 6];
-      } else {
-        const int rc = r - 6 * ni;
-        vec[q] = elc + (rc / NP) * 3 * NP + (rc % NP) * 3;
-        R[q] = 6LL * a.Npad + (int64_t)(rc % NP) * a.C + gcam[rc / NP];
-      }
-    }
-    atomicAdd(a.S + R[0] * a.Dk + R[1],
-              vec[0][0] * vec[1][0] + vec[0][1] * vec[1][1] +
-                  vec[0][2] * vec[1][2]);
-  }
+  float v = 0.f;
+  for (int u = t.pair_unit[k]; u < t.pair_unit[k + 1]; ++u)
+    v += t.part[(int64_t)u * kK1bEntries + e];
+  const int64_t row = cam_a ? 6LL * a.Npad + (int64_t)i * a.C + nd.x - a.Npad
+                            : (int64_t)i * a.Npad + nd.x;
+  const int64_t col = cam_b ? 6LL * a.Npad + (int64_t)j * a.C + nd.y - a.Npad
+                            : (int64_t)j * a.Npad + nd.y;
+  a.S[row * a.Dk + col] = v;
+  a.S[col * a.Dk + row] = v;
 }
 
 template <int M>
-cudaError_t launch_fused_schur(const K1Args& a, cudaStream_t stream) {
+cudaError_t launch_fused_schur(const K1Args& a, const TileArgs& t,
+                               cudaStream_t stream) {
   constexpr int NP = Head<M>::NP;
-  k1_linearize_kernel<M, false><<<(a.Pp + kThreads - 1) / kThreads,
-                                  kThreads, 0, stream>>>(a);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_k12<M, kModeSchur>(a, stream);
+  if (err != cudaSuccess || t.n_pairs == 0) return err;
+  k1b_group_kernel<NP><<<(t.n_groups + 255) / 256, 256, 0, stream>>>(a, t);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t per_warp = (size_t)a.K * k1b_words_per_slot<NP>() * 4;
-  int wpb = 4;
-  while (wpb > 1 && per_warp * wpb > (size_t)kMaxSmem) --wpb;
-  const size_t smem = per_warp * wpb;
-  if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(k1_schur_kernel<NP>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  k1_schur_kernel<NP><<<(a.Pp + wpb - 1) / wpb, 32 * wpb, smem, stream>>>(a);
+  k1b_unit_kernel<NP><<<(t.n_units + 7) / 8, 256, 0, stream>>>(a, t);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int64_t n = (int64_t)t.n_pairs * kK1bEntries;
+  k1b_pair_kernel<NP><<<(int)((n + 255) / 256), 256, 0, stream>>>(a, t);
   return cudaGetLastError();
 }
 
@@ -583,27 +1008,6 @@ template <typename T> __device__ inline float widen(T v);
 template <> __device__ inline float widen<float>(float v) { return v; }
 template <> __device__ inline float widen<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
-}
-
-// Sum v over the lanes of `peers` (the lanes of this warp with this
-// lane's key) by a shuffle tree; the lowest lane of each group ends with
-// its group's sum. Every lane of the warp must call it.
-template <int N>
-__device__ inline void peer_sum(unsigned peers, float (&v)[N]) {
-  const int lane = threadIdx.x & 31;
-  int rank = __popc(peers & ((1u << lane) - 1u));
-  unsigned rest = peers & (0xfffffffeu << lane);   // peers above this lane
-  while (__any_sync(0xffffffffu, rest != 0u)) {
-    const int next = __ffs(rest);                  // 1-based; 0: none
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const float o = __shfl_sync(0xffffffffu, v[i], (next - 1) & 31);
-      if (next) v[i] += o;
-    }
-    // Odd ranks were just added into their lower neighbour: drop them.
-    rest &= __ballot_sync(0xffffffffu, (rank & 1) == 0);
-    rank >>= 1;
-  }
 }
 
 // Lane `c`'s couplings (3*DV words), image and liveness.
@@ -895,16 +1299,28 @@ int sba_fused_schur(int model, int loss, float loss_scale, int schur_bf16,
                     const float* lam, const float* par, const float* free_sta,
                     const float* pts, const float* free_pts,
                     const float* obs_sta, const int* obs_img,
-                    const int* obs_cam, float* S, float* img_red, float* ey,
-                    float* pt_pay, float* jw, cudaStream_t stream) {
+                    const int* obs_cam, const int* tiles, int n_groups,
+                    int n_img_groups, int n_members, int n_units,
+                    int n_pairs, int n_items, float* scratch, float* S,
+                    float* img_red, float* ey, float* pt_pay, float* jw,
+                    cudaStream_t stream) {
   const K1Args a{loss, schur_bf16, TP, K, Pp, Npad, C, Dk, 0, 0,
                  loss_scale * loss_scale, lam, par, free_sta, pts, free_pts,
                  obs_sta, obs_img, obs_cam, S, img_red, ey, pt_pay, jw,
                  nullptr};
+  // The tile table's arrays, in SchurTiles.table order.
+  const int* grp_off = tiles + 2LL * n_items + 2LL * n_pairs;
+  const int* unit_off = grp_off + n_groups + 1 + n_members;
+  const TileArgs t{n_groups, n_img_groups, n_units, n_pairs,
+                   reinterpret_cast<const int2*>(tiles),
+                   reinterpret_cast<const int2*>(tiles + 2LL * n_items),
+                   grp_off, grp_off + n_groups + 1, unit_off,
+                   unit_off + n_units + 1, unit_off + 2 * n_units + 1,
+                   scratch, scratch + (int64_t)n_groups * kK1bGroupWords};
   switch (model) {
-    case 0: return launch_fused_schur<0>(a, stream);
-    case 1: return launch_fused_schur<1>(a, stream);
-    case 2: return launch_fused_schur<2>(a, stream);
+    case 0: return launch_fused_schur<0>(a, t, stream);
+    case 1: return launch_fused_schur<1>(a, t, stream);
+    case 2: return launch_fused_schur<2>(a, t, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -921,14 +1337,16 @@ int sba_fused_reduce(int model, int loss, float loss_scale, int bj,
                  loss_scale * loss_scale, lam, par, free_sta, pts, free_pts,
                  obs_sta, obs_img, obs_cam, nullptr, img_red, nullptr,
                  pt_pay, jw, jcorr};
-  const int blocks = (Pp + kThreads - 1) / kThreads;
-  switch (model) {
-    case 0: k1_linearize_kernel<0, true><<<blocks, kThreads, 0, stream>>>(a); break;
-    case 1: k1_linearize_kernel<1, true><<<blocks, kThreads, 0, stream>>>(a); break;
-    case 2: k1_linearize_kernel<2, true><<<blocks, kThreads, 0, stream>>>(a); break;
+  const int mode = bj ? kModeBlock : kModeDiag;
+  switch (model * 4 + mode) {
+    case 1: return launch_k12<0, kModeDiag>(a, stream);
+    case 2: return launch_k12<0, kModeBlock>(a, stream);
+    case 5: return launch_k12<1, kModeDiag>(a, stream);
+    case 6: return launch_k12<1, kModeBlock>(a, stream);
+    case 9: return launch_k12<2, kModeDiag>(a, stream);
+    case 10: return launch_k12<2, kModeBlock>(a, stream);
     default: return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }
 
 int sba_schur_matvec(int model, int jcorr_bf16, int TP, int K, int Pp,

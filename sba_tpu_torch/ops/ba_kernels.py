@@ -52,9 +52,6 @@ from sba_tpu_torch.optim.losses import LOSS_IDS, loss_value, loss_weight
 
 PT_ROWS = 19
 CUDA_MODELS = (0, 1, 2)   # camera heads the CUDA kernels implement
-# Largest track length the K1 S_corr kernel keeps per point in shared
-# memory (one warp per point).
-CUDA_MAX_K = 1024
 
 # The ranged regime starts here (see the module docstring).
 RANGED_MIN_NPAD = 2048
@@ -63,6 +60,18 @@ RANGED_MIN_NPAD = 2048
 # and images per shared-memory window chunk (kK3Window).
 K3_POINTS_PER_BLOCK = 64
 K3_WINDOW = 256
+# The block shape of K1's and K2's linearize-and-reduce kernel
+# (kK12Points, kK12Slots, kK12Window): points per block, slots per pass,
+# images per shared-memory window chunk.
+K12_POINTS_PER_BLOCK = 64
+K12_SLOTS = 8
+K12_WINDOW = 128
+# K1's Schur-correction kernels (csrc kK1bUnit, kK1bGroupWords,
+# kK1bEntries): work items per unit, floats per merged group block,
+# floats per unit's partial block.
+K1B_UNIT_ITEMS = 128
+K1B_GROUP_WORDS = 20
+K1B_ENTRIES = 36
 
 # Launch counts of the CUDA kernels (a wrapper adds one per launch).
 LAUNCHES = {"fused_schur": 0, "fused_reduce": 0, "schur_matvec": 0,
@@ -108,8 +117,35 @@ class KernelLayout(NamedTuple):
                 + (21 if self.BJ else 6))
 
 
+class SchurTiles(NamedTuple):
+    """K1's Schur-correction work list (`build_schur_tiles`): one int32
+    `table` on the kernels' device, the concatenation of
+
+    - items [n_items, 2]: the group pair (a, b) of each work item, by
+      node pair, within a pair by point;
+    - pair_node [n_pairs, 2]: the pair's node ids (image n, or camera c
+      as Npad + c), a <= b;
+    - grp_off [n_groups + 1], grp_lane [n_members]: each group's live
+      lanes in slot order; groups [0, n_img_groups) are (point, image)
+      groups, the rest (point, camera) groups;
+    - unit_off [n_units + 1]: each unit's items (at most K1B_UNIT_ITEMS
+      of one pair); unit_pair [n_units]: its pair;
+    - pair_unit [n_pairs + 1]: each pair's units.
+    """
+
+    table: torch.Tensor
+    n_groups: int
+    n_img_groups: int
+    n_members: int
+    n_units: int
+    n_pairs: int
+    n_items: int
+
+
 class KernelStatic(NamedTuple):
-    """Per-solve device tensors in kernel (slot-major) order."""
+    """Per-solve device tensors in kernel (slot-major) order. `tiles` is
+    the dense path's Schur work list, built from obs_img, obs_cam and the
+    mask (rebuild it after replacing them); the CUDA K1 needs it."""
 
     obs_sta: torch.Tensor   # [3, O'] f32: x, y, mask
     obs_img: torch.Tensor   # [O'] i32
@@ -117,6 +153,7 @@ class KernelStatic(NamedTuple):
     free_sta: torch.Tensor  # [4+np, Npad] f32: rot(1), trans(3), cam(np)
     free_pts: torch.Tensor  # [Pp] f32
     image_cam: torch.Tensor  # [Npad] i32
+    tiles: SchurTiles | None = None
 
 
 def intrinsic_refine_mask(opt) -> np.ndarray:
@@ -209,17 +246,16 @@ def build_static(problem, opt, lay: KernelLayout, device) -> KernelStatic:
                         free_pts=dev(free_pts), image_cam=dev(image_cam))
 
 
-def schur_matvec_windows(static: KernelStatic, lay: KernelLayout):
-    """The image windows of K3's blocks, as the kernel takes them.
-
-    A block covers K3_POINTS_PER_BLOCK points of one TP-point block (all
-    their slots); its window is [lo, hi], the least and greatest image of
-    its live lanes, summed in chunks of K3_WINDOW images. Returns (lo, hi,
-    chunks), each [blocks] int64 in block order; a block without live
-    lanes has lo = 2^31 - 1, hi = -1 and 0 chunks."""
+def _block_windows(static: KernelStatic, lay: KernelLayout, points: int,
+                   window: int):
+    """Image windows of blocks that each cover `points` points of one
+    TP-point block (all their slots): [lo, hi], the least and greatest
+    image of the block's live lanes, summed in chunks of `window` images.
+    Returns (lo, hi, chunks), each [blocks] int64 in block order; a block
+    without live lanes has lo = 2^31 - 1, hi = -1 and 0 chunks."""
     TP, K, nb = lay.TP, lay.K, lay.nb
-    groups = -(-TP // K3_POINTS_PER_BLOCK)
-    pad = groups * K3_POINTS_PER_BLOCK - TP
+    groups = -(-TP // points)
+    pad = groups * points - TP
     img = static.obs_img.long().reshape(nb, K, TP)
     live = static.obs_sta[2].reshape(nb, K, TP) != 0
     big = torch.full_like(img, 2 ** 31 - 1)
@@ -227,11 +263,88 @@ def schur_matvec_windows(static: KernelStatic, lay: KernelLayout):
     hi = torch.where(live, img, torch.full_like(img, -1))
     lo = F.pad(lo, (0, pad), value=2 ** 31 - 1)
     hi = F.pad(hi, (0, pad), value=-1)
-    shape = (nb, K, groups, K3_POINTS_PER_BLOCK)
+    shape = (nb, K, groups, points)
     lo = lo.reshape(shape).amin(dim=(1, 3)).reshape(-1)
     hi = hi.reshape(shape).amax(dim=(1, 3)).reshape(-1)
-    chunks = torch.clamp(hi - lo + K3_WINDOW, min=0) // K3_WINDOW
+    chunks = torch.clamp(hi - lo + window, min=0) // window
     return lo, hi, chunks
+
+
+def schur_matvec_windows(static: KernelStatic, lay: KernelLayout):
+    """The image windows of K3's blocks (K3_POINTS_PER_BLOCK points,
+    chunks of K3_WINDOW images), as `_block_windows` returns them."""
+    return _block_windows(static, lay, K3_POINTS_PER_BLOCK, K3_WINDOW)
+
+
+def fused_reduce_windows(static: KernelStatic, lay: KernelLayout):
+    """The image-payload windows of K1's and K2's linearize-and-reduce
+    blocks (K12_POINTS_PER_BLOCK points, chunks of K12_WINDOW images),
+    as `_block_windows` returns them."""
+    return _block_windows(static, lay, K12_POINTS_PER_BLOCK, K12_WINDOW)
+
+
+def build_schur_tiles(static: KernelStatic, lay: KernelLayout) -> SchurTiles:
+    """K1's Schur work list for one bucket, built in torch on the
+    bucket's device (see `SchurTiles` and csrc/ba_kernels.cu, K1b).
+
+    A point's nodes are its distinct images and cameras over its live
+    lanes; a group is a (point, node) pair, whose block of EL is the sum
+    of the WL blocks of its lanes. S's block of a node pair a <= b sums,
+    over the points that see both, the product of their two groups'
+    blocks: one work item each. Groups are numbered image groups first,
+    each kind by its first lane (so the group kernel's reads of jw
+    coalesce); items are sorted by node pair, then by point, and each
+    pair's list is cut into units of at most K1B_UNIT_ITEMS items."""
+    TP, K, Npad = lay.TP, lay.K, lay.Npad
+    NN = Npad + lay.C
+    L = static.obs_img.numel()                # lanes; sort keys x * L + lane
+    live = torch.nonzero(static.obs_sta[2] != 0)[:, 0]
+    point = (live // (TP * K)) * TP + live % TP
+    node = torch.cat([static.obs_img.long()[live],
+                      Npad + static.obs_cam.long()[live]])
+    lanes = torch.cat([live, live])
+    key = torch.cat([point, point]) * NN + node
+    ukey, grp, size = torch.unique(key, return_inverse=True,
+                                   return_counts=True)   # by (point, node)
+    G = ukey.numel()
+    by_grp = torch.argsort(grp * L + lanes)
+    first = lanes[by_grp][torch.cumsum(size, 0) - size]
+    is_cam = ukey % NN >= Npad
+    order = torch.argsort(is_cam.long() * L + first)
+    new_id = torch.empty_like(order)
+    new_id[order] = torch.arange(G, device=order.device)
+    grp_off = F.pad(torch.cumsum(size[order], 0), (1, 0))
+    grp_lane = lanes[torch.argsort(new_id[grp] * L + lanes)]
+
+    # Items: every pair of groups (g, h), g <= h, of one point. Groups of
+    # one point are consecutive in `ukey` order, nodes ascending.
+    gpt = ukey // NN
+    ar = torch.arange(G, device=ukey.device)
+    cnt = torch.searchsorted(gpt, gpt, right=True) - ar
+    a = torch.repeat_interleave(ar, cnt)
+    b = (a + torch.arange(a.numel(), device=a.device)
+         - torch.repeat_interleave(torch.cumsum(cnt, 0) - cnt, cnt))
+    gnode = ukey % NN
+    pair_key = gnode[a] * NN + gnode[b]
+    pair_key, by_pair = torch.sort(pair_key, stable=True)
+    items = torch.stack([new_id[a[by_pair]], new_id[b[by_pair]]], dim=1)
+    pkeys, pcount = torch.unique_consecutive(pair_key, return_counts=True)
+    pstart = torch.cumsum(pcount, 0) - pcount
+    pair_node = torch.stack([pkeys // NN, pkeys % NN], dim=1)
+    n_units = (pcount + K1B_UNIT_ITEMS - 1) // K1B_UNIT_ITEMS
+    pair_unit = F.pad(torch.cumsum(n_units, 0), (1, 0))
+    unit_pair = torch.repeat_interleave(
+        torch.arange(pkeys.numel(), device=pkeys.device), n_units)
+    unit_rank = (torch.arange(unit_pair.numel(), device=pkeys.device)
+                 - pair_unit[unit_pair])
+    unit_off = torch.cat([pstart[unit_pair] + unit_rank * K1B_UNIT_ITEMS,
+                          pcount.new_tensor([items.shape[0]])])
+    table = torch.cat([items.reshape(-1), pair_node.reshape(-1), grp_off,
+                       grp_lane, unit_off, unit_pair, pair_unit]).int()
+    return SchurTiles(
+        table=table, n_groups=G, n_img_groups=G - int(is_cam.sum()),
+        n_members=grp_lane.numel(), n_units=unit_pair.numel(),
+        n_pairs=pkeys.numel(), n_items=items.shape[0])
 
 
 def pack_params(qvecs, tvecs, cam_params, image_cam, lay: KernelLayout):
@@ -620,32 +733,47 @@ def fused_schur(static: KernelStatic, par, pts, lam, lay: KernelLayout,
     and accumulate the Schur correction.
 
     Returns (S_corr [Dk, Dk], img_red [Npad, DI], ey [Dk],
-    pt_pay [19, Pp], jw [JW, O']). `lam` is a 0-d float32 tensor.
+    pt_pay [19, Pp], jw [JW, O']). `lam` is a 0-d float32 tensor. On
+    CUDA, `static.tiles` must hold the bucket's `build_schur_tiles`.
     """
     if not par.is_cuda:
         return fused_schur_plain(static, par, pts, lam, lay, opt)
     _check_model(opt)
-    if lay.K > CUDA_MAX_K:
-        raise NotImplementedError(
-            f"track length {lay.K} > {CUDA_MAX_K} in the CUDA K1 kernel")
     _check_static(static, lay)
     _check(par, "par", (7 + lay.nparams, lay.Npad))
     _check(pts, "pts", (3, lay.Pp))
     _check(lam, "lam", ())
+    t = static.tiles
+    if t is None:
+        raise ValueError("static.tiles: the CUDA K1 needs the bucket's "
+                         "build_schur_tiles")
+    _check(t.table, "tiles.table",
+           (2 * t.n_items + 2 * t.n_pairs + t.n_groups + 1 + t.n_members
+            + 2 * t.n_units + 1 + t.n_pairs + 1,), torch.int32)
     dev = par.device
     f32 = dict(dtype=torch.float32, device=dev)
-    s_corr = torch.zeros(lay.Dk, lay.Dk, **f32)
-    img_red = torch.zeros(lay.Npad, lay.DI, **f32)
-    ey = torch.zeros(lay.Dk, **f32)
-    pt_pay = torch.empty(PT_ROWS, lay.Pp, **f32)
-    jw = torch.empty(lay.JW, lay.Pp * lay.K, **f32)
+    # One zeroed and one uninitialised allocation per call, cut into the
+    # outputs (host time per launch is within reach of the device's).
+    # S entries of node pairs that no point links stay zero; the scratch
+    # comes first, 16-byte aligned for the kernel's vector loads.
+    sizes0 = (lay.Dk * lay.Dk, lay.Npad * lay.DI, lay.Dk)
+    s_corr, img_red, ey = torch.zeros(sum(sizes0), **f32).split(sizes0)
+    s_corr = s_corr.view(lay.Dk, lay.Dk)
+    img_red = img_red.view(lay.Npad, lay.DI)
+    sizes1 = (t.n_groups * K1B_GROUP_WORDS + t.n_units * K1B_ENTRIES,
+              lay.JW * lay.Pp * lay.K, PT_ROWS * lay.Pp)
+    scratch, jw, pt_pay = torch.empty(sum(sizes1), **f32).split(sizes1)
+    jw = jw.view(lay.JW, lay.Pp * lay.K)
+    pt_pay = pt_pay.view(PT_ROWS, lay.Pp)
     err = cuda_build.lib().sba_fused_schur(
         opt.model_id, LOSS_IDS[opt.loss], opt.loss_scale,
         int(bool(opt.schur_bf16)), lay.TP, lay.K, lay.Pp, lay.Npad, lay.C,
         lay.Dk, lam.data_ptr(), par.data_ptr(), static.free_sta.data_ptr(),
         pts.data_ptr(), static.free_pts.data_ptr(),
         static.obs_sta.data_ptr(), static.obs_img.data_ptr(),
-        static.obs_cam.data_ptr(), s_corr.data_ptr(), img_red.data_ptr(),
+        static.obs_cam.data_ptr(), t.table.data_ptr(), t.n_groups,
+        t.n_img_groups, t.n_members, t.n_units, t.n_pairs, t.n_items,
+        scratch.data_ptr(), s_corr.data_ptr(), img_red.data_ptr(),
         ey.data_ptr(), pt_pay.data_ptr(), jw.data_ptr(), _stream())
     cuda_build.check(err, "sba_fused_schur")
     LAUNCHES["fused_schur"] += 1

@@ -104,10 +104,12 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     # model, loss, loss_scale, schur_bf16, TP, K, Pp, Npad, C, Dk,
     # lam, par, free_sta, pts, free_pts, obs_sta, obs_img, obs_cam,
-    # S, img_red, ey, pt_pay, jw, stream
+    # tiles, n_groups, n_img_groups, n_members, n_units, n_pairs, n_items,
+    # scratch, S, img_red, ey, pt_pay, jw, stream
     "sba_fused_schur": [_I, _I, _F, _I, _I, _I, _I, _I, _I, _I,
                         _P, _P, _P, _P, _P, _P, _P, _P,
-                        _P, _P, _P, _P, _P, _P],
+                        _P, _I, _I, _I, _I, _I, _I,
+                        _P, _P, _P, _P, _P, _P, _P],
     # model, loss, loss_scale, bj, jcorr_bf16, TP, K, Pp, Npad, C,
     # lam, par, free_sta, pts, free_pts, obs_sta, obs_img, obs_cam,
     # img_red, pt_pay, jw, jcorr (null unless jcorr_bf16), stream

@@ -470,6 +470,10 @@ def prepare(problem: BAProblem, options: BAOptions):
     buckets = _bucketize(host, options, dev)
     statics = tuple(b[0] for b in buckets)
     lays = tuple(b[1] for b in buckets)
+    if dev.type == "cuda" and not use_implicit(lays[0], options):
+        # K1's Schur work list, fixed for the solve (built on the card).
+        statics = tuple(st._replace(tiles=bk.build_schur_tiles(st, lay))
+                        for st, lay in zip(statics, lays))
     idxs = tuple(b[2] for b in buckets)
     pts0 = _pack_bucket_points(problem.points, idxs, lays)
 

@@ -13,8 +13,10 @@ from the CPU trace by more than 1e-5 relative, both solves' largest
 translation error against the scene's truth, and each solve's accept
 (1) / reject (0) pattern.
 It also launches K1 (`fused_schur`) twice on the same inputs and prints
-the largest difference between the two outputs, which float atomics
-make nonzero. One JSON line per run, then one summary line.
+the largest difference between the two launches for each output: S_corr
+is summed without atomics and repeats exactly, the image payload's and
+Ey's float atomics sum in no fixed order. One JSON line per run, then
+one summary line.
 
 First, on the CPU alone, a witness: `--witness` more twin solves from
 the points perturbed by 1e-6 relative (fixed seeds), each one's final
@@ -56,17 +58,17 @@ def _accepts(trace):
 
 def k1_repeat_spread(problem, opt):
     """Largest |difference| between two K1 launches on identical inputs,
-    over its outputs (S, image payload, Ey, point payload, jw)."""
+    for each of its outputs (S, image payload, Ey, point payload, jw)."""
     statics, lays, pts0, _, prob, _, _ = ba_fused.prepare(problem, opt)
     par = bk.pack_params(prob.qvecs, prob.tvecs, prob.cam_params,
                          statics[0].image_cam, lays[0])
     lam = torch.tensor(1e-3, device=problem.qvecs.device)
-    worst = 0.0
+    worst = dict.fromkeys(("S", "img_red", "ey", "pt_pay", "jw"), 0.0)
     for st, lay, pts in zip(statics, lays, pts0):
         a = bk.fused_schur(st, par, pts, lam, lay, opt)
         b = bk.fused_schur(st, par, pts, lam, lay, opt)
-        worst = max(worst, *(float((x - y).abs().max())
-                             for x, y in zip(a, b)))
+        for name, x, y in zip(worst, a, b):
+            worst[name] = max(worst[name], float((x - y).abs().max()))
     return worst
 
 

@@ -1,27 +1,45 @@
-"""Time K3 (`schur_matvec`) and K6 (`ncc_cost`) on the card, for one or
-more builds of the kernel sources, in one process.
+"""Time the hand-written kernels K1 (`fused_schur`), K2 (`fused_reduce`),
+K3 (`schur_matvec`) and K6 (`ncc_cost`) on the card, for one or more
+builds of the kernel sources, in one process.
 
     python -m sba_tpu_torch.utils.kernel_timing [--csrc DIR ...] \
-        [--rounds 2] [--reps 50]
+        [--kernels k1 k2 k3 k6] [--rounds 2] [--reps 50]
 
 Each `--csrc` names a directory of CUDA sources with this package's C
 entry points (an older checkout's ``sba_tpu_torch/csrc``, say); with
 none, the package's own. Each is built into a library of its own, and
 the libraries are timed in turns on the same inputs (first to last,
 then last to first, `--rounds` times), so that two versions compare on
-one card within one call. The inputs are the main path's shapes:
+one card within one call; every source must have the package's C
+signatures (for K1 sources before its Schur tile table, compare whole
+checkouts with `sba_tpu_torch.utils.ba_timing`). The inputs are the main
+path's shapes:
 
-- K3: one matvec of the 1024-image sequential scene (bench.py:195:
-  120,000 points, track 7), f32 couplings and bf16 ones (ranged), and
-  the same bucket with its image ids spread (`spread_image_ids`), which
-  gives every block a window of several chunks;
+- K1: one LM iteration of the headline (bench.py:473: 128 images,
+  30,000 points, ~7 observations per point; its three track-length
+  buckets), with `schur_bf16` on and off; also the wall time of
+  building its Schur work list (`build_schur_tiles`, once per solve);
+- K2: one LM iteration of the 1024-image sequential scene (bench.py:195:
+  120,000 points, track 7; one bucket) with f32 couplings, with bf16
+  ones (ranged), and in f32 with its images renamed by
+  `spread_image_ids` (`rename_images`), which gives every block a window
+  of several chunks;
+- K3: one matvec of the same bucket, f32 and bf16 couplings, sorted and
+  spread ids;
 - K6: 4 sources x 1200 x 1600 (r=3 step 1, r=5 step 1, r=3 step 2) on
   random images, each source with a band outside it.
 
 Prints the card's name and power limit, the compiler's register and
-spill lines for the two kernels, and one line per (case, library): the
-CUDA-event ms per launch and the largest difference from the plain twin
-on the same inputs. Needs a CUDA device and nvcc.
+spill lines for the timed kernels, and one line per (case, library):
+the CUDA-event ms per call (the device's time: the stream sleeps while
+the host enqueues the calls), the host's ms to enqueue one (where it
+reaches the CUDA-event time, the host bounds the solve's use of the
+kernel) and the largest
+difference from the plain twin on the same inputs, relative to the
+twin's largest entry. For K1
+and K2 it also prints the device time of each CUDA kernel inside one
+call, from `torch.profiler` (the split between a wrapper's launches).
+Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -37,21 +55,37 @@ from sba_tpu_torch.ops import cuda_build
 from sba_tpu_torch.ops import patch_match_kernels as pk
 from sba_tpu_torch.optim import ba_fused
 from sba_tpu_torch.optim.ba import BAOptions
-from sba_tpu_torch.utils.synthetic import (make_sequential_ba_problem,
-                                           spread_image_ids)
+from sba_tpu_torch.utils.ba_timing import wall_s
+from sba_tpu_torch.utils.synthetic import (make_ba_problem,
+                                           make_sequential_ba_problem,
+                                           rename_images, spread_image_ids)
 
+HEADLINE = dict(num_images=128, num_points=30_000, observations_per_point=7,
+                pose_noise=0.005, point_noise=0.02, pixel_noise=0.5, seed=0)
 LARGE = dict(num_images=1024, num_points=120_000, track_len=7,
              pose_noise=0.005, point_noise=0.02, pixel_noise=0.5, seed=0)
 NCC_CASES = ((3, 1), (5, 1), (3, 2))
+# Kernel names whose ptxas lines are printed.
+KERNEL_NAMES = ("k1_", "k2_", "k12_", "k3_matvec", "k6_ncc")
 
 
 def time_ms(fn, reps):
     """CUDA-event ms per call of `fn` over `reps` calls, after one
-    warm-up call."""
+    warm-up call. The stream first sleeps for about twice the host's
+    time to enqueue the calls (`torch.cuda._sleep`, cycles at up to
+    2 GHz; at most ~0.5 s), so the host's launches run ahead and the
+    events time the device's work, not the host's."""
+    import time
+
     fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(2 * host_s * reps, 0.5) * 2e9))
     start.record()
     for _ in range(reps):
         fn()
@@ -60,19 +94,119 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def host_ms(fn, reps):
+    """Host wall ms per call of `fn` with nothing waited for: the time to
+    enqueue it. A case whose host time reaches its CUDA-event time is
+    bound by the host, not the device."""
+    import time
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return dt * 1e3 / reps
+
+
+def kernel_split(fn, reps):
+    """{CUDA kernel name: (launches per call, device ms per call)} over
+    `reps` calls of `fn` under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        out[e.key] = (e.count / reps, us / 1e3 / reps)
+    return out
+
+
+def _step(ctx):
+    statics, lays, pts0, _, prob, _, _ = ctx
+    par = bk.pack_params(prob.qvecs, prob.tvecs, prob.cam_params,
+                         statics[0].image_cam, lays[0])
+    return statics, lays, pts0, par, torch.tensor(1e-3, device="cuda")
+
+
+def k1_cases():
+    """{name: (per-library call, twin outputs, output names)} at the
+    headline, one LM iteration (all buckets) per call."""
+    problem, _ = make_ba_problem(dtype=torch.float32, device="cuda",
+                                 **HEADLINE)
+    cases = {}
+    for bf16 in (True, False):
+        opt = BAOptions(dtype="float32", schur_bf16=bf16)
+        statics, lays, pts0, par, lam = _step(ba_fused.prepare(problem, opt))
+        groups = list(zip(statics, lays, pts0))
+        if bf16:
+            tiles = [st.tiles for st in statics]
+            ms = 1e3 * wall_s(lambda: [bk.build_schur_tiles(st, lay)
+                                       for st, lay in zip(statics, lays)],
+                              10)["median_s"]
+            print(f"k1 work list: build_schur_tiles over {len(lays)} "
+                  f"buckets {ms:.2f} ms (median wall of 10 calls), "
+                  f"{sum(t.n_items for t in tiles)} items in "
+                  f"{sum(t.n_units for t in tiles)} units", flush=True)
+
+        def call(groups=groups, par=par, lam=lam, opt=opt):
+            return [bk.fused_schur(st, par, p, lam, lay, opt)
+                    for st, lay, p in groups]
+
+        plain = [bk.fused_schur_plain(st, par, p, lam, lay, opt)
+                 for st, lay, p in groups]
+        cases[f"k1 schur_bf16={'on' if bf16 else 'off'}"] = (
+            call, plain, ("S", "img_red", "ey", "pt_pay", "jw"))
+    return cases
+
+
+def k2_cases():
+    """{name: (per-library call, twin outputs, output names)} at the
+    1024-image scene, one LM iteration (one bucket) per call."""
+    problem, _ = make_sequential_ba_problem(**LARGE, device="cuda")
+    cases = {}
+    for ranged, order in (("off", "sorted"), ("on", "sorted"),
+                          ("off", "spread")):
+        opt = BAOptions(dtype="float32", fused_ranged=ranged)
+        statics, lays, pts0, par, lam = _step(ba_fused.prepare(problem, opt))
+        st, lay, pts = statics[0], lays[0], pts0[0]
+        if order == "spread":
+            st, par = rename_images(st, par, spread_image_ids(lay.N))
+
+        def call(st=st, lay=lay, pts=pts, par=par, lam=lam, opt=opt):
+            return [bk.fused_reduce(st, par, pts, lam, lay, opt)]
+
+        tag = "bf16" if bk.jcorr_dtype(lay, opt) == torch.bfloat16 else "f32"
+        _, _, chunks = bk.fused_reduce_windows(st, lay)
+        print(f"k2 {tag} {order}: {int((chunks > 0).sum())} blocks, "
+              f"{int((chunks > 1).sum())} of more than one window chunk, "
+              f"at most {int(chunks.max())}", flush=True)
+        cases[f"k2 {tag} {order}"] = (
+            call, [bk.fused_reduce_plain(st, par, pts, lam, lay, opt)],
+            ("img_red", "pt_pay", "jw", "jcorr"))
+    return cases
+
+
 def k3_cases():
-    """{name: (static, layout, options, du_pose_t, du_cam_t, jcorr)} at
-    the 1024-image scene."""
+    """{name: (per-library call, twin outputs, output names)}: one matvec
+    at the 1024-image scene."""
     problem, _ = make_sequential_ba_problem(**LARGE, device="cuda")
     gen = torch.Generator(device="cpu").manual_seed(2)
     cases = {}
     for ranged in ("off", "on"):
         opt = BAOptions(dtype="float32", fused_ranged=ranged)
-        statics, lays, pts0, _, prob, _, _ = ba_fused.prepare(problem, opt)
+        statics, lays, pts0, par, lam = _step(ba_fused.prepare(problem, opt))
         st, lay, pts = statics[0], lays[0], pts0[0]
-        par = bk.pack_params(prob.qvecs, prob.tvecs, prob.cam_params,
-                             st.image_cam, lay)
-        lam = torch.tensor(1e-3, device="cuda")
         jc = bk.fused_reduce(st, par, pts, lam, lay, opt)[3]
         dup = torch.zeros(6, lay.Npad)
         dup[:, :lay.N] = 1e-3 * torch.randn(6, lay.N, generator=gen)
@@ -81,12 +215,22 @@ def k3_cases():
         perm = torch.as_tensor(spread_image_ids(lay.N), device="cuda")
         permuted = st._replace(obs_img=perm[st.obs_img.long()].contiguous())
         tag = "bf16" if jc.dtype == torch.bfloat16 else "f32"
-        cases[f"k3 {tag} sorted"] = (st, lay, opt, dup, duc, jc)
-        cases[f"k3 {tag} permuted"] = (permuted, lay, opt, dup, duc, jc)
+        for order, s in (("sorted", st), ("permuted", permuted)):
+            _, _, chunks = bk.schur_matvec_windows(s, lay)
+            print(f"k3 {tag} {order}: {int((chunks > 0).sum())} blocks, "
+                  f"{int((chunks > 1).sum())} of more than one window "
+                  f"chunk, at most {int(chunks.max())}", flush=True)
+
+            def call(s=s, lay=lay, opt=opt, dup=dup, duc=duc, jc=jc):
+                return [(bk.schur_matvec(s, dup, duc, jc, lay, opt),)]
+
+            cases[f"k3 {tag} {order}"] = (
+                call, [(bk.schur_matvec_plain(s, dup, duc, jc, lay, opt),)],
+                ("out",))
     return cases
 
 
-def k6_inputs():
+def k6_cases():
     """Random images; each source lies outside the reference's view on a
     band of 240-540 columns (about a fifth of the pixels, as in the
     8-view scene), where it is 0."""
@@ -99,7 +243,27 @@ def k6_inputs():
             slice(1600 - 240 - 100 * s, None)
         inb[s, :, band] = False
     v[~inb] = 0.0
-    return ref, v, inb
+    cases = {}
+    for r, step in NCC_CASES:
+        def call(r=r, step=step):
+            return [(pk.ncc_cost(ref, v, inb, r, step, 3.0, 0.2),)]
+
+        cases[f"k6 r={r} step={step}"] = (
+            call, [(pk.ncc_cost_plain(ref, v, inb, r, step, 3.0, 0.2),)],
+            ("cost",))
+    return cases
+
+
+def _errors(outs, plain, names):
+    """'name rel_err' for each output: the largest |kernel - twin| over
+    the buckets, relative to the twin's largest |entry|."""
+    parts = []
+    for i, name in enumerate(names):
+        err = max(float((o[i].float() - p[i].float()).abs().max())
+                  for o, p in zip(outs, plain))
+        scale = max(float(p[i].float().abs().max()) for p in plain)
+        parts.append(f"{name} {err / max(scale, 1e-30):.2e}")
+    return ", ".join(parts)
 
 
 def main(argv=None):
@@ -108,8 +272,8 @@ def main(argv=None):
                     help="a directory of kernel sources (repeatable)")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--reps", type=int, default=50)
-    ap.add_argument("--kernels", nargs="+", choices=("k3", "k6"),
-                    default=("k3", "k6"))
+    ap.add_argument("--kernels", nargs="+", choices=("k1", "k2", "k3", "k6"),
+                    default=("k1", "k2", "k3", "k6"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_timing: needs a CUDA device")
@@ -124,8 +288,8 @@ def main(argv=None):
         libs.append(cuda_build.load(path))
         lines = log.splitlines()
         for i, line in enumerate(lines):
-            if "entry function" in line and ("k3_matvec" in line
-                                             or "k6_ncc" in line):
+            if "entry function" in line and any(k in line
+                                                for k in KERNEL_NAMES):
                 info = [x.strip() for x in lines[i + 2:i + 4]]
                 print(f"lib{len(libs) - 1} {line.split(chr(39))[1]}: "
                       + " | ".join(x.replace("ptxas info    : ", "")
@@ -133,26 +297,11 @@ def main(argv=None):
         print(f"lib{len(libs) - 1} = {d}", flush=True)
     own = cuda_build.lib()
 
-    k3 = k3_cases() if "k3" in args.kernels else {}
-    for name, (st, lay, opt, dup, duc, jc) in k3.items():
-        _, _, chunks = bk.schur_matvec_windows(st, lay)
-        live = chunks > 0
-        print(f"{name}: {int(live.sum())} blocks, "
-              f"{int((chunks > 1).sum())} of more than one window chunk, "
-              f"at most {int(chunks.max())}", flush=True)
-    if "k6" in args.kernels:
-        ref, v, inb = k6_inputs()
-    fns = {}
-    for name, (st, lay, opt, dup, duc, jc) in k3.items():
-        fns[name] = (
-            lambda st=st, lay=lay, opt=opt, dup=dup, duc=duc, jc=jc:
-            bk.schur_matvec(st, dup, duc, jc, lay, opt),
-            bk.schur_matvec_plain(st, dup, duc, jc, lay, opt))
-    for r, step in NCC_CASES if "k6" in args.kernels else ():
-        fns[f"k6 r={r} step={step}"] = (
-            lambda r=r, step=step: pk.ncc_cost(ref, v, inb, r, step, 3.0,
-                                               0.2),
-            pk.ncc_cost_plain(ref, v, inb, r, step, 3.0, 0.2))
+    cases = {}
+    for k, make in (("k1", k1_cases), ("k2", k2_cases), ("k3", k3_cases),
+                    ("k6", k6_cases)):
+        if k in args.kernels:
+            cases.update(make())
     # The wrappers launch through cuda_build.lib(): point it at each
     # library in turn, and back at the package's own at the end.
     order = list(range(len(libs)))
@@ -161,21 +310,27 @@ def main(argv=None):
         for _ in range(args.rounds):
             for i in order + order[::-1]:
                 cuda_build._LIB = libs[i]
-                for name, (fn, _) in fns.items():
+                for name, (call, _, _) in cases.items():
                     times.setdefault((name, i), []).append(
-                        time_ms(fn, args.reps))
-        for name, (fn, plain) in fns.items():
+                        time_ms(call, args.reps))
+        for name, (call, plain, names) in cases.items():
             for i in order:
                 cuda_build._LIB = libs[i]
-                out = fn()
+                outs = call()
                 torch.cuda.synchronize()
-                err = float((out - plain).abs().max())
-                scale = float(plain.abs().max())
                 t = times[(name, i)]
-                print(f"{name} lib{i}: {min(t):.4f} ms per launch (runs "
+                host = host_ms(call, args.reps)
+                print(f"{name} lib{i}: {min(t):.4f} ms per call (runs "
                       + ", ".join(f"{x:.4f}" for x in t)
-                      + f"); max |err| vs twin {err:.3e} (scale "
-                      f"{scale:.3e})", flush=True)
+                      + f"; host {host:.4f} ms to enqueue one); max |err| "
+                      "/ twin scale: " + _errors(outs, plain, names),
+                      flush=True)
+                if name[:2] in ("k1", "k2"):
+                    split = kernel_split(call, args.reps)
+                    for kname, (n, ms) in sorted(split.items(),
+                                                 key=lambda kv: -kv[1][1]):
+                        print(f"  {ms:.4f} ms {n:g}x {kname[:90]}",
+                              flush=True)
     finally:
         cuda_build._LIB = own
 

@@ -224,6 +224,26 @@ def spread_image_ids(num_images: int) -> np.ndarray:
     return (np.arange(n, dtype=np.int64) * m % n).astype(np.int32)
 
 
+def rename_images(static, par, perm):
+    """The same kernel bucket (`ops.ba_kernels.KernelStatic`, its packed
+    parameters `par`) with image n renamed perm[n] (perm [N] int): the
+    lanes' image ids, the per-image columns of `par` and `free_sta`, and
+    `image_cam`. Kernels compute the same function on it, with image rows
+    moved to their new ids. Returns (static, par)."""
+    perm = torch.as_tensor(perm).long().to(par.device)
+    n = perm.shape[0]
+
+    def cols(a):
+        out = a.clone()
+        out[..., perm] = a[..., :n]
+        return out
+
+    st = static._replace(obs_img=perm[static.obs_img.long()].int(),
+                         free_sta=cols(static.free_sta),
+                         image_cam=cols(static.image_cam), tiles=None)
+    return st, cols(par)
+
+
 def make_synthetic_reconstruction(num_images: int = 8, num_points: int = 120,
                                   seed: int = 0, image_size=(640, 480),
                                   focal: float = 500.0) -> Reconstruction:

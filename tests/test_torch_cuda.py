@@ -259,6 +259,120 @@ def test_schur_matvec_windows_match_twin(cuda, model_id, ranged, order):
     assert _rel_err(m_k, m_p) <= 3e-5
 
 
+_HEADLINE = dict(num_images=128, num_points=30_000, observations_per_point=7,
+                 pose_noise=0.005, point_noise=0.02, pixel_noise=0.5, seed=0)
+
+
+@pytest.mark.parametrize("schur_bf16", [True, False], ids=["bf16", "f32"])
+def test_fused_schur_matches_twin_random_tracks(cuda, schur_bf16):
+    """K1 against its twin on the headline's random tracks (128 images,
+    30,000 points: buckets K = 6, 8 and 20), with S_corr rounded to bf16
+    and not: S and Ey at 3e-5 of scale, the image payload at 1e-5, the
+    point payload and jw at 1e-4. S gets no atomics: it is exactly
+    symmetric and the same on a second launch."""
+    problem, _ = make_ba_problem(dtype=torch.float32, device=cuda,
+                                 **_HEADLINE)
+    opt = BAOptions(dtype="float32", schur_bf16=schur_bf16)
+    statics, lays, pts0, _, prob, _, _ = ba_fused.prepare(problem, opt)
+    assert [lay.K for lay in lays] == [6, 8, 20]
+    par = bk.pack_params(prob.qvecs, prob.tvecs, prob.cam_params,
+                         statics[0].image_cam, lays[0])
+    lam = torch.tensor(1e-3, device=cuda)
+    for st, lay, pts in zip(statics, lays, pts0):
+        bk.reset_launches()
+        k1 = bk.fused_schur(st, par, pts, lam, lay, opt)
+        p1 = bk.fused_schur_plain(st, par, pts, lam, lay, opt)
+        torch.cuda.synchronize()
+        assert bk.LAUNCHES["fused_schur"] == 1
+        for name, a, b, tol in zip(("S", "img_red", "ey", "pt_pay", "jw"),
+                                   k1, p1, (3e-5, 1e-5, 3e-5, 1e-4, 1e-4)):
+            assert _rel_err(a, b) <= tol, (lay.K, name)
+        assert torch.equal(k1[0], k1[0].T)
+        assert torch.equal(k1[0], bk.fused_schur(st, par, pts, lam, lay,
+                                                 opt)[0])
+
+
+@pytest.mark.parametrize("kernel", ["fused_schur", "fused_reduce"])
+def test_wide_windows_and_long_tracks_match_twins(cuda, kernel):
+    """K1 (dense path forced) and K2 on random tracks over 300 images:
+    blocks whose payload window spans several 128-image chunks, and a
+    bucket with K > 8 slots, whose lanes the kernel walks in passes.
+    The tolerances of the tests above; K1's S exactly symmetric."""
+    problem, _ = make_ba_problem(
+        dtype=torch.float32, device=cuda, num_images=300, num_points=6000,
+        observations_per_point=7, pose_noise=0.005, point_noise=0.02,
+        pixel_noise=0.5, seed=1)
+    mode = "dense" if kernel == "fused_schur" else "implicit"
+    opt = BAOptions(dtype="float32", fused_mode=mode, schur_bf16=False)
+    statics, lays, pts0, _, prob, _, _ = ba_fused.prepare(problem, opt)
+    assert max(lay.K for lay in lays) > bk.K12_SLOTS
+    assert any(int(bk.fused_reduce_windows(st, lay)[2].max()) > 1
+               for st, lay in zip(statics, lays))
+    par = bk.pack_params(prob.qvecs, prob.tvecs, prob.cam_params,
+                         statics[0].image_cam, lays[0])
+    lam = torch.tensor(1e-3, device=cuda)
+    for st, lay, pts in zip(statics, lays, pts0):
+        out_k = getattr(bk, kernel)(st, par, pts, lam, lay, opt)
+        out_p = getattr(bk, kernel + "_plain")(st, par, pts, lam, lay, opt)
+        torch.cuda.synchronize()
+        if kernel == "fused_schur":
+            names, tols = ("S", "img_red", "ey", "pt_pay", "jw"), \
+                (3e-5, 1e-5, 3e-5, 1e-4, 1e-4)
+            assert torch.equal(out_k[0], out_k[0].T)
+        else:
+            names, tols = ("img_red", "pt_pay", "jw", "jcorr"), \
+                (1e-4, 1e-4, 1e-4, 1e-4)
+        for name, a, b, tol in zip(names, out_k, out_p, tols):
+            assert _rel_err(a, b) <= tol, (lay.K, name)
+
+
+@pytest.mark.parametrize("order", ["sorted", "spread"])
+@pytest.mark.parametrize("ranged", ["off", "on"])
+@pytest.mark.parametrize("model_id", [0, 1])
+def test_fused_reduce_windows_match_twin(cuda, model_id, ranged, order):
+    """K2 against its twin on a 1024-image sequential bucket (20,000
+    points, track 7), whose blocks see narrow image windows, and on the
+    same bucket with its images renamed by `spread_image_ids`, whose
+    every block's window spans several chunks; f32 and bf16 couplings,
+    3 and 4 intrinsics. Image payload, point payload and jw at 1e-4 of
+    scale, bf16 jcorr at 2^-8."""
+    from sba_tpu_torch.optim.ba import problem_from_numpy
+    from sba_tpu_torch.utils.synthetic import (
+        make_sequential_ba_problem_numpy, rename_images, spread_image_ids)
+
+    f, _ = make_sequential_ba_problem_numpy(
+        num_images=1024, num_points=20_000, track_len=7, seed=4)
+    if model_id == 1:
+        c = f["cam_params"]
+        c[0, :4] = [c[0, 0], c[0, 0], c[0, 1], c[0, 2]]
+    problem = problem_from_numpy(f, cuda, torch.float32)
+    opt = BAOptions(model_id=model_id, dtype="float32", fused_ranged=ranged)
+    statics, lays, pts0, _, prob, _, _ = ba_fused.prepare(problem, opt)
+    st, lay, pts = statics[0], lays[0], pts0[0]
+    par = bk.pack_params(prob.qvecs, prob.tvecs, prob.cam_params,
+                         st.image_cam, lay)
+    if order == "spread":
+        st, par = rename_images(st, par, spread_image_ids(lay.N))
+    _, _, chunks = bk.fused_reduce_windows(st, lay)
+    live = chunks > 0
+    if order == "sorted":
+        assert int(chunks.max()) == 1
+    else:
+        assert bool((chunks[live] > 1).all())
+    lam = torch.tensor(1e-3, device=cuda)
+    bk.reset_launches()
+    k2 = bk.fused_reduce(st, par, pts, lam, lay, opt)
+    p2 = bk.fused_reduce_plain(st, par, pts, lam, lay, opt)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES["fused_reduce"] == 1
+    jc_tol = 2.0 ** -8 if ranged == "on" else 1e-4
+    assert float(p2[0].abs().max()) > 0
+    for name, a, b, tol in zip(("img_red", "pt_pay", "jw", "jcorr"), k2, p2,
+                               (1e-4, 1e-4, 1e-4, jc_tol)):
+        assert a.dtype == b.dtype, name
+        assert _rel_err(a.float(), b.float()) <= tol, name
+
+
 def _textured_plane_views(H=60, W=80, depth0=4.0, n_src=2, seed=0):
     """tests/test_mvs.py's fronto-parallel textured plane: a reference
     camera at the origin and x-translated sources."""
