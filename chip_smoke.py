@@ -76,8 +76,11 @@ Needs one CUDA card and nvcc (found through torch's CUDA_HOME, else
                      while the host enqueues the timed calls, so they are
                      the device's) against the twins, the
                      memory/compute bound and, for B1-B4, the PyTorch
-                     library call of the same function (K1, K2, K3 and
-                     K6 also beside their first designs' times, "was");
+                     library call of the same function (K1-K4, K6 and
+                     map_gather also beside their first designs' times,
+                     "was"); K4 with random du, also at the 1024-image
+                     bucket; B1-B4 also beside the least time over the
+                     32-byte sectors their samples touch;
 14. profile       -- device time by kernel over one warm solve of the
                      headline (with K1's split between its linearize-and-
                      reduce kernel and its three Schur kernels, and its
@@ -167,11 +170,13 @@ NCC_CASES = ((3, 1), (5, 1), (3, 2))      # (window radius, window step)
 NCC_SOURCE_CHUNK = 4     # sources K6 stages per chunk (csrc kSrc)
 # Times of the kernels' first designs (a block per tile and source for
 # K6; a thread per point with a float atomic per lane and row for K1, K2
-# and K3, and per outer-product entry for K1's S_corr) at the timing
-# phase's shapes, on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md kernel
-# table), printed beside the current times.
+# and K3, and per outer-product entry for K1's S_corr; a thread per point
+# walking its slots for K4; a thread per sample with the default cache
+# policy for map_gather) at the timing phase's shapes, on an NVIDIA H100
+# 80GB HBM3 at 700 W (PERF.md kernel table), printed beside the current
+# times.
 WAS_MS = {"ncc_cost": 0.6771, "schur_matvec": 0.2602, "fused_schur": 2.3427,
-          "fused_reduce": 1.7302}
+          "fused_reduce": 1.7302, "backsub": 0.2238, "map_gather": 0.0750}
 # K1's CUDA kernels by part, for the profile phase's split; its device
 # time in all is held against its bound there.
 K1_PARTS = {"K1a linearize-and-reduce": r"k12_reduce_kernel",
@@ -1185,19 +1190,17 @@ def _kernel_row(name, launches, errs, ms, plain_ms, bound):
 
 def phase_timing(ctx, launches, errs):
     """K1/K4/K5 at the headline: ms per LM iteration (all buckets), and
-    the host's ms to enqueue one."""
+    the host's ms to enqueue one. K4 takes random nonzero du."""
     import torch
 
     from sba_tpu_torch.ops import ba_kernels as bk
-    from sba_tpu_torch.utils.kernel_timing import host_ms, time_ms
+    from sba_tpu_torch.utils.kernel_timing import host_ms, random_du, time_ms
 
     statics, lays, pts0, _, prob, opt, _ = ctx
     par = bk.pack_params(prob.qvecs, prob.tvecs, prob.cam_params,
                          statics[0].image_cam, lays[0])
     lam = torch.tensor(1e-3, dtype=torch.float32, device="cuda")
-    lay0 = lays[0]
-    dup = torch.zeros(6, lay0.Npad, device="cuda")
-    duc = torch.zeros(12, lay0.C, device="cuda")
+    dup, duc = random_du(lays[0], 2)
     k1 = [bk.fused_schur(st, par, p, lam, lay, opt)
           for st, lay, p in zip(statics, lays, pts0)]
     groups = list(zip(statics, lays, pts0, k1))
@@ -1244,21 +1247,16 @@ def phase_timing_implicit(ctx, launches, errs, k3_per_it):
     import torch
 
     from sba_tpu_torch.ops import ba_kernels as bk
-    from sba_tpu_torch.utils.kernel_timing import host_ms, time_ms
+    from sba_tpu_torch.utils.kernel_timing import host_ms, random_du, time_ms
 
     statics, lays, pts0, _, prob, opt, _ = ctx
     par = bk.pack_params(prob.qvecs, prob.tvecs, prob.cam_params,
                          statics[0].image_cam, lays[0])
     lam = torch.tensor(1e-3, dtype=torch.float32, device="cuda")
-    lay0 = lays[0]
-    gen = torch.Generator(device="cpu").manual_seed(2)
-    dup = torch.zeros(6, lay0.Npad)
-    dup[:, :lay0.N] = 1e-3 * torch.randn(6, lay0.N, generator=gen)
-    dup = dup.cuda()
-    duc = 1e-2 * torch.randn(12, lay0.C, generator=gen).cuda()
-    jcs = [bk.fused_reduce(st, par, p, lam, lay, opt)[3]
-           for st, lay, p in zip(statics, lays, pts0)]
-    groups = list(zip(statics, lays, pts0, jcs))
+    dup, duc = random_du(lays[0], 2)
+    k2 = [bk.fused_reduce(st, par, p, lam, lay, opt)
+          for st, lay, p in zip(statics, lays, pts0)]
+    groups = list(zip(statics, lays, pts0, [o[3] for o in k2]))
     fns = {
         "fused_reduce": (
             lambda: [bk.fused_reduce(st, par, p, lam, lay, opt)
@@ -1288,6 +1286,15 @@ def phase_timing_implicit(ctx, launches, errs, k3_per_it):
     log("timing", f"schur_matvec per LM iteration of the 1024-image solve: "
         f"{k3_per_it:.1f} matvecs x {rows['schur_matvec']['ms']:.4f} ms = "
         f"{k3_per_it * rows['schur_matvec']['ms']:.3f} ms")
+    # K4's second figure: the implicit path's bucket (its row keeps the
+    # headline's).
+    b4 = _bounds(statics, lays, opt, ("backsub",))["backsub"]
+    ms4 = time_ms(lambda: [bk.backsub(st, dup, duc, o[1], o[2], lam, lay,
+                                      opt)
+                           for st, lay, o in zip(statics, lays, k2)], 20)
+    log("timing", f"backsub (1024 img): {ms4:.4f} ms per LM iteration "
+        f"({len(lays)} bucket launch, K = {lays[0].K}), bound "
+        f"{b4[0]:.4f} ms ({b4[1]}), {100 * b4[0] / ms4:.1f}% of it")
     return rows
 
 
@@ -1723,19 +1730,22 @@ def _gather_bound(inp):
     """Least time of each probe's work: the table words this run's
     indices touch (4 bytes each; 8 for B3's pairs), the 4-byte indices
     read once and the outputs written once, over the HBM rate (a gather
-    does no arithmetic to speak of). Also returns the whole-table
-    bytes, for the record."""
+    does no arithmetic to speak of). Also returns, for the record, the
+    least time at the granularity device memory moves (the 32-byte
+    sectors the touched words lie in) and over the whole table."""
     import torch
 
-    touched = int(torch.unique(inp["gi"]).numel())
+    gi = inp["gi"]
+    touched = int(torch.unique(gi).numel())
     n = inp["il"].numel()
     out = {}
     for row, (kernel, _) in PROBES.items():
         word = 8 if kernel == "map_gather_pair" else 4
-        by = touched * word + n * 4 + n * 4
-        whole = PROBE_MAPS * PROBE_HW * word + n * 8
-        out[row] = (by / HBM_BYTES_PER_S * 1e3, "bytes",
-                    whole / HBM_BYTES_PER_S * 1e3)
+        sectors = int(torch.unique(gi // (32 // word)).numel())
+        ms = [(t + n * 8) / HBM_BYTES_PER_S * 1e3
+              for t in (touched * word, sectors * 32,
+                        PROBE_MAPS * PROBE_HW * word)]
+        out[row] = (ms[0], "bytes", ms[1], ms[2])
     return out, touched
 
 
@@ -1753,11 +1763,16 @@ def phase_timing_sba(inp, launches, errs):
         rows[row] = _kernel_row(row, {row: launches[PROBES[row][0]]}, errs,
                                 ms, plain_ms, bounds[row][:2])
         rows[row]["library_ms"] = lib_ms
+        kernel = PROBES[row][0]
+        was = (f" (was {WAS_MS[kernel]:.4f} ms)" if kernel in WAS_MS
+               else "")
         log("timing", f"{row} ({PROBES[row][1]}, {PROBE_MAPS} x "
-            f"{PROBE_HW} words, {inp['il'].numel()} samples): {ms:.4f} ms, "
-            f"twin {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
-            f"{bounds[row][0]:.4f} ms ({touched} table words touched; "
-            f"{bounds[row][2]:.4f} ms over the whole table)")
+            f"{PROBE_HW} words, {inp['il'].numel()} samples): {ms:.4f} ms"
+            f"{was}, twin {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+            f"{bounds[row][0]:.4f} ms ({touched} table words touched), "
+            f"{100 * bounds[row][0] / ms:.1f}% of it; "
+            f"{bounds[row][2]:.4f} ms over their 32-byte sectors, "
+            f"{bounds[row][3]:.4f} ms over the whole table")
     return rows
 
 

@@ -22,6 +22,7 @@
 // the wrappers.
 
 #include <cuda_bf16.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -210,12 +211,14 @@ __device__ inline float warp_sum(float v) {
 }
 
 // Block-wide sums of NV values, added atomically to out[0..NV). Every
-// thread of the block must call it.
+// thread of the block must call it; blockDim.x * blockDim.y is a multiple
+// of 32.
 template <int NV>
 __device__ void block_atomic_add(float (&v)[NV], float* out) {
   __shared__ float part[NV][32];
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  const int nwarps = (blockDim.x + 31) >> 5;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int lane = tid & 31, wid = tid >> 5;
+  const int nwarps = (blockDim.x * blockDim.y + 31) >> 5;
   for (int i = 0; i < NV; ++i) v[i] = warp_sum(v[i]);
   if (lane == 0)
     for (int i = 0; i < NV; ++i) part[i][wid] = v[i];
@@ -1159,16 +1162,38 @@ cudaError_t launch_schur_matvec(const K3Args& a, int bf16,
 }
 
 // ---------------------------------------------------------------------------
-// K4: back-substitution + predicted-reduction sums, one thread per point.
+// K4: back-substitution + predicted-reduction sums, one thread per lane.
 //
 // Replaces backsub (_backsub_kernel): dp = -Hpp^-1 g_p - Lp (EL^T du),
 // masked by the free points, and the sums ||J d||^2, g_p.dp and
-// lam D dp^2. On the TPU the cross-block sums ride a sequential grid;
-// here each block reduces in shared memory and adds its three partial
-// sums atomically. Bound: device memory (one read of jw's Jacobian and
-// WL rows per observation); du is gathered per observation from the
-// small [6, Npad] / [12, C] tables, which stay cache resident.
+// lam D dp^2. On the TPU the cross-block sums ride a sequential grid.
+// Bound: device memory, one read of each live lane's jw rows (Jacobian
+// and WL), image and camera, and of the point payload; du is gathered per
+// lane from the small [6, Npad] / [12, C] tables, which stay cache
+// resident. The design (K3's block shape; the designs tried are in
+// PERF.md §6):
+//
+// - One thread per observation lane. A block covers kK4Points points of
+//   one point block (threadIdx.x) and min(K, kK4Slots) slots
+//   (threadIdx.y): a warp reads 32 neighbouring lanes of one jw row. With
+//   K > kK4Slots a thread takes slots ty, ty + S, ... in passes.
+// - Pass 1: each thread loads its lane's du gathers and WL rows together
+//   (loops over compile-time rows, so they stay in registers and in
+//   flight) and sums its lanes' shares of etu = WL^T du. The block's point
+//   payload is copied to shared memory asynchronously meanwhile. The
+//   slots' shares meet in shared memory; the y = 0 row sums them in slot
+//   order, computes dp, writes it and shares it.
+// - Pass 2: each thread loads its lane's Jacobian rows and adds
+//   ||J [du; dp]||^2 (with K > kK4Slots, the earlier passes' lanes' du
+//   again), loading the Jacobian rows only after the dp barrier. The
+//   block reduces the three sums by warp shuffles and adds each with one
+//   atomic.
+// Dead lanes (mask 0) and padding points contribute exactly zero.
 // ---------------------------------------------------------------------------
+
+constexpr int kK4Points = 32;  // points per block (threadIdx.x)
+constexpr int kK4Slots = 16;   // slots per pass (threadIdx.y)
+constexpr int kPayRows = 19;   // pt_pay: g, hdiag, Hpp^-1, Lp, free_p
 
 struct K4Args {
   int TP, K, Pp, Npad, C;
@@ -1177,69 +1202,174 @@ struct K4Args {
   float *dp, *acc;
 };
 
+// Whether lane c is live (`in`: its slot exists); then its du: image
+// n's 6 pose rows and camera cam's NP rows.
 template <int NP>
-__global__ void __launch_bounds__(kThreads) k4_backsub_kernel(K4Args a) {
-  constexpr int kJk = 18, kWLp = 18 + 2 * NP, kWLc = 36 + 2 * NP;
-  const int pt = blockIdx.x * blockDim.x + threadIdx.x;
-  float sums[3] = {0.f, 0.f, 0.f};
-  if (pt < a.Pp) {
-    const int64_t O = (int64_t)a.Pp * a.K;
-    const int64_t base = (int64_t)(pt / a.TP) * a.TP * a.K + pt % a.TP;
-    float etu[3] = {0.f, 0.f, 0.f};
-    for (int s = 0; s < a.K; ++s) {
-      const int64_t c = base + (int64_t)s * a.TP;
-      if (a.obs_sta[2 * O + c] == 0.f) continue;
-      const int n = a.obs_img[c], cam = a.obs_cam[c];
-      for (int j = 0; j < 3; ++j) {
-        float v = 0.f;
-        for (int i = 0; i < 6; ++i)
-          v += a.jw[(kWLp + i * 3 + j) * O + c] * a.du_pose_t[i * a.Npad + n];
-        for (int m = 0; m < NP; ++m)
-          v += a.jw[(kWLc + m * 3 + j) * O + c] * a.du_cam_t[m * a.C + cam];
-        etu[j] += v;
-      }
-    }
-    const float* pp = a.pt_pay + pt;
-    float g[3], hd[3], hi[6], L[6];
-    for (int j = 0; j < 3; ++j) g[j] = pp[j * a.Pp];
-    for (int j = 0; j < 3; ++j) hd[j] = pp[(3 + j) * a.Pp];
-    for (int j = 0; j < 6; ++j) hi[j] = pp[(6 + j) * a.Pp];
-    for (int j = 0; j < 6; ++j) L[j] = pp[(12 + j) * a.Pp];
-    const float fp = pp[18 * a.Pp];
-    const float him[3][3] = {{hi[0], hi[1], hi[2]},
-                             {hi[1], hi[3], hi[4]},
-                             {hi[2], hi[4], hi[5]}};
-    const float lpm[3][3] = {{L[0], 0.f, 0.f},
-                             {L[1], L[3], 0.f},
-                             {L[2], L[4], L[5]}};
-    float dp[3];
+__device__ inline bool k4_lane(const K4Args& a, int64_t O, int64_t c,
+                               bool in, float (&du)[6 + NP]) {
+  if (!in || a.obs_sta[2 * O + c] == 0.f) return false;
+  const int n = a.obs_img[c], cam = a.obs_cam[c];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) du[i] = a.du_pose_t[i * a.Npad + n];
+#pragma unroll
+  for (int m = 0; m < NP; ++m) du[6 + m] = a.du_cam_t[m * a.C + cam];
+  return true;
+}
+
+// Lane c's Jacobian rows Jc(12) | Jx(6) | Jk(2NP), jw rows 0 .. 18+2NP.
+template <int NP>
+__device__ inline void k4_jac(const K4Args& a, int64_t O, int64_t c,
+                              float (&jr)[18 + 2 * NP]) {
+#pragma unroll
+  for (int r = 0; r < 18 + 2 * NP; ++r) jr[r] = a.jw[r * O + c];
+}
+
+// ||J [du; dp]||^2 of one lane, in the twin's order.
+template <int NP>
+__device__ inline float k4_t2(const float (&du)[6 + NP],
+                              const float (&jr)[18 + 2 * NP],
+                              const float dp[3]) {
+  float sum = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    float t = 0.f;
+#pragma unroll
+    for (int i = 0; i < 6; ++i) t += jr[kk * 6 + i] * du[i];
+#pragma unroll
+    for (int m = 0; m < NP; ++m) t += jr[18 + kk * NP + m] * du[6 + m];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) t += jr[12 + kk * 3 + j] * dp[j];
+    sum += t * t;
+  }
+  return sum;
+}
+
+template <int NP>
+__global__ void __launch_bounds__(kK4Points * kK4Slots)
+k4_backsub_kernel(K4Args a) {
+  constexpr int DV = 6 + NP, NJ = 18 + 2 * NP, kWL = NJ;  // WL rows follow
+  __shared__ float s_part[kK4Slots][3][kK4Points];
+  __shared__ float s_pay[kPayRows][kK4Points];
+  __shared__ float s_dp[3][kK4Points];
+
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int ns = blockDim.y;                        // slots per pass
+  const int passes = (a.K + ns - 1) / ns;
+  const int groups = (a.TP + kK4Points - 1) / kK4Points;
+  const int b = blockIdx.x / groups;
+  const int p0 = (blockIdx.x - b * groups) * kK4Points;
+  const int p = p0 + tx;                             // point in its block
+  const bool pt_ok = p < a.TP;
+  const int64_t O = (int64_t)a.Pp * a.K;
+  const int64_t lane0 = (int64_t)b * a.TP * a.K + p;   // slot 0's lane
+  const int tid = ty * kK4Points + tx, nt = kK4Points * ns;
+
+  // The block's point payload, copied to shared memory while pass 1 runs.
+  const int np_blk = min(kK4Points, a.TP - p0);
+  for (int w = tid; w < kPayRows * kK4Points; w += nt) {
+    const int r = w / kK4Points, x = w - r * kK4Points;
+    if (x < np_blk)
+      __pipeline_memcpy_async(&s_pay[r][x],
+                              a.pt_pay + (int64_t)r * a.Pp + b * a.TP + p0 + x,
+                              sizeof(float));
+  }
+  __pipeline_commit();
+
+  // Pass 1: each lane's share of etu, summed over this thread's slots.
+  float du[DV];                      // the last pass's lane, kept for pass 2
+  bool live = false;
+  float part[3] = {0.f, 0.f, 0.f};
+  for (int q = 0; q < passes; ++q) {
+    const int s = q * ns + ty;
+    const int64_t c = lane0 + (int64_t)s * a.TP;
+    live = k4_lane<NP>(a, O, c, pt_ok && s < a.K, du);
+    if (!live) continue;
+    float w[3 * DV];
+#pragma unroll
+    for (int r = 0; r < 3 * DV; ++r) w[r] = a.jw[(kWL + r) * O + c];
+#pragma unroll
     for (int j = 0; j < 3; ++j) {
-      float v = -(him[j][0] * g[0] + him[j][1] * g[1] + him[j][2] * g[2]);
-      for (int i = 0; i <= j; ++i) v -= lpm[j][i] * etu[i];
-      dp[j] = v * fp;
-      a.dp[j * a.Pp + pt] = dp[j];
-    }
-    for (int s = 0; s < a.K; ++s) {
-      const int64_t c = base + (int64_t)s * a.TP;
-      if (a.obs_sta[2 * O + c] == 0.f) continue;
-      const int n = a.obs_img[c], cam = a.obs_cam[c];
-      for (int kk = 0; kk < 2; ++kk) {
-        float t = 0.f;
-        for (int i = 0; i < 6; ++i)
-          t += a.jw[(kk * 6 + i) * O + c] * a.du_pose_t[i * a.Npad + n];
-        for (int m = 0; m < NP; ++m)
-          t += a.jw[(kJk + kk * NP + m) * O + c] * a.du_cam_t[m * a.C + cam];
-        for (int j = 0; j < 3; ++j) t += a.jw[(12 + kk * 3 + j) * O + c] * dp[j];
-        sums[0] += t * t;
-      }
-    }
-    const float lam = *a.lam;
-    for (int j = 0; j < 3; ++j) {
-      sums[1] += g[j] * dp[j];
-      sums[2] += lam * clampf(hd[j], 1e-6f, 1e32f) * dp[j] * dp[j];
+      float v = 0.f;
+#pragma unroll
+      for (int i = 0; i < 6; ++i) v += w[i * 3 + j] * du[i];
+#pragma unroll
+      for (int m = 0; m < NP; ++m) v += w[18 + m * 3 + j] * du[6 + m];
+      part[j] += v;
     }
   }
+#pragma unroll
+  for (int j = 0; j < 3; ++j) s_part[ty][j][tx] = part[j];
+  __pipeline_wait_prior(0);
+  __syncthreads();
+
+  // The y = 0 row: etu in slot order, then dp and the point's sums.
+  float sums[3] = {0.f, 0.f, 0.f};
+  if (ty == 0) {
+    float dp[3] = {0.f, 0.f, 0.f};
+    if (pt_ok) {
+      float etu[3] = {0.f, 0.f, 0.f};
+      for (int t = 0; t < ns; ++t)
+#pragma unroll
+        for (int j = 0; j < 3; ++j) etu[j] += s_part[t][j][tx];
+      float pay[kPayRows];
+#pragma unroll
+      for (int r = 0; r < kPayRows; ++r) pay[r] = s_pay[r][tx];
+      const float *g = pay, *hd = pay + 3, *hi = pay + 6, *L = pay + 12;
+      const float fp = pay[18];
+      const float him[3][3] = {{hi[0], hi[1], hi[2]},
+                               {hi[1], hi[3], hi[4]},
+                               {hi[2], hi[4], hi[5]}};
+      const float lpm[3][3] = {{L[0], 0.f, 0.f},
+                               {L[1], L[3], 0.f},
+                               {L[2], L[4], L[5]}};
+      const int pt = b * a.TP + p;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        float v = -(him[j][0] * g[0] + him[j][1] * g[1] + him[j][2] * g[2]);
+#pragma unroll
+        for (int i = 0; i <= j; ++i) v -= lpm[j][i] * etu[i];
+        dp[j] = v * fp;
+        a.dp[j * a.Pp + pt] = dp[j];
+      }
+      const float lam = *a.lam;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        sums[1] += g[j] * dp[j];
+        sums[2] += lam * clampf(hd[j], 1e-6f, 1e32f) * dp[j] * dp[j];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 3; ++j) s_dp[j][tx] = dp[j];
+  }
+  __syncthreads();
+
+  // Pass 2: ||J d||^2 over this thread's lanes, the held lane first.
+  const float dp[3] = {s_dp[0][tx], s_dp[1][tx], s_dp[2][tx]};
+  const int64_t held = lane0 + (int64_t)((passes - 1) * ns + ty) * a.TP;
+  float jr[NJ];
+  if (live) {
+    k4_jac<NP>(a, O, held, jr);
+    sums[0] += k4_t2<NP>(du, jr, dp);
+  }
+  for (int q = passes - 2; q >= 0; --q) {           // only with K > kK4Slots
+    const int64_t c = lane0 + (int64_t)(q * ns + ty) * a.TP;
+    if (!k4_lane<NP>(a, O, c, pt_ok, du)) continue;
+    k4_jac<NP>(a, O, c, jr);
+    sums[0] += k4_t2<NP>(du, jr, dp);
+  }
   block_atomic_add<3>(sums, a.acc);
+}
+
+template <int NP>
+cudaError_t launch_backsub(const K4Args& a, cudaStream_t stream) {
+  if (a.TP <= 0 || a.K <= 0 || a.Pp % a.TP != 0)
+    return cudaErrorInvalidValue;
+  const int groups = (a.TP + kK4Points - 1) / kK4Points;
+  const dim3 block(kK4Points, a.K < kK4Slots ? a.K : kK4Slots);
+  const int blocks = a.Pp / a.TP * groups;
+  if (blocks == 0) return cudaSuccess;
+  k4_backsub_kernel<NP><<<blocks, block, 0, stream>>>(a);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -1371,14 +1501,12 @@ int sba_backsub(int model, int TP, int K, int Pp, int Npad, int C,
                 float* dp, float* acc, cudaStream_t stream) {
   const K4Args a{TP, K, Pp, Npad, C, lam, du_pose_t, du_cam_t, pt_pay, jw,
                  obs_sta, obs_img, obs_cam, dp, acc};
-  const int blocks = (Pp + kThreads - 1) / kThreads;
   switch (model) {
-    case 0: k4_backsub_kernel<3><<<blocks, kThreads, 0, stream>>>(a); break;
+    case 0: return launch_backsub<3>(a, stream);
     case 1:
-    case 2: k4_backsub_kernel<4><<<blocks, kThreads, 0, stream>>>(a); break;
+    case 2: return launch_backsub<4>(a, stream);
     default: return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }
 
 int sba_fused_cost(int model, int loss, float loss_scale, int TP, int K,

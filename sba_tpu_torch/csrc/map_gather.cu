@@ -29,9 +29,15 @@
 // 7,526,400 samples) 61.44 MB of table + 30.11 MB of indices + 30.11 MB
 // out = 0.0363 ms at 3.35 TB/s, counting each table word once. A random
 // index costs a 32-byte sector per 4-byte word, so the kernel moves up
-// to 8x the table bytes it uses; the samples of one SBA pair land in a
-// small window of one map, which is where the reuse comes from. One
-// thread per sample, 256 threads a block: simple first.
+// to 8x the table bytes it uses through L2; the samples of one SBA pair
+// land in a small window of one map, which is where the reuse comes from.
+//
+// Both kernels: one sample per thread, 256 threads a block, blocks in
+// sample order, so that the blocks an SM holds at once gather from one
+// map. map_gather's index loads and output stores stream past the caches
+// (evict-first), leaving L2 to the maps. The time is set by the rate at
+// which an SM issues divergent requests, one per random sample; the
+// designs tried against it are in PERF.md §6.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,6 +46,7 @@ namespace {
 
 constexpr int kThreads = 256;
 
+// out[k] = table[base(k) + idx[k]], one sample per thread.
 template <typename Word>
 __global__ void __launch_bounds__(kThreads) b_map_gather_kernel(
     const Word* __restrict__ table, const int32_t* __restrict__ idx,
@@ -47,7 +54,7 @@ __global__ void __launch_bounds__(kThreads) b_map_gather_kernel(
   const int64_t k = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (k >= n) return;
   const int64_t base = per > 0 ? (k / per) * hw : 0;
-  out[k] = __ldg(table + base + __ldg(idx + k));
+  __stcs(out + k, __ldg(table + base + __ldcs(idx + k)));
 }
 
 __global__ void __launch_bounds__(kThreads) b_map_gather_pair_kernel(

@@ -1,9 +1,10 @@
 """Time the hand-written kernels K1 (`fused_schur`), K2 (`fused_reduce`),
-K3 (`schur_matvec`) and K6 (`ncc_cost`) on the card, for one or more
-builds of the kernel sources, in one process.
+K3 (`schur_matvec`), K4 (`backsub`), K6 (`ncc_cost`) and `map_gather`
+(B1/B2/B4) on the card, for one or more builds of the kernel sources, in
+one process.
 
     python -m sba_tpu_torch.utils.kernel_timing [--csrc DIR ...] \
-        [--kernels k1 k2 k3 k6] [--rounds 2] [--reps 50]
+        [--kernels k1 k2 k3 k4 k6 gather] [--rounds 2] [--reps 50]
 
 Each `--csrc` names a directory of CUDA sources with this package's C
 entry points (an older checkout's ``sba_tpu_torch/csrc``, say); with
@@ -26,8 +27,17 @@ path's shapes:
   of several chunks;
 - K3: one matvec of the same bucket, f32 and bf16 couplings, sorted and
   spread ids;
+- K4: one LM iteration of the headline (its three buckets, from K1's
+  outputs) and of the 1024-image scene (one bucket, from K2's), with
+  random nonzero du;
 - K6: 4 sources x 1200 x 1600 (r=3 step 1, r=5 step 1, r=3 step 2) on
-  random images, each source with a band outside it.
+  random images, each source with a band outside it;
+- gather: `map_gather` at the probes' shape (B1's form: 50 maps of
+  640x480 words, 150,528 samples each) and on the first gather of a
+  bench_sba linearization (bench.py:94: 50 images at 640x480, pixel step
+  10; the path's flat form, about 3.8M samples), each beside
+  `torch.take` of the same words (the library call; the same time for
+  every library).
 
 Prints the card's name and power limit, the compiler's register and
 spill lines for the timed kernels, and one line per (case, library):
@@ -36,9 +46,10 @@ the host enqueues the calls), the host's ms to enqueue one (where it
 reaches the CUDA-event time, the host bounds the solve's use of the
 kernel) and the largest
 difference from the plain twin on the same inputs, relative to the
-twin's largest entry. For K1
-and K2 it also prints the device time of each CUDA kernel inside one
-call, from `torch.profiler` (the split between a wrapper's launches).
+twin's largest entry (for integer words: the count of words that
+differ). For K1, K2 and K4 it also prints the device time of each CUDA
+kernel inside one call, from `torch.profiler` (the split between a
+wrapper's launches, and the output fills beside K4).
 Needs a CUDA device and nvcc.
 """
 
@@ -66,7 +77,15 @@ LARGE = dict(num_images=1024, num_points=120_000, track_len=7,
              pose_noise=0.005, point_noise=0.02, pixel_noise=0.5, seed=0)
 NCC_CASES = ((3, 1), (5, 1), (3, 2))
 # Kernel names whose ptxas lines are printed.
-KERNEL_NAMES = ("k1_", "k2_", "k12_", "k3_matvec", "k6_ncc")
+KERNEL_NAMES = ("k1_", "k2_", "k12_", "k3_matvec", "k4_backsub", "k6_ncc",
+                "b_map_gather_kernel")
+# The probes' shape (benchmarks/gather_micro.py): maps, words per map,
+# samples per map.
+PROBE_MAPS, PROBE_HW, PROBE_PER = 50, 640 * 480, 150_528
+# bench.py:94 bench_sba: the scene and its options.
+SBA_SCENE = dict(num_images=50, image_size=(640, 480), focal=500.0,
+                 pose_noise=0.003, seed=0)
+SBA_OPT = dict(pixel_step=10, max_iterations=10, mode="soft")
 
 
 def time_ms(fn, reps):
@@ -230,6 +249,54 @@ def k3_cases():
     return cases
 
 
+def random_du(lay, seed):
+    """Random nonzero du tables [6, Npad] / [12, C] on the card (K3's and
+    K4's inputs; the image rows and the camera rows of the model's
+    intrinsics), from a seed."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    dup = torch.zeros(6, lay.Npad)
+    dup[:, :lay.N] = 1e-3 * torch.randn(6, lay.N, generator=gen)
+    duc = torch.zeros(12, lay.C)
+    duc[:lay.nparams] = 1e-2 * torch.randn(lay.nparams, lay.C, generator=gen)
+    return dup.cuda(), duc.cuda()
+
+
+def k4_cases():
+    """{name: (per-library call, twin outputs, output names)}: one LM
+    iteration of K4 at the headline (three buckets) and at the
+    1024-image scene (one bucket)."""
+    cases = {}
+    for tag, make, reduce in (
+            ("headline", lambda: make_ba_problem(
+                dtype=torch.float32, device="cuda", **HEADLINE)[0],
+             bk.fused_schur),
+            ("1024 img", lambda: make_sequential_ba_problem(
+                **LARGE, device="cuda")[0], bk.fused_reduce)):
+        opt = BAOptions(dtype="float32")
+        statics, lays, pts0, par, lam = _step(ba_fused.prepare(make(), opt))
+        dup, duc = random_du(lays[0], 4)
+        ins = []
+        for st, lay, p in zip(statics, lays, pts0):
+            out = reduce(st, par, p, lam, lay, opt)
+            pt_pay, jw = out[3:5] if reduce is bk.fused_schur else out[1:3]
+            ins.append((st, lay, pt_pay, jw))
+        print(f"k4 {tag}: buckets K = {[lay.K for lay in lays]}, "
+              f"Pp = {[lay.Pp for lay in lays]}", flush=True)
+
+        def call(ins=ins, dup=dup, duc=duc, lam=lam, opt=opt):
+            return [bk.backsub(st, dup, duc, pt, jw, lam, lay, opt)
+                    for st, lay, pt, jw in ins]
+
+        plain = [bk.backsub_plain(st, dup, duc, pt, jw, lam, lay, opt)
+                 for st, lay, pt, jw in ins]
+        cases[f"k4 {tag}"] = (call, plain, ("dp", "acc"))
+        for i in range(len(ins) if len(ins) > 1 else 0):
+            cases[f"k4 {tag} K={ins[i][1].K}"] = (
+                lambda i=i, call=call, ins=ins: call(ins[i:i + 1]),
+                plain[i:i + 1], ("dp", "acc"))
+    return cases
+
+
 def k6_cases():
     """Random images; each source lies outside the reference's view on a
     band of 240-540 columns (about a fifth of the pixels, as in the
@@ -254,11 +321,75 @@ def k6_cases():
     return cases
 
 
+def _sba_chunk_gather():
+    """(table, idx) of the first `map_gather` of one bench_sba
+    linearization on the card: the path's flat form on the packed maps."""
+    from sba_tpu_torch.ops import interpolation
+    from sba_tpu_torch.optim import sba as tsba
+    from sba_tpu_torch.utils.synthetic import make_sba_scene
+
+    scene = make_sba_scene(**SBA_SCENE)       # q, t, cam, depth, sem, q0, t0
+    opt = tsba.SBAOptions(**SBA_OPT)
+    problem = tsba.build_sba_problem(scene[5], scene[6], *scene[2:5], opt,
+                                     dtype=torch.float32, device="cuda")
+    seen = []
+    real = (tsba.map_gather, interpolation.map_gather)
+
+    def record(table, idx, per=0, hw=0):
+        seen.append((table, idx.clone(), per, hw))
+        return real[0](table, idx, per, hw)
+
+    tsba.map_gather = interpolation.map_gather = record
+    try:
+        tsba._linearize_system(problem, opt)
+    finally:
+        tsba.map_gather, interpolation.map_gather = real
+    table, idx, per, hw = seen[0]
+    assert per == 0
+    print(f"gather bench_sba: {len(seen)} map_gather calls per "
+          f"linearization; the first: {idx.numel()} samples from "
+          f"{table.numel()} {table.dtype} words", flush=True)
+    return table, idx
+
+
+def gather_cases():
+    """{name: (per-library call, twin outputs, output names)}:
+    map_gather at the probes' shape and on a bench_sba chunk, and
+    torch.take on the same words."""
+    from sba_tpu_torch.ops import map_gather as mg
+
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    d = torch.randint(-2 ** 31, 2 ** 31 - 1, (PROBE_MAPS * PROBE_HW,),
+                      dtype=torch.int32, generator=gen).cuda()
+    il = torch.randint(0, PROBE_HW, (PROBE_MAPS, PROBE_PER),
+                       dtype=torch.int32, generator=gen).cuda()
+    gi = (il.long() + PROBE_HW * torch.arange(
+        PROBE_MAPS, device="cuda")[:, None])
+    table, idx = _sba_chunk_gather()
+    cases = {}
+    for tag, kern, take, plain in (
+            ("probe", lambda: mg.probe_flat(d, il),
+             lambda: torch.take(d, gi),
+             mg.map_gather_plain(d, il, PROBE_PER, PROBE_HW)),
+            ("bench_sba chunk", lambda: mg.map_gather(table, idx),
+             lambda: torch.take(table, idx.long()),
+             mg.map_gather_plain(table, idx))):
+        cases[f"gather {tag}"] = (lambda kern=kern: [(kern(),)],
+                                  [(plain,)], ("out",))
+        cases[f"gather {tag} torch.take"] = (lambda take=take: [(take(),)],
+                                             [(plain,)], ("out",))
+    return cases
+
+
 def _errors(outs, plain, names):
     """'name rel_err' for each output: the largest |kernel - twin| over
     the buckets, relative to the twin's largest |entry|."""
     parts = []
     for i, name in enumerate(names):
+        if not plain[0][i].is_floating_point():
+            bad = sum(int((o[i] != p[i]).sum()) for o, p in zip(outs, plain))
+            parts.append(f"{name} {bad} words differ")
+            continue
         err = max(float((o[i].float() - p[i].float()).abs().max())
                   for o, p in zip(outs, plain))
         scale = max(float(p[i].float().abs().max()) for p in plain)
@@ -272,8 +403,9 @@ def main(argv=None):
                     help="a directory of kernel sources (repeatable)")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--reps", type=int, default=50)
-    ap.add_argument("--kernels", nargs="+", choices=("k1", "k2", "k3", "k6"),
-                    default=("k1", "k2", "k3", "k6"))
+    ap.add_argument("--kernels", nargs="+",
+                    choices=("k1", "k2", "k3", "k4", "k6", "gather"),
+                    default=("k1", "k2", "k3", "k4", "k6", "gather"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_timing: needs a CUDA device")
@@ -299,7 +431,8 @@ def main(argv=None):
 
     cases = {}
     for k, make in (("k1", k1_cases), ("k2", k2_cases), ("k3", k3_cases),
-                    ("k6", k6_cases)):
+                    ("k4", k4_cases), ("k6", k6_cases),
+                    ("gather", gather_cases)):
         if k in args.kernels:
             cases.update(make())
     # The wrappers launch through cuda_build.lib(): point it at each
@@ -325,7 +458,7 @@ def main(argv=None):
                       + f"; host {host:.4f} ms to enqueue one); max |err| "
                       "/ twin scale: " + _errors(outs, plain, names),
                       flush=True)
-                if name[:2] in ("k1", "k2"):
+                if name[:2] in ("k1", "k2", "k4"):
                     split = kernel_split(call, args.reps)
                     for kname, (n, ms) in sorted(split.items(),
                                                  key=lambda kv: -kv[1][1]):

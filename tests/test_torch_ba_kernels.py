@@ -36,13 +36,35 @@ def _numpy_fields(problem):
             if v is not None}
 
 
-def _setup(model_id=0, pixel_noise=0.0):
+def _cut_tracks(problem, K):
+    """`problem` point-major with K slots a point: each track cut to its
+    first K observations, the short tracks' slots dead (mask 0)."""
+    op = np.asarray(problem.obs_point)
+    order = np.argsort(op, kind="stable")
+    slot = np.empty_like(op)
+    slot[order] = np.arange(len(op)) - np.searchsorted(op[order], op[order])
+    obs = ("obs_image", "obs_point", "obs_cam", "obs_xy", "obs_mask")
+    pm = j_to_point_major(problem._replace(
+        **{k: np.asarray(getattr(problem, k))[slot < K] for k in obs}))
+    P = len(pm.points)
+    return pm._replace(**{
+        k: np.asarray(getattr(pm, k)).reshape((P, -1) + np.shape(
+            getattr(pm, k))[1:])[:, :K].reshape((P * K,) + np.shape(
+                getattr(pm, k))[1:])
+        for k in obs})
+
+
+def _setup(model_id=0, pixel_noise=0.0, K=None):
     """One f32 scene in both packages' kernel layouts (sba_tpu's
-    tests/test_ba_fused.py::_setup)."""
+    tests/test_ba_fused.py::_setup); with K, 24 images whose random
+    tracks are cut to K slots a point (`_cut_tracks`)."""
+    size = (dict(num_images=6, observations_per_point=4, seed=0)
+            if K is None else
+            dict(num_images=24, observations_per_point=(3 * K) // 4, seed=K))
     problem, _ = j_make_ba_problem(
-        num_images=6, num_points=150, observations_per_point=4,
-        pose_noise=0.01, point_noise=0.05, pixel_noise=pixel_noise, seed=0,
-        dtype=jnp.float32, model_id=model_id)
+        num_points=150, pose_noise=0.01, point_noise=0.05,
+        pixel_noise=pixel_noise, dtype=jnp.float32, model_id=model_id,
+        **size)
     cam = np.array(problem.cam_params)
     for i, val in _DISTORT.get(model_id, {}).items():
         cam[:, i] = val
@@ -51,7 +73,7 @@ def _setup(model_id=0, pixel_noise=0.0):
               cg_iterations=200, cg_tolerance=1e-9)
     opt_j = JOpt(solver="explicit_schur", obs_layout="point_major", **kw)
     opt_t = TOpt(solver="explicit_schur", **kw)
-    pm = j_to_point_major(problem)
+    pm = j_to_point_major(problem) if K is None else _cut_tracks(problem, K)
     lay_j = jbk.plan_layout(pm, opt_j)
     st_j = jbk.build_static(pm, opt_j, lay_j)
     par_j = jbk.pack_params(pm.qvecs.astype(jnp.float32),
@@ -119,29 +141,47 @@ def test_fused_schur_twin_matches_sba_tpu():
     _close(ey_t, np.asarray(ey_j)[0], 3e-5, "ey")
 
 
-def test_backsub_twin_matches_sba_tpu():
-    _, _, j, t = _setup(0)
+def _check_backsub(K=None):
+    _, pm, j, t = _setup(0, K=K)
     (_, _, _, pt_j, jw_j), _ = _k1_both(j, t)
     opt_j, lay_j, st_j = j[:3]
     opt_t, lay_t, st_t = t[:3]
-    rng = np.random.default_rng(7)
+    rng = np.random.default_rng(7 if K is None else K)
+    pt = np.array(pt_j, np.float32)
+    if K is not None:
+        assert (lay_j.K, lay_t.K) == (K, K)
+        last = np.asarray(pm.obs_mask).reshape(-1, K)[:, K - 1]
+        assert last.max() == 1 and last.min() == 0     # full and dead
+        pt[18, rng.random(pt.shape[1]) < 0.2] = 0.0        # fixed points
     dup = np.zeros((6, lay_t.Npad), np.float32)
     dup[:, :lay_t.N] = 1e-3 * rng.normal(size=(6, lay_t.N))
     duc = np.zeros((12, lay_t.C), np.float32)
     duc[:lay_t.nparams] = 1e-2 * rng.normal(size=(lay_t.nparams, lay_t.C))
     lam = 1e-3
     dp_j, acc_j = jbk.backsub(st_j, jnp.asarray(dup), jnp.asarray(duc),
-                              pt_j, jw_j, jnp.float32(lam), lay_j, opt_j,
-                              interpret=True)
-    pt_in = torch.as_tensor(np.asarray(pt_j)[:tbk.PT_ROWS])
+                              jnp.asarray(pt), jw_j, jnp.float32(lam), lay_j,
+                              opt_j, interpret=True)
+    pt_in = torch.as_tensor(pt[:tbk.PT_ROWS])
     jw_in = torch.as_tensor(np.asarray(jw_j)[:lay_t.JW])
     dp_t, acc_t = tbk.backsub(st_t, torch.as_tensor(dup),
                               torch.as_tensor(duc), pt_in, jw_in,
                               torch.tensor(lam, dtype=torch.float32), lay_t,
                               opt_t)
+    assert np.all(dp_t.numpy()[:, pt[18] == 0] == 0)
     _close(dp_t, np.asarray(dp_j)[:3], 1e-4, "dp")
     np.testing.assert_allclose(acc_t.numpy(), np.asarray(acc_j)[:3, 0],
                                rtol=1e-4)
+
+
+def test_backsub_twin_matches_sba_tpu():
+    _check_backsub()
+
+
+@pytest.mark.parametrize("K", [4, 8, 20])
+def test_backsub_twin_matches_sba_tpu_at_track_length(K):
+    """K = 4, 8 and 20: fewer than, and more than but not a multiple of,
+    the CUDA kernel's 16 slots a pass; dead lanes and fixed points."""
+    _check_backsub(K)
 
 
 def test_fused_step_matches_sba_tpu():

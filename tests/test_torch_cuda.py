@@ -199,10 +199,10 @@ def test_ncc_kernel_bit_equal_to_twin(cuda, S, r, step):
 
 def _sequential_bucket(device, model_id, ranged, order):
     """The one bucket of a 1024-image sequential scene (20,000 points,
-    track 7; SIMPLE_PINHOLE, or PINHOLE for 4 intrinsics), and K3's
-    inputs on it. `order` "permuted" maps the image ids through
-    `spread_image_ids`, so that every block's window spans several
-    chunks."""
+    track 7; SIMPLE_PINHOLE, or PINHOLE for 4 intrinsics), K3's inputs
+    on it and K2's outputs. `order` "permuted" maps the image ids
+    through `spread_image_ids`, so that every block's window spans
+    several chunks."""
     from sba_tpu_torch.optim.ba import problem_from_numpy
     from sba_tpu_torch.utils.synthetic import (
         make_sequential_ba_problem_numpy, spread_image_ids)
@@ -218,8 +218,8 @@ def _sequential_bucket(device, model_id, ranged, order):
     st, lay, pts = statics[0], lays[0], pts0[0]
     par = bk.pack_params(prob.qvecs, prob.tvecs, prob.cam_params,
                          st.image_cam, lay)
-    jc = bk.fused_reduce(st, par, pts, torch.tensor(1e-3, device=device),
-                         lay, opt)[3]
+    k2 = bk.fused_reduce(st, par, pts, torch.tensor(1e-3, device=device),
+                         lay, opt)
     gen = torch.Generator().manual_seed(5)
     if order == "permuted":
         perm = torch.as_tensor(spread_image_ids(lay.N), device=device)
@@ -228,7 +228,7 @@ def _sequential_bucket(device, model_id, ranged, order):
     dup[:, :lay.N] = 1e-3 * torch.randn(6, lay.N, generator=gen)
     duc = torch.zeros(12, lay.C)
     duc[:lay.nparams] = 1e-2 * torch.randn(lay.nparams, lay.C, generator=gen)
-    return st, lay, opt, dup.to(device), duc.to(device), jc
+    return st, lay, opt, dup.to(device), duc.to(device), k2[3], k2
 
 
 @pytest.mark.parametrize("order", ["sorted", "permuted"])
@@ -239,8 +239,8 @@ def test_schur_matvec_windows_match_twin(cuda, model_id, ranged, order):
     a sequential scene, whose blocks see narrow image windows, and on the
     same bucket with its image ids permuted, whose every block takes
     several window chunks; f32 and bf16 couplings, 3 and 4 intrinsics."""
-    st, lay, opt, dup, duc, jc = _sequential_bucket(cuda, model_id, ranged,
-                                                    order)
+    st, lay, opt, dup, duc, jc, _ = _sequential_bucket(cuda, model_id,
+                                                       ranged, order)
     assert jc.dtype == (torch.bfloat16 if ranged == "on" else torch.float32)
     assert lay.nparams == (3 if model_id == 0 else 4)
     _, _, chunks = bk.schur_matvec_windows(st, lay)
@@ -324,6 +324,106 @@ def test_wide_windows_and_long_tracks_match_twins(cuda, kernel):
                 (1e-4, 1e-4, 1e-4, 1e-4)
         for name, a, b, tol in zip(names, out_k, out_p, tols):
             assert _rel_err(a, b) <= tol, (lay.K, name)
+
+
+@pytest.mark.parametrize("scene", ["headline", "sequential-0",
+                                   "sequential-1"])
+def test_backsub_matches_twin_at_path_buckets(cuda, scene):
+    """K4 against its twin with random du at the main path's buckets: the
+    headline's K = 6, 8 and 20 (random tracks, dead lanes; 20 slots take
+    two passes of the kernel's 16 slots) from K1, and a 1024-image sequential
+    bucket (K = 7) from K2 with 3 and 4 intrinsics; a fifth of the points
+    fixed (free_p = 0). dp at 1e-4 of scale, acc rtol 1e-4."""
+    gen = torch.Generator().manual_seed(6)
+    lam = torch.tensor(1e-3, device=cuda)
+    if scene == "headline":
+        problem, _ = make_ba_problem(dtype=torch.float32, device=cuda,
+                                     **_HEADLINE)
+        opt = BAOptions(dtype="float32")
+        statics, lays, pts0, _, prob, _, _ = ba_fused.prepare(problem, opt)
+        assert [lay.K for lay in lays] == [6, 8, 20]
+        assert lays[-1].K > 16 and lays[-1].K % 16
+        par = bk.pack_params(prob.qvecs, prob.tvecs, prob.cam_params,
+                             statics[0].image_cam, lays[0])
+        outs = [bk.fused_schur(st, par, p, lam, lay, opt)[3:]
+                for st, lay, p in zip(statics, lays, pts0)]
+        dup = torch.zeros(6, lays[0].Npad)
+        dup[:, :lays[0].N] = 1e-3 * torch.randn(6, lays[0].N, generator=gen)
+        duc = torch.zeros(12, lays[0].C)
+        duc[:3] = 1e-2 * torch.randn(3, lays[0].C, generator=gen)
+        dup, duc = dup.to(cuda), duc.to(cuda)
+    else:
+        st, lay, opt, dup, duc, _, k2 = _sequential_bucket(
+            cuda, int(scene[-1]), "off", "sorted")
+        assert lay.K == 7
+        statics, lays, outs = [st], [lay], [k2[1:3]]
+    for st, lay, (pt_pay, jw) in zip(statics, lays, outs):
+        assert bool((st.obs_sta[2] == 0).any())
+        pt_pay = pt_pay.clone()
+        fixed = torch.rand(lay.Pp, generator=gen) < 0.2
+        pt_pay[18, fixed.to(cuda)] = 0.0
+        bk.reset_launches()
+        dp_k, acc_k = bk.backsub(st, dup, duc, pt_pay, jw, lam, lay, opt)
+        dp_p, acc_p = bk.backsub_plain(st, dup, duc, pt_pay, jw, lam, lay,
+                                       opt)
+        torch.cuda.synchronize()
+        assert bk.LAUNCHES["backsub"] == 1
+        assert float(dp_p.abs().max()) > 0 and float(acc_p[0]) > 0
+        assert bool((dp_k[:, fixed.to(cuda)] == 0).all())
+        assert _rel_err(dp_k, dp_p) <= 1e-4, lay.K
+        torch.testing.assert_close(acc_k, acc_p, rtol=1e-4, atol=0)
+
+
+# The lengths of tests/test_torch_map_gather.py's odd-length cases, as
+# (maps, samples per map).
+_ODD_LENGTHS = {1: (1, 1), 3: (3, 1), 4: (2, 2), 5: (5, 1),
+                4097: (17, 241)}
+
+
+@pytest.mark.parametrize("form", ["probe", "flat"])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float64])
+def test_map_gather_bit_equal_at_odd_lengths_and_views(cuda, dtype, form):
+    """map_gather equals its twin bit for bit at the odd lengths, on
+    index views offset by 0-3 elements and, through the C entry, into an
+    `out` offset by one word, in 4- and 8-byte words and both forms, with
+    maps of 1024 and 1021 words."""
+    from sba_tpu_torch.ops import cuda_build
+    from sba_tpu_torch.ops import map_gather as mg
+
+    gen = torch.Generator().manual_seed(1)
+    for hw, (n, (maps, per)) in ((hw, c) for hw in (1024, 1021)
+                                 for c in _ODD_LENGTHS.items()):
+        if dtype == torch.int32:
+            table = torch.randint(-2 ** 31, 2 ** 31 - 1, (maps * hw,),
+                                  dtype=dtype, generator=gen)
+        else:
+            table = torch.randn(maps * hw, dtype=dtype, generator=gen)
+        il = torch.randint(0, hw, (n + 3,), dtype=torch.int32,
+                           generator=gen)
+        if form == "flat":
+            k = torch.arange(n + 3) % n
+            il = (il + hw * (k // per)).int()
+            per_, hw_ = 0, 0
+        else:
+            per_, hw_ = per, hw
+        table, il = table.to(cuda), il.to(cuda)
+        for off in range(4):
+            if form == "probe" and off:     # samples map by position
+                idx = torch.cat([il[:off], il[:n]])[off:]
+            else:
+                idx = il[off:off + n]
+            assert idx.storage_offset() == off and idx.is_contiguous()
+            want = mg.map_gather_plain(table, idx, per_, hw_)
+            assert torch.equal(mg.map_gather(table, idx, per_, hw_), want)
+            buf = torch.zeros(n + 1, dtype=dtype, device=cuda)
+            err = cuda_build.lib().sba_map_gather(
+                table.element_size(), n, per_, hw_, table.data_ptr(),
+                idx.data_ptr(), buf[1:].data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+            cuda_build.check(err, "sba_map_gather")
+            torch.cuda.synchronize()
+            assert torch.equal(buf[1:], want), (hw, n, off)
+            assert int(buf[0]) == 0
 
 
 @pytest.mark.parametrize("order", ["sorted", "spread"])

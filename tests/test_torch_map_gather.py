@@ -7,6 +7,10 @@ rebuilds its probe's `pl.pallas_call` with the probe's kernel body, at a
 small shape (3 maps of 1,024 words, 64 samples per map), and holds the
 port's probe entry (`sba_tpu_torch.ops.map_gather.probe_*`, the plain
 twins on CPU tensors) to its output bit for bit: a gather is exact.
+B1's kernel also runs at odd lengths (1 to 5 and 4097 samples, one or
+more per map), on an index view offset by one element and on 8-byte
+words; tests/test_torch_cuda.py holds the CUDA kernel to the twin at the
+same cases.
 """
 
 import jax
@@ -127,6 +131,60 @@ def _b4_fE(dep3, il3):
         out_specs=_vmem((1, 8, per // 8), lambda m: (m, 0, 0)),
         out_shape=jax.ShapeDtypeStruct((NMAPS, 8, per // 8), jnp.uint32),
         interpret=True)(dep3, il3)
+
+
+# Odd lengths n as (maps, samples per map); tests/test_torch_cuda.py holds
+# the kernel at the same.
+ODD_LENGTHS = {1: (1, 1), 3: (3, 1), 4: (2, 2), 5: (5, 1), 4097: (17, 241)}
+
+
+def _flat_take_probe(tab, il, hw):
+    """B1's kernel `kern` (benchmarks/gather_micro.py::f4) over il.shape[0]
+    maps of hw words of any dtype: one grid step per map."""
+    maps, per = il.shape
+
+    def kern(tab_ref, idx_ref, out_ref):
+        out_ref[:] = jnp.take(tab_ref[:], idx_ref[:])
+
+    return pl.pallas_call(
+        kern, grid=(maps,),
+        in_specs=[_vmem((hw,), lambda m: (m,)),
+                  _vmem((1, per), lambda m: (m, 0))],
+        out_specs=_vmem((1, per), lambda m: (m, 0)),
+        out_shape=jax.ShapeDtypeStruct((maps, per), tab.dtype),
+        interpret=True)(tab, il)
+
+
+@pytest.mark.parametrize("word", ["u32", "f64"])
+@pytest.mark.parametrize("n", sorted(ODD_LENGTHS))
+def test_twin_matches_probe_at_odd_lengths_and_offset_views(n, word):
+    """Both forms of map_gather_plain on an int32 index view that starts
+    one element into its storage, against B1's kernel, bit for bit."""
+    maps, per = ODD_LENGTHS[n]
+    rng = np.random.default_rng(n)
+    if word == "u32":
+        tab = rng.integers(0, 2 ** 32, size=maps * HW,
+                           dtype=np.uint64).astype(np.uint32)
+        tab_t = _words(tab)
+    else:
+        tab = rng.normal(size=maps * HW)
+        tab_t = torch.from_numpy(tab)
+    il = rng.integers(0, HW, size=n + 1).astype(np.int32)
+    ref = np.asarray(_flat_take_probe(jnp.asarray(tab),
+                                      jnp.asarray(il[1:].reshape(maps, per)),
+                                      HW))
+    local = torch.from_numpy(il)[1:].view(maps, per)
+    glob = (torch.from_numpy(il).long()[1:].view(maps, per)
+            + HW * torch.arange(maps)[:, None]).int()
+    glob = torch.cat([glob.new_zeros(1), glob.reshape(-1)])[1:]
+    assert local.storage_offset() == 1 and glob.storage_offset() == 1
+    for got in (mg.map_gather(tab_t, local, per, HW),
+                mg.map_gather(tab_t, glob).view(maps, per)):
+        assert got.dtype == tab_t.dtype and tuple(got.shape) == (maps, per)
+        if word == "u32":
+            np.testing.assert_array_equal(_u32(got), ref)
+        else:
+            np.testing.assert_array_equal(got.numpy(), ref)
 
 
 @pytest.mark.parametrize("probe", ["B1", "B2", "B3", "B4"])
