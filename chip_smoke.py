@@ -20,26 +20,43 @@ Needs one CUDA card and nvcc (found through torch's CUDA_HOME, else
                      such blocks is printed), and on a two-camera scene,
                      whose implicit step on the card is held against the
                      same step on the CPU;
-4. main           -- `bundle_adjust` on the headline problem in float32
+4. twins-heads    -- camera models 3-10, each observed through a small
+                     distortion (DISTORT) with its intrinsics free: K1,
+                     K4 and K5 against their twins at the headline
+                     shapes, K2-K5 on an implicit bucket (the 1024-image
+                     scene for RADIAL and FULL_OPENCV, K2's diagonal and
+                     block payload modes; 160 images for the rest);
+5. main           -- `bundle_adjust` on the headline problem in float32
                      (dense path: K1, K4, K5 must launch), cost must
                      fall; host prep (`ba_fused.prepare`) and LM it/s
                      of a warm `solve_prepared`;
-5. main-implicit  -- `bundle_adjust` on the 1024-image scene (implicit
+6. main-implicit  -- `bundle_adjust` on the 1024-image scene (implicit
                      path: K2, K3, K4, K5 must launch, K1 must not); LM
                      it/s, K3 launches per LM iteration, peak memory;
-6. large-ranged   -- 3 LM iterations at 10,240 images / 1.2M points
+7. main-opencv    -- `bundle_adjust` with OPENCV cameras (intrinsics
+                     free): the headline (K1, K4, K5; host prep and warm
+                     LM it/s), the 1024-image scene (10 LM iterations:
+                     K2-K5; LM it/s, K3 launches per LM iteration), and
+                     5 LM iterations each of the FULL_OPENCV and
+                     THIN_PRISM_FISHEYE headlines; every cost must fall;
+8. large-ranged   -- 3 LM iterations at 10,240 images / 1.2M points
                      (ranged, bf16 couplings); host prep timed apart;
                      K2-K5 against their twins at these shapes;
-7. cli            -- `python -m sba_tpu_torch.cli bundle_adjuster` on a
-                     20-image (dense) and a 160-image (implicit) model;
-8. twins-mvs      -- K6 (ncc_cost) against its twin on the same CUDA
+9. cli            -- `python -m sba_tpu_torch.cli bundle_adjuster` in
+                     float32 on a 20-image (dense), a 160-image
+                     (implicit) and a 20-image OPENCV model
+                     (`--BundleAdjustment.model_id 4`), then at its
+                     defaults (float64) on a 256-image model whose
+                     couplings pass the explicit step's 2 GiB: 2 LM
+                     iterations of the plain PCG step, no kernel;
+10. twins-mvs      -- K6 (ncc_cost) against its twin on the same CUDA
                      tensors, bit for bit, at 1600x1200 x 4 sources (r=3
                      and r=5 with step 1, r=3 with step 2; one source
                      with a band outside its image) and x 7 sources (past
                      the kernel's chunk of 4), and the card's hypothesis cost
                      (packed sampling + K6) against the CPU twins' at
                      240x320;
-9. mvs            -- the dense chain at full width: an 8-view 1600x1200
+11. mvs           -- the dense chain at full width: an 8-view 1600x1200
                      SIMPLE_RADIAL scene rendered on the card, written as
                      images + a sparse model, then `image_undistorter`,
                      `patch_match_stereo` and `stereo_fuser` of
@@ -51,14 +68,14 @@ Needs one CUDA card and nvcc (found through torch's CUDA_HOME, else
                      percentile under 3% of the median depth); then one
                      warm photometric solve in process
                      (Mpix*iterations/s, peak device memory);
-10. twins-sba     -- the map-gather kernels against their twins on the
+12. twins-sba     -- the map-gather kernels against their twins on the
                      same CUDA tensors, bit for bit: B1-B4's probe entries
                      at the probes' shapes (50 maps of 640x480 u32 words,
                      7,526,400 samples) and the SBA path's flat form in
                      4- and 8-byte words; the forward-mode tangent of the
                      f64 samplers through the kernels against the CPU
                      twins';
-11. sba           -- semantic BA at the bench_sba width (bench.py:94: 50
+13. sba           -- semantic BA at the bench_sba width (bench.py:94: 50
                      images, 640x480, pixel step 10, soft, float32, 10
                      LM iterations, tolerances off): the cost, the
                      rotation error against the truth and the hard label
@@ -68,11 +85,11 @@ Needs one CUDA card and nvcc (found through torch's CUDA_HOME, else
                      same scene at 12 labels (the two-map path:
                      map_gather_pair must launch), and a small solve
                      through the kernels against the CPU twins';
-12. cli-sba       -- `python -m sba_tpu_torch.cli semantic_bundle_adjuster`
+14. cli-sba       -- `python -m sba_tpu_torch.cli semantic_bundle_adjuster`
                      on an 8-image 640x480 model with TIFF maps, at its
                      defaults (float64, forward mode) and in hard_numeric
                      mode;
-13. timing        -- per-kernel CUDA-event times (the stream sleeps
+15. timing        -- per-kernel CUDA-event times (the stream sleeps
                      while the host enqueues the timed calls, so they are
                      the device's) against the twins, the
                      memory/compute bound and, for B1-B4, the PyTorch
@@ -81,7 +98,7 @@ Needs one CUDA card and nvcc (found through torch's CUDA_HOME, else
                      "was"); K4 with random du, also at the 1024-image
                      bucket; B1-B4 also beside the least time over the
                      32-byte sectors their samples touch;
-14. profile       -- device time by kernel over one warm solve of the
+16. profile       -- device time by kernel over one warm solve of the
                      headline (with K1's split between its linearize-and-
                      reduce kernel and its three Schur kernels, and its
                      share of its bound), of the
@@ -114,7 +131,7 @@ T0 = time.perf_counter()
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
-BA_SOURCE = "sba_tpu_torch/csrc/ba_kernels.cu"
+BA_SOURCE = "sba_tpu_torch/csrc/ba_kernels.cuh"
 REPLACES = {
     "fused_schur": "sba_tpu/ops/ba_kernels.py:945",
     "fused_reduce": "sba_tpu/ops/ba_kernels.py:1035",
@@ -152,6 +169,27 @@ SBA_OPT = dict(pixel_step=10, max_iterations=10, mode="soft",
 SBA_PAIR_SCENE = dict(SBA_SCENE, num_images=20, num_labels=12)
 # The CLI's model: 8 images of the bench_sba scene.
 SBA_CLI_SCENE = dict(SBA_SCENE, num_images=8)
+# tests/test_ba_fused.py:28-40: a small distortion per camera model, so
+# that every analytic head runs off its pinhole special case.
+DISTORT = {
+    2: {3: 0.02},
+    3: {3: 0.02, 4: -0.005},
+    4: {4: 0.02, 5: -0.005, 6: 1e-3, 7: -2e-3},
+    5: {4: 0.02, 5: -0.005, 6: 1e-3, 7: -2e-3},
+    6: {4: 0.02, 5: -0.005, 6: 1e-3, 7: -2e-3, 8: 1e-3,
+        9: 0.01, 10: -2e-3, 11: 5e-4},
+    7: {4: 0.08},
+    8: {3: 0.02},
+    9: {3: 0.02, 4: -0.005},
+    10: {4: 0.02, 5: -0.005, 6: 1e-3, 7: -2e-3, 8: 1e-3, 9: -5e-4,
+         10: 8e-4, 11: -6e-4},
+}
+HEAD_MODELS = tuple(range(3, 11))  # the heads after SIMPLE_RADIAL
+# K2 at the 1024-image scene in both payload modes: RADIAL (5 parameters,
+# the diagonal mode) and FULL_OPENCV (12, the 6x6 block mode); the other
+# heads' implicit kernels run on MID.
+K2_WIDE_MODELS = (3, 6)
+OPENCV, FULL_OPENCV, THIN_PRISM_FISHEYE = 4, 6, 10
 DENSE_KERNELS = ("fused_schur", "backsub", "fused_cost")
 IMPLICIT_KERNELS = ("fused_reduce", "schur_matvec", "backsub", "fused_cost")
 HEADLINE = dict(num_images=128, num_points=30_000, observations_per_point=7,
@@ -160,6 +198,14 @@ HEADLINE = dict(num_images=128, num_points=30_000, observations_per_point=7,
 LARGE = dict(num_images=1024, num_points=120_000, track_len=7,
              pose_noise=0.005, point_noise=0.02, pixel_noise=0.5, seed=0)
 HUGE = dict(LARGE, num_images=10_240, num_points=1_200_000)
+# More than 128 images (the implicit path) at the 1024-image scene's
+# points per image.
+MID = dict(LARGE, num_images=160, num_points=18_750)
+# The CLI's float64 model: 256 images and 60,000 points, whose whitened
+# couplings (6*256 + 12) * 3 * 60,000 * 8 B = 2.23 GB pass the explicit
+# step's 2 GiB (optim/ba.py EXPLICIT_SCHUR_MAX_BYTES): the PCG step.
+CLI_F64 = dict(num_images=256, num_points=60_000, observations_per_point=6,
+               seed=5)
 # The dense MVS scene: 8 rendered views at the PatchMatch image cap of
 # COLMAP's medium-quality preset (1600 px), SIMPLE_RADIAL lens; sba_tpu's
 # PatchMatch defaults (window radius 3, 8 iterations, 2 random samples,
@@ -239,18 +285,44 @@ def close(name, got, ref, tol):
     return err
 
 
+def model_params(model_id):
+    """Camera model `model_id`'s parameters at the scenes' focal length
+    and image size, with DISTORT's terms."""
+    import numpy as np
+
+    from sba_tpu_torch.geometry import camera_models
+
+    p = np.array(camera_models.model_by_id(model_id).init_params(
+        500.0, 640, 480), np.float64)
+    for i, val in DISTORT.get(model_id, {}).items():
+        p[i] = val
+    return p
+
+
 def headline_problem(model_id, device):
+    """The headline scene seen through camera model `model_id` (models
+    3-10 observe through DISTORT's terms)."""
     import torch
 
     from sba_tpu_torch.utils.synthetic import make_ba_problem
 
+    params = model_params(model_id) if model_id >= 3 else None
     problem, _ = make_ba_problem(model_id=model_id, dtype=torch.float32,
-                                 device=device, **HEADLINE)
+                                 device=device, params=params, **HEADLINE)
     if model_id == 2:  # a small radial term, so the head's k1 path runs
         cam = problem.cam_params.clone()
         cam[:, 3] = 0.02
         problem = problem._replace(cam_params=cam)
     return problem
+
+
+def free_intrinsics(problem):
+    """`problem` with every camera parameter free (the focal length and
+    the extra parameters are then refined, as bundle_adjuster does), so
+    that the kernels' camera rows carry the heads' derivatives."""
+    import torch
+
+    return problem._replace(free_cam=torch.ones_like(problem.free_cam))
 
 
 def require_path(launches, kernels, other):
@@ -261,10 +333,14 @@ def require_path(launches, kernels, other):
             f"a kernel of the other path launched: {launches}")
 
 
-def large_problem(spec=LARGE):
+def large_problem(spec=LARGE, model_id=0):
+    """A sequential scene (SIMPLE_PINHOLE, or camera model `model_id`
+    with `model_params`)."""
     from sba_tpu_torch.utils.synthetic import make_sequential_ba_problem
 
-    problem, _ = make_sequential_ba_problem(device="cuda", **spec)
+    params = model_params(model_id) if model_id else None
+    problem, _ = make_sequential_ba_problem(device="cuda", model_id=model_id,
+                                            params=params, **spec)
     return problem
 
 
@@ -278,9 +354,26 @@ def phase_build():
     t = time.perf_counter()
     path, compiler_log = cuda_build.build()
     dt = time.perf_counter() - t
+    # One line per kernel: its registers and spills (ptxas -v), the BA
+    # kernels by template arguments (model or NP, then mode or type).
+    entry, spill = None, ""
     for line in compiler_log.splitlines():
-        if any(k in line for k in ("registers", "spill", "entry function")):
-            log("build", "ptxas " + line.strip())
+        m = re.search(r"entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1)
+            k = re.search(r"(k12_reduce|k1b_\w+?|k3_matvec|k4_backsub|"
+                          r"k5_cost)_kernel(.*)", entry)
+            if k:
+                entry = (f"{k.group(1)}<"
+                         + ",".join(re.findall(r"Li(\d+)E", k.group(2))
+                                    + ["bf16"] * ("bfloat16" in k.group(2)))
+                         + ">")
+        elif "spill" in line:
+            spill = line.split(":", 1)[-1].strip()
+        elif "registers" in line and entry:
+            log("build", f"ptxas {entry}: {line.split(':', 1)[-1].strip()}; "
+                f"{spill}")
+            entry = None
     cuda_build.lib()
     log("build", f"built {path.name} in {dt:.1f} s")
 
@@ -314,11 +407,56 @@ def _step_inputs(ctx, lam_value=1e-3):
             du_cam_t.to(par.device))
 
 
+def _check_dense_twins(tag, st, lay, par, pts, lam, dup, duc, opt):
+    """The dense path's kernels against their twins on one bucket: K1,
+    K4 on K1's point payload and jw, and K5. Returns the max abs errors
+    (S_corr, dp, cost)."""
+    import torch
+
+    from sba_tpu_torch.ops import ba_kernels as bk
+
+    out_k = bk.fused_schur(st, par, pts, lam, lay, opt)
+    out_p = bk.fused_schur_plain(st, par, pts, lam, lay, opt)
+    torch.cuda.synchronize()
+    s_k, img_k, ey_k, pt_k, jw_k = out_k
+    s_p, img_p, ey_p, pt_p, jw_p = out_p
+    # Payloads: 1e-5 of each row group's scale; S/Ey 3e-5 (the f32
+    # tolerances of tests/test_ba_fused.py). Rows through the damped 3x3
+    # point inverse (Hpp^-1, Lp, WL, dp): 1e-4, since a point seen once
+    # has a rank-2 Hpp whose inverse amplifies f32 rounding by up to
+    # 1/lambda (tests/test_torch_ba_kernels).
+    for r0, r1, tol in ((0, 3, 1e-5), (3, 6, 1e-5), (6, 12, 1e-4),
+                        (12, 18, 1e-4), (18, 19, 1e-5)):
+        close(f"{tag} pt_pay[{r0}:{r1}]", pt_k[r0:r1], pt_p[r0:r1], tol)
+    n_jac = 18 + 2 * lay.nparams
+    for r in range(lay.JW):
+        close(f"{tag} jw[{r}]", jw_k[r], jw_p[r],
+              1e-5 if r < n_jac else 1e-4)
+    np_ = lay.nparams
+    ofs = [0, 6, 42, 42 + 6 * np_, 42 + 7 * np_, lay.DI]
+    for a0, a1 in zip(ofs[:-1], ofs[1:]):
+        close(f"{tag} img_red[:, {a0}:{a1}]", img_k[:, a0:a1],
+              img_p[:, a0:a1], 1e-5)
+    e1 = close(f"{tag} S_corr", s_k, s_p, 3e-5)
+    require(torch.equal(s_k, s_k.T), f"{tag} S_corr is not exactly symmetric")
+    close(f"{tag} ey", ey_k, ey_p, 3e-5)
+    del out_p, s_p, s_k
+    dp_k, acc_k = bk.backsub(st, dup, duc, pt_k, jw_k, lam, lay, opt)
+    dp_p, acc_p = bk.backsub_plain(st, dup, duc, pt_k, jw_k, lam, lay, opt)
+    torch.cuda.synchronize()
+    e4 = close(f"{tag} dp", dp_k, dp_p, 1e-4)
+    for i in range(3):
+        close(f"{tag} acc[{i}]", acc_k[i:i + 1], acc_p[i:i + 1], 1e-4)
+    c_k = bk.fused_cost(st, par, pts, lay, opt)
+    c_p = bk.fused_cost_plain(st, par, pts, lay, opt)
+    e5 = close(f"{tag} cost", c_k.reshape(1), c_p.reshape(1), 1e-4)
+    return e1, e4, e5
+
+
 def phase_twins():
     """Each kernel against its twin on identical CUDA inputs."""
     import torch
 
-    from sba_tpu_torch.ops import ba_kernels as bk
     from sba_tpu_torch.optim import ba_fused
     from sba_tpu_torch.optim.ba import BAOptions
     from sba_tpu_torch.utils.synthetic import make_ba_problem
@@ -330,50 +468,10 @@ def phase_twins():
         ctx, par, lam, dup, duc = _bucket_inputs(problem, opt)
         statics, lays, pts0 = ctx[0], ctx[1], ctx[2]
         for b, (st, lay, pts) in enumerate(zip(statics, lays, pts0)):
-            out_k = bk.fused_schur(st, par, pts, lam, lay, opt)
-            out_p = bk.fused_schur_plain(st, par, pts, lam, lay, opt)
-            torch.cuda.synchronize()
-            s_k, img_k, ey_k, pt_k, jw_k = out_k
-            s_p, img_p, ey_p, pt_p, jw_p = out_p
-            # Payloads: 1e-5 of each row group's scale; S/Ey 3e-5 (the
-            # f32 tolerances of tests/test_ba_fused.py). Rows through the
-            # damped 3x3 point inverse (Hpp^-1, Lp, WL, dp): 1e-4, since
-            # a point seen once has a rank-2 Hpp whose inverse amplifies
-            # f32 rounding by up to 1/lambda (tests/test_torch_ba_kernels).
-            for r0, r1, tol in ((0, 3, 1e-5), (3, 6, 1e-5), (6, 12, 1e-4),
-                                (12, 18, 1e-4), (18, 19, 1e-5)):
-                close(f"m{model_id} b{b} pt_pay[{r0}:{r1}]", pt_k[r0:r1],
-                      pt_p[r0:r1], tol)
-            n_jac = 18 + 2 * lay.nparams
-            for r in range(lay.JW):
-                close(f"m{model_id} b{b} jw[{r}]", jw_k[r], jw_p[r],
-                      1e-5 if r < n_jac else 1e-4)
-            np_ = lay.nparams
-            ofs = [0, 6, 42, 42 + 6 * np_, 42 + 7 * np_, lay.DI]
-            for a0, a1 in zip(ofs[:-1], ofs[1:]):
-                close(f"m{model_id} b{b} img_red[:, {a0}:{a1}]",
-                      img_k[:, a0:a1], img_p[:, a0:a1], 1e-5)
-            e1 = close(f"m{model_id} b{b} S_corr", s_k, s_p, 3e-5)
-            require(torch.equal(s_k, s_k.T),
-                    f"m{model_id} b{b} S_corr is not exactly symmetric")
-            close(f"m{model_id} b{b} ey", ey_k, ey_p, 3e-5)
-            errs["fused_schur"] = max(errs["fused_schur"], e1)
-
-            dp_k, acc_k = bk.backsub(st, dup, duc, pt_k, jw_k, lam, lay, opt)
-            dp_p, acc_p = bk.backsub_plain(st, dup, duc, pt_k, jw_k, lam,
-                                           lay, opt)
-            torch.cuda.synchronize()
-            e4 = close(f"m{model_id} b{b} dp", dp_k, dp_p, 1e-4)
-            for i in range(3):
-                close(f"m{model_id} b{b} acc[{i}]", acc_k[i:i + 1],
-                      acc_p[i:i + 1], 1e-4)
-            errs["backsub"] = max(errs["backsub"], e4)
-
-            c_k = bk.fused_cost(st, par, pts, lay, opt)
-            c_p = bk.fused_cost_plain(st, par, pts, lay, opt)
-            e5 = close(f"m{model_id} b{b} cost", c_k.reshape(1),
-                       c_p.reshape(1), 1e-4)
-            errs["fused_cost"] = max(errs["fused_cost"], e5)
+            e1, e4, e5 = _check_dense_twins(f"m{model_id} b{b}", st, lay,
+                                            par, pts, lam, dup, duc, opt)
+            for name, e in zip(DENSE_KERNELS, (e1, e4, e5)):
+                errs[name] = max(errs[name], e)
             log("twins", f"model {model_id} bucket {b} (K={lay.K}, "
                 f"Pp={lay.Pp}): K1/K4/K5 match their twins; |dS| "
                 f"{e1:.2e} |ddp| {e4:.2e} |dcost| {e5:.2e}")
@@ -780,9 +878,184 @@ def phase_large_ranged(errs):
             f"{WORST['ratio']:.3f}")
 
 
-def _run_cli(rec, tag, max_iterations, kernels, other):
-    """bundle_adjuster in a subprocess on `rec`; checks the cost, the
-    mean reprojection error and that the path's kernels launched."""
+def phase_twins_heads(errs):
+    """Camera models 3-10 (sba_tpu's analytic heads, DISTORT's terms):
+    K1, K4 and K5 against their twins at the headline shapes; K2-K5 on
+    an implicit bucket, the 1024-image scene for K2_WIDE_MODELS (both of
+    K2's payload modes) and MID for the rest."""
+    from sba_tpu_torch.ops import ba_kernels as bk
+    from sba_tpu_torch.optim.ba import BAOptions
+
+    for m in HEAD_MODELS:
+        opt = BAOptions(model_id=m, dtype="float32", schur_bf16=False)
+        ctx, par, lam, dup, duc = _bucket_inputs(
+            free_intrinsics(headline_problem(m, "cuda")), opt)
+        e = (0.0, 0.0, 0.0)
+        for b, (st, lay, pts) in enumerate(zip(ctx[0], ctx[1], ctx[2])):
+            eb = _check_dense_twins(f"m{m} b{b}", st, lay, par, pts, lam,
+                                    dup, duc, opt)
+            e = tuple(max(x, y) for x, y in zip(e, eb))
+        for name, x in zip(DENSE_KERNELS, e):
+            errs[name] = max(errs[name], x)
+        log("twins-heads", f"model {m} (np {lay.nparams}) headline, "
+            f"{len(ctx[1])} buckets: K1/K4/K5 match their twins; |dS| "
+            f"{e[0]:.2e} |ddp| {e[1]:.2e} |dcost| {e[2]:.2e}")
+        del ctx, par
+        spec = LARGE if m in K2_WIDE_MODELS else MID
+        opt = BAOptions(model_id=m, dtype="float32")
+        ctx, par, lam, dup, duc = _bucket_inputs(
+            free_intrinsics(large_problem(spec, m)), opt)
+        for b, (st, lay, pts) in enumerate(zip(ctx[0], ctx[1], ctx[2])):
+            e = _check_implicit_twins(f"m{m} {spec['num_images']} b{b}", st,
+                                      lay, par, pts, lam, dup, duc, opt)
+            _fold(errs, e)
+        require(lay.BJ == (lay.nparams != 5),
+                f"model {m}: K2 mode BJ={lay.BJ} at np {lay.nparams}")
+        log("twins-heads", f"model {m} {spec['num_images']} images "
+            f"(K2 {'block' if lay.BJ else 'diagonal'} mode, jcorr "
+            f"{str(bk.jcorr_dtype(lay, opt))[6:]}): K2-K5 match their "
+            f"twins; |dimg_red| {e[0]:.2e} |dmatvec| {e[1]:.2e} |ddp| "
+            f"{e[2]:.2e} |dcost| {e[3]:.2e}")
+        del ctx, par
+    log("twins-heads", f"closest to its tolerance so far: {WORST['name']} "
+        f"at {WORST['ratio']:.3f} of it")
+
+
+def _solve_checked(tag, problem, opt, kernels, other):
+    """`bundle_adjust` with the launch counts reset just before it: the
+    path's kernels launch, the cost falls, every output is finite.
+    Returns (summary, launches, seconds)."""
+    import torch
+
+    from sba_tpu_torch.ops import ba_kernels as bk
+    from sba_tpu_torch.optim.ba import bundle_adjust
+
+    torch.cuda.synchronize()
+    bk.reset_launches()
+    t = time.perf_counter()
+    out, s = bundle_adjust(problem, opt)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(bk.LAUNCHES)
+    c0, c1 = float(s.initial_cost), float(s.final_cost)
+    require_path(launches, kernels, other)
+    require(c1 < c0, f"{tag}: cost did not decrease: {c0} -> {c1}")
+    for name, v in (("qvecs", out.qvecs), ("tvecs", out.tvecs),
+                    ("points", out.points), ("cam_params", out.cam_params)):
+        require(bool(torch.isfinite(v).all()), f"{tag}: non-finite {name}")
+    require(tuple(out.points.shape) == tuple(problem.points.shape),
+            f"{tag}: points shape {tuple(out.points.shape)}")
+    log("main-opencv", f"{tag}: bundle_adjust {problem.qvecs.shape[0]} img "
+        f"/ {problem.points.shape[0]} pts / {int(problem.obs_mask.sum())} "
+        f"live obs: cost {c0:.6g} -> {c1:.6g} in {s.num_iterations} it, "
+        f"{wall:.2f} s incl. prep; launches {json.dumps(launches)}")
+    return s, launches, wall
+
+
+def phase_main_opencv():
+    """The fused path through `bundle_adjust` with real-lens models: the
+    OPENCV headline (dense: K1, K4, K5), the 1024-image OPENCV scene (10
+    LM iterations, tolerances off; implicit: K2-K5) and short solves of
+    the 12-parameter FULL_OPENCV and THIN_PRISM_FISHEYE headlines."""
+    import torch
+
+    from sba_tpu_torch.optim import ba_fused
+    from sba_tpu_torch.optim.ba import BAOptions
+
+    problem = free_intrinsics(headline_problem(OPENCV, "cuda"))
+    opt = BAOptions(model_id=OPENCV, max_iterations=10, **FIXED_IT)
+    _, launches, _ = _solve_checked("OPENCV headline", problem, opt,
+                                    DENSE_KERNELS, IMPLICIT_KERNELS)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ctx = ba_fused.prepare(problem, opt)
+    torch.cuda.synchronize()
+    t_prep = time.perf_counter() - t
+    ba_fused.solve_prepared(ctx)            # warm
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, s2 = ba_fused.solve_prepared(ctx)
+    float(s2.final_cost)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    its = s2.num_iterations
+    log("main-opencv", f"OPENCV headline: host prep (ba_fused.prepare) "
+        f"{t_prep * 1e3:.1f} ms; warm solve_prepared: {its} LM it in "
+        f"{dt * 1e3:.1f} ms = {its / dt:.2f} LM it/s")
+    del ctx
+
+    problem = free_intrinsics(large_problem(LARGE, OPENCV))
+    s, launches_i, _ = _solve_checked(
+        "OPENCV 1024 images", problem, opt, IMPLICIT_KERNELS, DENSE_KERNELS)
+    ctx = ba_fused.prepare(problem, opt)
+    ba_fused.solve_prepared(ctx)            # warm
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, s2 = ba_fused.solve_prepared(ctx)
+    float(s2.final_cost)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    log("main-opencv", f"OPENCV 1024 images: warm solve_prepared: "
+        f"{s2.num_iterations} LM it in {dt * 1e3:.1f} ms = "
+        f"{s2.num_iterations / dt:.2f} LM it/s; K3 launches per LM "
+        f"iteration {launches_i['schur_matvec'] / s.num_iterations:.1f}")
+    del problem, ctx
+    for m in (FULL_OPENCV, THIN_PRISM_FISHEYE):
+        _solve_checked(f"model {m} headline",
+                       free_intrinsics(headline_problem(m, "cuda")),
+                       BAOptions(model_id=m, max_iterations=5, **FIXED_IT),
+                       DENSE_KERNELS, IMPLICIT_KERNELS)
+    return launches, launches_i
+
+
+def phase_timing_heads():
+    """K1 and K5 at the headline and K2 at the 1024-image scene, per LM
+    iteration (all buckets), for OPENCV and FULL_OPENCV, each beside its
+    bound (`_bounds`: the rows per lane, JW = 36 + 5 np, grow with np)."""
+    import torch
+
+    from sba_tpu_torch.ops import ba_kernels as bk
+    from sba_tpu_torch.optim.ba import BAOptions
+    from sba_tpu_torch.utils.kernel_timing import time_ms
+
+    out = {}
+    for m in (OPENCV, FULL_OPENCV):
+        opt = BAOptions(model_id=m, dtype="float32")
+        for scene, names in ((HEADLINE, ("fused_schur", "fused_cost")),
+                             (LARGE, ("fused_reduce",))):
+            problem = free_intrinsics(
+                headline_problem(m, "cuda") if scene is HEADLINE
+                else large_problem(LARGE, m))
+            ctx, par, lam, _, _ = _bucket_inputs(problem, opt)
+            groups = list(zip(ctx[0], ctx[1], ctx[2]))
+            fns = {
+                "fused_schur": lambda: [bk.fused_schur(st, par, p, lam, lay,
+                                                       opt)
+                                        for st, lay, p in groups],
+                "fused_reduce": lambda: [bk.fused_reduce(st, par, p, lam,
+                                                         lay, opt)
+                                         for st, lay, p in groups],
+                "fused_cost": lambda: [bk.fused_cost(st, par, p, lay, opt)
+                                       for st, lay, p in groups]}
+            bounds = _bounds(ctx[0], ctx[1], opt, names)
+            for name in names:
+                ms = time_ms(fns[name], 20)
+                out[(m, name)] = (ms, bounds[name])
+                log("timing", f"model {m} (np {ctx[1][0].nparams}, JW "
+                    f"{ctx[1][0].JW}) {name} at {scene['num_images']} "
+                    f"images: {ms:.4f} ms per LM iteration ({len(groups)} "
+                    f"bucket launches), bound {bounds[name][0]:.4f} ms "
+                    f"({bounds[name][1]}), {100 * bounds[name][0] / ms:.1f}% "
+                    f"of it")
+            del ctx, par, groups, fns
+            torch.cuda.empty_cache()
+    return out
+
+
+def _run_cli(rec, tag, flags, kernels, other):
+    """bundle_adjuster with `flags` in a subprocess on `rec`; checks the
+    cost, the mean reprojection error and that the path's kernels (and
+    no other) launched."""
     import numpy as np
 
     from sba_tpu_torch.models.reconstruction import Reconstruction
@@ -796,9 +1069,7 @@ def _run_cli(rec, tag, max_iterations, kernels, other):
         rec.write(str(work / "in"))
         cmd = [sys.executable, "-m", "sba_tpu_torch.cli", "bundle_adjuster",
                "--input_path", str(work / "in"),
-               "--output_path", str(work / "out"),
-               "--BundleAdjustment.dtype", "float32",
-               "--BundleAdjustment.max_iterations", str(max_iterations)]
+               "--output_path", str(work / "out"), *flags]
         env = dict(os.environ, PYTHONPATH=str(ROOT))
         budget = max(30.0, DEADLINE_S - (time.perf_counter() - T0) - 60.0)
         res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
@@ -827,21 +1098,48 @@ def _run_cli(rec, tag, max_iterations, kernels, other):
 
 
 def phase_cli():
-    """The CLI on a 20-image model (dense path) and a 160-image model
-    (more than 128 images: the implicit path)."""
+    """The CLI in float32 on a 20-image model (dense path), a 160-image
+    model (more than 128 images: the implicit path) and a 20-image
+    OPENCV model (`--BundleAdjustment.model_id 4`: sba_tpu's CLI takes
+    the camera model from that flag); then at its defaults (float64) on
+    CLI_F64, whose couplings pass the explicit step's limit: 2 LM
+    iterations of the PCG step, no kernel."""
     import numpy as np
 
+    from sba_tpu_torch.optim import ba as ba_mod
     from sba_tpu_torch.utils.synthetic import make_synthetic_reconstruction
 
-    for n_img, n_pts, kernels, other in (
-            (20, 400, DENSE_KERNELS, IMPLICIT_KERNELS),
-            (160, 600, IMPLICIT_KERNELS, DENSE_KERNELS)):
-        rec = make_synthetic_reconstruction(num_images=n_img,
-                                            num_points=n_pts, seed=3)
+    f32 = ("--BundleAdjustment.dtype", "float32",
+           "--BundleAdjustment.max_iterations", "20")
+    for n_img, n_pts, model_id, kernels, other in (
+            (20, 400, 0, DENSE_KERNELS, IMPLICIT_KERNELS),
+            (160, 600, 0, IMPLICIT_KERNELS, DENSE_KERNELS),
+            (20, 400, OPENCV, DENSE_KERNELS, IMPLICIT_KERNELS)):
+        rec = make_synthetic_reconstruction(
+            num_images=n_img, num_points=n_pts, seed=3, model_id=model_id,
+            params=model_params(model_id) if model_id else None)
         rng = np.random.default_rng(3)
         for p in rec.points3D.values():
             p.xyz = p.xyz + rng.normal(scale=0.05, size=3)
-        _run_cli(rec, f"{n_img} images", 20, kernels, other)
+        _run_cli(rec, f"{n_img} images, model {model_id}",
+                 (*f32, "--BundleAdjustment.model_id", str(model_id)),
+                 kernels, other)
+    t = time.perf_counter()
+    rec = make_synthetic_reconstruction(**CLI_F64)
+    rng = np.random.default_rng(5)
+    for p in rec.points3D.values():
+        p.xyz = p.xyz + rng.normal(scale=0.05, size=3)
+    arr = rec.to_arrays()
+    need = ((6 * arr.num_images + 12 * len(arr.camera_ids)) * 3
+            * arr.num_points * 8)
+    require(need > ba_mod.EXPLICIT_SCHUR_MAX_BYTES,
+            f"CLI_F64 couplings {need} B fit the explicit step")
+    log("cli", f"float64 model: {arr.num_images} images, {arr.num_points} "
+        f"points, {arr.num_observations} observations (built in "
+        f"{time.perf_counter() - t:.1f} s); couplings {need / 1e9:.2f} GB "
+        f"> {ba_mod.EXPLICIT_SCHUR_MAX_BYTES / 2**30:.0f} GiB: the PCG step")
+    _run_cli(rec, "float64 PCG", ("--BundleAdjustment.max_iterations", "2"),
+             (), IMPLICIT_KERNELS + DENSE_KERNELS)
 
 
 def _mvs_problem(scene, ref, srcs, device):
@@ -1806,9 +2104,11 @@ def main() -> int:
     run("build", phase_build)
     errs = run("twins", phase_twins)
     run("twins-implicit", phase_twins_implicit, errs)
+    run("twins-heads", phase_twins_heads, errs)
     launches, ctx, ms_per_it = run("main", phase_main)
     launches_i, ctx_i, ms_per_it_i, k3_per_it = run("main-implicit",
                                                     phase_main_implicit)
+    run("main-opencv", phase_main_opencv)
     run("large-ranged", phase_large_ranged, errs)
     run("cli", phase_cli)
     scene = run("mvs", phase_mvs_scene)
@@ -1822,6 +2122,7 @@ def main() -> int:
     rows = run("timing", phase_timing, ctx, launches, errs)
     rows.update(run("timing", phase_timing_implicit, ctx_i, launches_i,
                     errs, k3_per_it))
+    run("timing", phase_timing_heads)
     rows.update(run("timing", phase_timing_mvs, ncc_inputs, ncc_launches,
                     ncc_err))
     del ncc_inputs

@@ -3,12 +3,11 @@
 Port of the five kernels of ``sba_tpu/ops/ba_kernels.py``: K1
 `fused_schur` (dense path), K2 `fused_reduce` and K3 `schur_matvec`
 (implicit path), K4 `backsub` and K5 `fused_cost`. Each wrapper launches
-the hand-written kernel of ``csrc/ba_kernels.cu`` when its tensors are on
+the hand-written kernel of ``csrc/ba_kernels.cuh`` when its tensors are on
 CUDA, and runs the plain PyTorch twin beside it only when they lie on
-the CPU. The twins repeat the kernels' arithmetic on whole lane arrays;
-their camera heads go through ``geometry.camera_models`` (all 11
-models, derivatives by forward-mode jvp) while the CUDA kernels carry
-analytic heads for SIMPLE_PINHOLE, PINHOLE and SIMPLE_RADIAL only.
+the CPU. The twins repeat the kernels' arithmetic on whole lane arrays,
+camera heads included: sba_tpu's analytic heads for all 11 camera
+models (`_head`; K5's twin projects through ``geometry.camera_models``).
 
 Layout (the TPU kernel's, kept so that outputs compare entry by entry):
 observations are point-major and slot-major within a block of TP points:
@@ -51,12 +50,12 @@ from sba_tpu_torch.ops import cuda_build
 from sba_tpu_torch.optim.losses import LOSS_IDS, loss_value, loss_weight
 
 PT_ROWS = 19
-CUDA_MODELS = (0, 1, 2)   # camera heads the CUDA kernels implement
+CUDA_MODELS = tuple(range(11))   # camera heads the CUDA kernels implement
 
 # The ranged regime starts here (see the module docstring).
 RANGED_MIN_NPAD = 2048
 
-# K3's block shape in csrc/ba_kernels.cu: points per block (kK3Points)
+# K3's block shape in csrc/ba_kernels.cuh: points per block (kK3Points)
 # and images per shared-memory window chunk (kK3Window).
 K3_POINTS_PER_BLOCK = 64
 K3_WINDOW = 256
@@ -66,9 +65,11 @@ K3_WINDOW = 256
 K12_POINTS_PER_BLOCK = 64
 K12_SLOTS = 8
 K12_WINDOW = 128
-# K1's Schur-correction kernels (csrc kK1bUnit, kK1bGroupWords,
-# kK1bEntries): work items per unit, floats per merged group block,
-# floats per unit's partial block.
+# K1's Schur-correction kernels (csrc/ba_kernels.cuh kK1bUnit,
+# kK1bGroupWords, kK1bEntries): work items per unit, and the floats per
+# merged group block and per unit partial block while the model has at
+# most 6 parameters; `k1b_group_words` and `k1b_entries` give them for
+# any parameter count.
 K1B_UNIT_ITEMS = 128
 K1B_GROUP_WORDS = 20
 K1B_ENTRIES = 36
@@ -76,6 +77,18 @@ K1B_ENTRIES = 36
 # Launch counts of the CUDA kernels (a wrapper adds one per launch).
 LAUNCHES = {"fused_schur": 0, "fused_reduce": 0, "schur_matvec": 0,
             "backsub": 0, "fused_cost": 0}
+
+
+def k1b_group_words(nparams: int) -> int:
+    """Floats per merged group block of K1b: a 6x3 or NPx3 block of EL,
+    padded to a multiple of 4 (csrc k1b_group_words)."""
+    return _round_up(3 * nparams, 4) if nparams > 6 else K1B_GROUP_WORDS
+
+
+def k1b_entries(nparams: int) -> int:
+    """Floats per unit partial block of K1b: the largest of a 6x6, 6xNP
+    and NPxNP node-pair block (csrc k1b_entries)."""
+    return nparams * nparams if nparams > 6 else K1B_ENTRIES
 
 
 def reset_launches() -> None:
@@ -285,7 +298,7 @@ def fused_reduce_windows(static: KernelStatic, lay: KernelLayout):
 
 def build_schur_tiles(static: KernelStatic, lay: KernelLayout) -> SchurTiles:
     """K1's Schur work list for one bucket, built in torch on the
-    bucket's device (see `SchurTiles` and csrc/ba_kernels.cu, K1b).
+    bucket's device (see `SchurTiles` and csrc/ba_kernels.cuh, K1b).
 
     A point's nodes are its distinct images and cameras over its live
     lanes; a group is a (point, node) pair, whose block of EL is the sum
@@ -370,9 +383,14 @@ def pack_points(points, lay: KernelLayout):
 # ---------------------------------------------------------------------------
 
 def _slot_sum(rows, lay):
-    """[R, O'] -> [R, Pp]: sum over the K slots of each point."""
+    """[R, O'] -> [R, Pp]: sum over the K slots of each point, in slot
+    order (as the kernels sum them)."""
     R = rows.shape[0]
-    return rows.reshape(R, lay.nb, lay.K, lay.TP).sum(2).reshape(R, lay.Pp)
+    r = rows.reshape(R, lay.nb, lay.K, lay.TP)
+    out = r[:, :, 0]
+    for s in range(1, lay.K):
+        out = out + r[:, :, s]
+    return out.reshape(R, lay.Pp)
 
 
 def _tile(rows, lay):
@@ -412,31 +430,210 @@ def _camera_uv(par, pts, static, lay):
 
 def _head(model_id, k, u, v):
     """Projection (px, py), A2 = d(px,py)/d(u,v) [2][2] and
-    dk[m] = (dpx, dpy)/dk_m through the plain camera model."""
-    spec = camera_models.model_by_id(model_id)
-    kk = k.T                                            # [O', np]
-    uv = torch.stack([u, v], dim=-1)
+    dk[m] = (dpx, dpy)/dk_m of lane rows u, v [O'] with intrinsics rows
+    k [np, O']: sba_tpu's analytic heads (sba_tpu/ops/ba_kernels.py::
+    _head), with their guards, operation for operation as the CUDA
+    kernels compute them (csrc/ba_kernels.cuh, Head<M>)."""
+    zero = torch.zeros_like(u)
+    one = torch.ones_like(u)
 
-    def proj(uv_, k_):
-        return spec.world_to_image(k_, uv_)
+    def f2_rows(xp, yp):        # fx, fy, cx, cy models
+        return [(xp, zero), (zero, yp), (one, zero), (zero, one)]
 
-    def jvp(t_uv, t_k):
-        return torch.func.jvp(proj, (uv, kk), (t_uv, t_k))
-
-    pxy, _ = jvp(torch.zeros_like(uv), torch.zeros_like(kk))
-    a = []
-    for j in range(2):
-        t = torch.zeros_like(uv)
-        t[:, j] = 1.0
-        a.append(jvp(t, torch.zeros_like(kk))[1])       # d/du_j: [O', 2]
-    dk = []
-    for m in range(k.shape[0]):
-        t = torch.zeros_like(kk)
-        t[:, m] = 1.0
-        d = jvp(torch.zeros_like(uv), t)[1]
-        dk.append((d[:, 0], d[:, 1]))
-    A2 = ((a[0][:, 0], a[1][:, 0]), (a[0][:, 1], a[1][:, 1]))
-    return pxy[:, 0], pxy[:, 1], A2, dk
+    if model_id == 0:       # SIMPLE_PINHOLE: f, cx, cy
+        f, cx, cy = k
+        return (f * u + cx, f * v + cy, ((f, zero), (zero, f)),
+                [(u, v), (one, zero), (zero, one)])
+    if model_id == 1:       # PINHOLE: fx, fy, cx, cy
+        fx, fy, cx, cy = k
+        return (fx * u + cx, fy * v + cy, ((fx, zero), (zero, fy)),
+                [(u, zero), (zero, v), (one, zero), (zero, one)])
+    if model_id == 2:       # SIMPLE_RADIAL: f, cx, cy, k1
+        f, cx, cy, k1 = k
+        r2 = u * u + v * v
+        d = 1.0 + k1 * r2
+        a = ((f * (d + 2 * k1 * u * u), f * (2 * k1 * u * v)),
+             (f * (2 * k1 * u * v), f * (d + 2 * k1 * v * v)))
+        return (f * (u * d) + cx, f * (v * d) + cy, a,
+                [(u * d, v * d), (one, zero), (zero, one),
+                 (f * u * r2, f * v * r2)])
+    if model_id == 3:       # RADIAL: f, cx, cy, k1, k2
+        f, cx, cy, k1, k2 = k
+        r2 = u * u + v * v
+        d = 1.0 + k1 * r2 + k2 * r2 * r2
+        dd = 2.0 * (k1 + 2.0 * k2 * r2)
+        a = ((f * (d + dd * u * u), f * (dd * u * v)),
+             (f * (dd * u * v), f * (d + dd * v * v)))
+        return (f * (u * d) + cx, f * (v * d) + cy, a,
+                [(u * d, v * d), (one, zero), (zero, one),
+                 (f * u * r2, f * v * r2), (f * u * r2 * r2, f * v * r2 * r2)])
+    if model_id in (4, 6):  # OPENCV: fx, fy, cx, cy, k1, k2, p1, p2;
+        #                     FULL_OPENCV adds k3, k4, k5, k6
+        fx, fy, cx, cy, k1, k2, p1, p2 = k[:8]
+        u2, v2, uv = u * u, v * v, u * v
+        r2 = u2 + v2
+        r4 = r2 * r2
+        if model_id == 4:
+            radial = k1 * r2 + k2 * r4
+            drad = 2.0 * (k1 + 2.0 * k2 * r2)
+            rad1 = 1.0 + radial
+        else:
+            k3, k4, k5, k6 = k[8:]
+            r6 = r4 * r2
+            num = 1.0 + k1 * r2 + k2 * r4 + k3 * r6
+            den = 1.0 + k4 * r2 + k5 * r4 + k6 * r6
+            inv_d = 1.0 / den
+            radial = num * inv_d
+            dnum = k1 + 2.0 * k2 * r2 + 3.0 * k3 * r4
+            dden = k4 + 2.0 * k5 * r2 + 3.0 * k6 * r4
+            drad = 2.0 * (dnum - radial * dden) * inv_d
+            rad1 = radial
+        xp = u * rad1 + 2.0 * p1 * uv + p2 * (r2 + 2.0 * u2)
+        yp = v * rad1 + 2.0 * p2 * uv + p1 * (r2 + 2.0 * v2)
+        dxp_du = rad1 + u2 * drad + 2.0 * p1 * v + 6.0 * p2 * u
+        dxy = uv * drad + 2.0 * p1 * u + 2.0 * p2 * v
+        dyp_dv = rad1 + v2 * drad + 2.0 * p2 * u + 6.0 * p1 * v
+        a = ((fx * dxp_du, fx * dxy), (fy * dxy, fy * dyp_dv))
+        tang = [(fx * 2.0 * uv, fy * (r2 + 2.0 * v2)),
+                (fx * (r2 + 2.0 * u2), fy * 2.0 * uv)]
+        if model_id == 4:
+            dk = f2_rows(xp, yp) + [(fx * u * r2, fy * v * r2),
+                                    (fx * u * r4, fy * v * r4)] + tang
+        else:
+            nd2 = radial * inv_d
+            dk = f2_rows(xp, yp) + [
+                (fx * u * r2 * inv_d, fy * v * r2 * inv_d),
+                (fx * u * r4 * inv_d, fy * v * r4 * inv_d)] + tang + [
+                (fx * u * r6 * inv_d, fy * v * r6 * inv_d),
+                (-fx * u * r2 * nd2, -fy * v * r2 * nd2),
+                (-fx * u * r4 * nd2, -fy * v * r4 * nd2),
+                (-fx * u * r6 * nd2, -fy * v * r6 * nd2)]
+        return fx * xp + cx, fy * yp + cy, a, dk
+    if model_id in (5, 8, 9):  # OPENCV_FISHEYE: fx, fy, cx, cy, k1..k4;
+        #                        SIMPLE_RADIAL_FISHEYE: f, cx, cy, k1;
+        #                        RADIAL_FISHEYE: f, cx, cy, k1, k2
+        if model_id == 5:
+            fx, fy, cx, cy, k1, k2, k3, k4 = k
+        else:
+            fx, cx, cy, k1 = k[:4]
+            fy = fx
+            k2 = k[4] if model_id == 9 else zero
+        u2, v2, uv = u * u, v * v, u * v
+        r2 = u2 + v2
+        r = torch.sqrt(r2)
+        safe_r = torch.clamp(r, min=1e-12)
+        small = r < 1e-8
+        theta = torch.atan(r)
+        t2 = theta * theta
+        t4 = t2 * t2
+        if model_id == 5:
+            poly = 1.0 + k1 * t2 + k2 * t4 + k3 * t4 * t2 + k4 * t4 * t4
+            dpoly = (2.0 * k1 + 4.0 * k2 * t2 + 6.0 * k3 * t4
+                     + 8.0 * k4 * t4 * t2)
+            dthetad = poly + t2 * dpoly
+        else:
+            poly = 1.0 + k1 * t2 + k2 * t4
+            dthetad = 1.0 + 3.0 * k1 * t2 + 5.0 * k2 * t4
+        s = torch.where(small, one, theta * poly / safe_r)
+        g = torch.where(small, 2.0 * (k1 - 1.0 / 3.0),
+                        (dthetad / (1.0 + r2) - s)
+                        / torch.clamp(r2, min=1e-24))
+        xp, yp = u * s, v * s
+        a = ((fx * (s + u2 * g), fx * uv * g),
+             (fy * uv * g, fy * (s + v2 * g)))
+        t1r = torch.where(small, r2, theta * t2 / safe_r)
+        if model_id == 5:
+            dk = f2_rows(xp, yp) + [(fx * u * d, fy * v * d) for d in (
+                t1r, t1r * t2, t1r * t4, t1r * t4 * t2)]
+        else:
+            dk = [(xp, yp), (one, zero), (zero, one),
+                  (fx * u * t1r, fx * v * t1r)]
+            if model_id == 9:
+                dk.append((fx * u * t1r * t2, fx * v * t1r * t2))
+        return fx * xp + cx, fy * yp + cy, a, dk
+    if model_id == 7:       # FOV: fx, fy, cx, cy, omega
+        fx, fy, cx, cy, omega = k
+        u2, v2, uv = u * u, v * v, u * v
+        r2 = u2 + v2
+        r = torch.sqrt(r2)
+        small_r = r2 < 1e-4
+        tanh = torch.tan(omega * 0.5)
+        aa = 2.0 * tanh
+        safe_om = torch.where(torch.abs(omega) > 1e-12, omega, one)
+        small_om = omega * omega < 1e-4
+        s_main = torch.atan(aa * r) / (torch.clamp(r, min=1e-12) * safe_om)
+        s_small = ((-2.0 * tanh * (4.0 * r2 * tanh * tanh - 3.0))
+                   / (3.0 * safe_om))
+        s_om = omega * omega * r2 / 3.0 - omega * omega / 12.0 + 1.0
+        s = torch.where(small_om, s_om, torch.where(small_r, s_small, s_main))
+        # g's main branch and d(s)/d(omega) as csrc Head<7> evaluates
+        # them: in double, from tan(omega / 2) in double (the reference's
+        # float32 forms cancel).
+        td = torch.tan(omega.double() * 0.5)
+        ad = 2.0 * td
+        x = ad * r.double()
+        g_main = (ad * ad * ad / safe_om * (
+            (x / (1.0 + x * x) - torch.atan(x)) / (x * x * x))).float()
+        g_small = -2.0 * aa * aa * aa / (3.0 * safe_om)
+        g = torch.where(small_om, 2.0 * omega * omega / 3.0,
+                        torch.where(small_r, g_small, g_main))
+        sd = torch.where(
+            small_r, -2.0 * td * (4.0 * r2.double() * td * td - 3.0)
+            / (3.0 * safe_om.double()),
+            torch.atan(x) / (torch.clamp(r, min=1e-12).double() * safe_om))
+        dsdo_main = ((1.0 + 0.25 * ad * ad)
+                     / (safe_om.double() * (1.0 + ad * ad * r2))
+                     - sd / safe_om).float()
+        dsdo = torch.where(small_om, 2.0 * omega * r2 / 3.0 - omega / 6.0,
+                           dsdo_main)
+        xp, yp = u * s, v * s
+        a = ((fx * (s + u2 * g), fx * uv * g),
+             (fy * uv * g, fy * (s + v2 * g)))
+        return (fx * xp + cx, fy * yp + cy, a,
+                f2_rows(xp, yp) + [(fx * u * dsdo, fy * v * dsdo)])
+    if model_id == 10:      # THIN_PRISM_FISHEYE:
+        #                     fx, fy, cx, cy, k1, k2, p1, p2, k3, k4, sx1, sy1
+        fx, fy, cx, cy, k1, k2, p1, p2, k3, k4, sx1, sy1 = k
+        r2 = u * u + v * v
+        r = torch.sqrt(r2)
+        safe_r = torch.clamp(r, min=1e-12)
+        small = r < 1e-8
+        theta = torch.atan(r)
+        s = torch.where(small, one, theta / safe_r)   # equidistant pre-map
+        gs = torch.where(small, torch.full_like(u, -2.0 / 3.0),
+                         (1.0 / (1.0 + r2) - s)
+                         / torch.clamp(r2, min=1e-24))
+        up, vp = u * s, v * s
+        j00 = s + u * u * gs
+        j01 = u * v * gs
+        j11 = s + v * v * gs
+        q2 = up * up + vp * vp
+        q4 = q2 * q2
+        q6 = q4 * q2
+        q8 = q6 * q2
+        uvp = up * vp
+        radial = k1 * q2 + k2 * q4 + k3 * q6 + k4 * q8
+        drad = 2.0 * (k1 + 2.0 * k2 * q2 + 3.0 * k3 * q4 + 4.0 * k4 * q6)
+        xp = (up * (1.0 + radial) + 2.0 * p1 * uvp
+              + p2 * (q2 + 2.0 * up * up) + sx1 * q2)
+        yp = (vp * (1.0 + radial) + 2.0 * p2 * uvp
+              + p1 * (q2 + 2.0 * vp * vp) + sy1 * q2)
+        b00 = (1.0 + radial + up * up * drad + 2.0 * p1 * vp + 6.0 * p2 * up
+               + 2.0 * sx1 * up)
+        b01 = uvp * drad + 2.0 * p1 * up + 2.0 * p2 * vp + 2.0 * sx1 * vp
+        b10 = uvp * drad + 2.0 * p2 * vp + 2.0 * p1 * up + 2.0 * sy1 * up
+        b11 = (1.0 + radial + vp * vp * drad + 2.0 * p2 * up + 6.0 * p1 * vp
+               + 2.0 * sy1 * vp)
+        a = ((fx * (b00 * j00 + b01 * j01), fx * (b00 * j01 + b01 * j11)),
+             (fy * (b10 * j00 + b11 * j01), fy * (b10 * j01 + b11 * j11)))
+        dk = f2_rows(xp, yp) + [
+            (fx * up * q2, fy * vp * q2), (fx * up * q4, fy * vp * q4),
+            (fx * 2.0 * uvp, fy * (q2 + 2.0 * vp * vp)),
+            (fx * (q2 + 2.0 * up * up), fy * 2.0 * uvp),
+            (fx * up * q6, fy * vp * q6), (fx * up * q8, fy * vp * q8),
+            (fx * q2, zero), (zero, fy * q2)]
+        return fx * xp + cx, fy * yp + cy, a, dk
+    raise ValueError(f"camera model {model_id}")
 
 
 def _linearize_lanes(static, par, pts, lay, opt):
@@ -522,7 +719,10 @@ def _reduce_lanes(static, par, pts, lam, lay: KernelLayout, opt):
     d_l = lam * torch.clamp(hdiag, 1e-6, 1e32)
     Hd = [Hpp[0] + d_l[0] + 1e-12, Hpp[1], Hpp[2],
           Hpp[3] + d_l[1] + 1e-12, Hpp[4], Hpp[5] + d_l[2] + 1e-12]
-    Hinv = _sym3_inv_rows(Hd)
+    # The damped inverse in double, rounded once (a point seen once has
+    # a rank-2 Hpp, and its float32 inverse cancels by up to 1/lambda);
+    # Lp is the Cholesky factor of that stored inverse, in float32.
+    Hinv = [h.float() for h in _sym3_inv_rows([h.double() for h in Hd])]
     Lp = _chol3_rows(Hinv)
     pt_pay = torch.cat([g_pts, hdiag, torch.stack(Hinv), torch.stack(Lp),
                         static.free_pts[None]])
@@ -718,9 +918,8 @@ def _check_static(static, lay):
 
 def _check_model(opt):
     if opt.model_id not in CUDA_MODELS:
-        raise NotImplementedError(
-            f"camera model {opt.model_id}: CUDA kernel head not yet ported "
-            f"(ported: {CUDA_MODELS})")
+        raise ValueError(f"camera model {opt.model_id}: the CUDA kernels "
+                         f"carry models {CUDA_MODELS[0]}-{CUDA_MODELS[-1]}")
 
 
 def _stream():
@@ -760,7 +959,8 @@ def fused_schur(static: KernelStatic, par, pts, lam, lay: KernelLayout,
     s_corr, img_red, ey = torch.zeros(sum(sizes0), **f32).split(sizes0)
     s_corr = s_corr.view(lay.Dk, lay.Dk)
     img_red = img_red.view(lay.Npad, lay.DI)
-    sizes1 = (t.n_groups * K1B_GROUP_WORDS + t.n_units * K1B_ENTRIES,
+    sizes1 = (t.n_groups * k1b_group_words(lay.nparams)
+              + t.n_units * k1b_entries(lay.nparams),
               lay.JW * lay.Pp * lay.K, PT_ROWS * lay.Pp)
     scratch, jw, pt_pay = torch.empty(sum(sizes1), **f32).split(sizes1)
     jw = jw.view(lay.JW, lay.Pp * lay.K)

@@ -11,14 +11,19 @@ Port of the single-device part of ``sba_tpu/optim/ba.py``:
 - `_solve_step_explicit_pm` is the point-major explicit-Schur step: point
   blocks are eliminated in closed form, the reduced camera system
   ``S = B + lam D - EL EL^T`` is assembled dense and solved by Cholesky.
+- `_make_operators` builds the implicit Schur operators of one COO
+  linearization (segment sums by image, camera and point); `_pcg` and
+  `_dense_schur_solve` solve the reduced camera system with them, and
+  `_solve_step` adds the back-substitution and the predicted reduction.
 - `_bundle_adjust_impl` is the LM trust-region loop (Madsen-Nielsen
   damping, accept/reject on actual vs predicted reduction) as a Python
   loop with one host sync per iteration for the stopping test.
 
 `bundle_adjust` dispatches float32 problems on CUDA to the fused kernel
 path (optim/ba_fused.py: dense Schur up to 128 images, implicit PCG
-above) and everything else to the explicit step. The PCG, dense and COO
-step variants and the SPMD path are not ported yet.
+above), and everything else as sba_tpu does: the explicit step while its
+couplings fit EXPLICIT_SCHUR_MAX_BYTES, else the dense or the PCG step.
+The COO explicit step and the SPMD path are not ported yet.
 """
 
 from __future__ import annotations
@@ -36,6 +41,9 @@ from sba_tpu_torch.ops.ba_kernels import intrinsic_refine_mask
 from sba_tpu_torch.optim.losses import loss_value, loss_weight
 
 MAXP = camera_models.MAX_NUM_PARAMS  # 12
+# The explicit step stores the whitened couplings [6N + 12C, 3P]; above
+# this many bytes `bundle_adjust` takes the dense or the PCG step.
+EXPLICIT_SCHUR_MAX_BYTES = 2 * 1024 ** 3
 
 _FIELDS = ("qvecs", "tvecs", "points", "cam_params", "obs_image",
            "obs_point", "obs_cam", "obs_xy", "obs_mask", "free_rot",
@@ -112,7 +120,9 @@ class BAOptions:
     gradient_tolerance: float = 1e-12
     parameter_tolerance: float = 1e-10
     initial_trust_radius: float = 1e4   # lambda0 = 1/radius
-    solver: str = "auto"               # auto | explicit_schur | fused
+    # auto | explicit_schur | dense_schur | schur_pcg | fused
+    solver: str = "auto"
+    dense_threshold: int = 512         # max reduced dim for dense schur
     refine_focal_length: bool = True
     refine_principal_point: bool = False
     refine_extra_params: bool = True
@@ -319,6 +329,14 @@ def evaluate_cost(problem: BAProblem, options: BAOptions):
 # The LM step and loop
 # ---------------------------------------------------------------------------
 
+def _segsum(v, idx, n, dim=0):
+    """Sum the slices of v along `dim` into n slices by idx."""
+    shape = list(v.shape)
+    shape[dim] = n
+    return torch.zeros(shape, dtype=v.dtype, device=v.device).index_add_(
+        dim, idx, v)
+
+
 def _clamp_diag(d):
     return torch.clamp(d, 1e-6, 1e32)
 
@@ -344,8 +362,7 @@ def _solve_step_explicit_pm(problem: BAProblem, opt: BAOptions, lam):
         return torch.sum(v.reshape((P, K) + v.shape[1:]), dim=1)
 
     def img_reduce(v):
-        return torch.zeros((N,) + v.shape[1:], dtype=dtype,
-                           device=dev).index_add_(0, oi, v)
+        return _segsum(v, oi, N)
 
     # ---- point side ----
     g_pts = pt_reduce(torch.einsum("oki,ok->oi", Jx, r))     # [P, 3]
@@ -361,10 +378,9 @@ def _solve_step_explicit_pm(problem: BAProblem, opt: BAOptions, lam):
     Hcc_pose = img_reduce(torch.einsum("oki,okj->oij", Jc, Jc))
     Hpc_img = img_reduce(torch.einsum("oki,okj->oij", Jc, Jk))  # [N,6,12]
     img_cam = problem.image_cam.long()
-    g_cam = torch.zeros(C, MAXP, dtype=dtype, device=dev).index_add_(
-        0, img_cam, img_reduce(torch.einsum("oki,ok->oi", Jk, r)))
-    Hcc_cam = torch.zeros(C, MAXP, MAXP, dtype=dtype, device=dev).index_add_(
-        0, img_cam, img_reduce(torch.einsum("oki,okj->oij", Jk, Jk)))
+    g_cam = _segsum(img_reduce(torch.einsum("oki,ok->oi", Jk, r)), img_cam, C)
+    Hcc_cam = _segsum(img_reduce(torch.einsum("oki,okj->oij", Jk, Jk)),
+                      img_cam, C)
     d_pose_l = lam * _clamp_diag(torch.diagonal(Hcc_pose, dim1=1, dim2=2))
     d_cam_l = lam * _clamp_diag(torch.diagonal(Hcc_cam, dim1=1, dim2=2))
 
@@ -436,6 +452,198 @@ def _solve_step_explicit_pm(problem: BAProblem, opt: BAOptions, lam):
     return u_pose, u_cam, d_pts_step, predicted, g_inf
 
 
+def _make_operators(problem: BAProblem, r, Jq, Jt, Jx, Jk, lam):
+    """The implicit Schur operators of one COO linearization.
+
+    Reduced unknowns u = (pose [N,6], cam [C,12]); the points [P,3] are
+    eliminated. The operators take a leading batch of vectors
+    ([..., N, 6], [..., C, 12]), which `_dense_schur_solve` uses to
+    apply them to a basis.
+    """
+    N = problem.qvecs.shape[0]
+    P = problem.points.shape[0]
+    C = problem.cam_params.shape[0]
+    oi = problem.obs_image.long()
+    op = problem.obs_point.long()
+    oc = problem.obs_cam.long()
+    Jc = torch.cat([Jq, Jt], dim=-1)                        # [O, 2, 6]
+
+    def obs_sum(v, idx, n):                 # [..., O, d] -> [..., n, d]
+        return _segsum(v, idx, n, v.ndim - 2)
+
+    g_pose = _segsum(torch.einsum("oki,ok->oi", Jc, r), oi, N)
+    g_cam = _segsum(torch.einsum("oki,ok->oi", Jk, r), oc, C)
+    g_pts = _segsum(torch.einsum("oki,ok->oi", Jx, r), op, P)
+    d_pose_l = lam * _clamp_diag(
+        _segsum(torch.einsum("oki,oki->oi", Jc, Jc), oi, N))
+    d_cam_l = lam * _clamp_diag(
+        _segsum(torch.einsum("oki,oki->oi", Jk, Jk), oc, C))
+    d_pts_l = lam * _clamp_diag(
+        _segsum(torch.einsum("oki,oki->oi", Jx, Jx), op, P))
+    eye3 = torch.eye(3, dtype=r.dtype, device=r.device)
+    Hpp = (_segsum(torch.einsum("oki,okj->oij", Jx, Jx), op, P)
+           + torch.diag_embed(d_pts_l) + 1e-12 * eye3)
+    Hpp_inv = _sym3_inverse(Hpp)
+
+    def J_apply(u_pose, u_cam, v_pts=None):
+        """(J [u; v]) per observation -> [..., O, 2]."""
+        out = (torch.einsum("oki,...oi->...ok", Jc, u_pose[..., oi, :])
+               + torch.einsum("oki,...oi->...ok", Jk, u_cam[..., oc, :]))
+        if v_pts is not None:
+            out = out + torch.einsum("oki,...oi->...ok", Jx,
+                                     v_pts[..., op, :])
+        return out
+
+    def JT_apply_cam(t):
+        return (obs_sum(torch.einsum("oki,...ok->...oi", Jc, t), oi, N),
+                obs_sum(torch.einsum("oki,...ok->...oi", Jk, t), oc, C))
+
+    def JT_apply_pts(t):
+        return obs_sum(torch.einsum("oki,...ok->...oi", Jx, t), op, P)
+
+    def hpp_solve(y):
+        return torch.einsum("pij,...pj->...pi", Hpp_inv, y)
+
+    def schur_matvec(u_pose, u_cam):
+        """S u = (Hcc + lam Dc) u - Hcp Hpp^-1 Hpc u, implicit."""
+        t1 = J_apply(u_pose, u_cam)
+        z = hpp_solve(JT_apply_pts(t1))
+        t2 = torch.einsum("oki,...oi->...ok", Jx, z[..., op, :])
+        a_pose, a_cam = JT_apply_cam(t1 - t2)
+        return a_pose + d_pose_l * u_pose, a_cam + d_cam_l * u_cam
+
+    # SCHUR_JACOBI preconditioner blocks; fixed parameters have all-zero
+    # rows, made invertible.
+    Bp = torch.einsum("oki,okj->oij", Jc, Jx)               # [O, 6, 3]
+    Bc = torch.einsum("oki,okj->oij", Jk, Jx)               # [O, 12, 3]
+    HinvO = Hpp_inv[op]
+    S_pose = (_segsum(torch.einsum("oki,okj->oij", Jc, Jc), oi, N)
+              - _segsum(torch.einsum("oij,ojk,olk->oil", Bp, HinvO, Bp),
+                        oi, N))
+    S_cam = (_segsum(torch.einsum("oki,okj->oij", Jk, Jk), oc, C)
+             - _segsum(torch.einsum("oij,ojk,olk->oil", Bc, HinvO, Bc),
+                       oc, C))
+    free_pose = torch.cat([problem.free_rot[:, None].expand(-1, 3),
+                           problem.free_trans], dim=1)
+    S_pose = (S_pose + torch.diag_embed(d_pose_l + 1e-10)
+              + torch.diag_embed(1.0 - free_pose))
+    S_cam = (S_cam + torch.diag_embed(d_cam_l + 1e-10)
+             + torch.diag_embed(1.0 - problem.free_cam))
+    P_pose = torch.linalg.inv(S_pose)
+    P_cam = torch.linalg.inv(S_cam)
+
+    def precond(u_pose, u_cam):
+        return (torch.einsum("nij,nj->ni", P_pose, u_pose),
+                torch.einsum("cij,cj->ci", P_cam, u_cam))
+
+    # RHS: b = -g_c + Hcp Hpp^-1 g_p.
+    zp = hpp_solve(g_pts)
+    hp_pose, hp_cam = JT_apply_cam(torch.einsum("oki,oi->ok", Jx, zp[op]))
+
+    def back_substitute(u_pose, u_cam):
+        return hpp_solve(-g_pts - JT_apply_pts(J_apply(u_pose, u_cam)))
+
+    return dict(
+        schur_matvec=schur_matvec, precond=precond,
+        b_pose=-g_pose + hp_pose, b_cam=-g_cam + hp_cam,
+        back_substitute=back_substitute,
+        g_pose=g_pose, g_cam=g_cam, g_pts=g_pts,
+        d_pose_l=d_pose_l, d_cam_l=d_cam_l, d_pts_l=d_pts_l,
+        J_apply=J_apply)
+
+
+def _pcg(matvec, precond, b_pose, b_cam, iters, tol):
+    """Preconditioned CG on the reduced camera system. Stops at the
+    first iteration whose residual is under `tol` relative to b (one
+    host sync per iteration), or after `iters` matvecs."""
+
+    def dot(a, b):
+        return torch.sum(a[0] * b[0]) + torch.sum(a[1] * b[1])
+
+    x = (torch.zeros_like(b_pose), torch.zeros_like(b_cam))
+    r = (b_pose, b_cam)
+    z = precond(*r)
+    p = z
+    rz = dot(r, z)
+    thresh = tol * tol * torch.clamp(dot(r, r), min=1e-30)
+    i = 0
+    while i < iters and bool(dot(r, r) > thresh):
+        Ap = matvec(*p)
+        alpha = rz / torch.clamp(dot(p, Ap), min=1e-30)
+        x = (x[0] + alpha * p[0], x[1] + alpha * p[1])
+        r = (r[0] - alpha * Ap[0], r[1] - alpha * Ap[1])
+        z = precond(*r)
+        rz_new = dot(r, z)
+        beta = rz_new / torch.clamp(rz, min=1e-30)
+        p = (z[0] + beta * p[0], z[1] + beta * p[1])
+        rz = rz_new
+        i += 1
+    return x
+
+
+def _dense_schur_solve(matvec, b_pose, b_cam, n_obs):
+    """Materialize the reduced system by applying the implicit operator
+    to a basis and solve it by Cholesky: the DENSE_SCHUR path for small
+    reduced systems. The basis goes through the operator in chunks whose
+    largest intermediate ([chunk, n_obs, 12]) stays near 256 MiB."""
+    N, C = b_pose.shape[0], b_cam.shape[0]
+    dim = N * 6 + C * MAXP
+    eye = torch.eye(dim, dtype=b_pose.dtype, device=b_pose.device)
+    step = max(1, 2 ** 28 // (max(n_obs, 1) * MAXP * eye.element_size()))
+    rows = []
+    for c0 in range(0, dim, step):
+        e = eye[c0:c0 + step]
+        mp, mc = matvec(e[:, :N * 6].reshape(-1, N, 6),
+                        e[:, N * 6:].reshape(-1, C, MAXP))
+        rows.append(torch.cat([mp.reshape(e.shape[0], -1),
+                               mc.reshape(e.shape[0], -1)], dim=1))
+    S = torch.cat(rows).T
+    b = torch.cat([b_pose.reshape(-1), b_cam.reshape(-1)])
+    chol = torch.linalg.cholesky_ex(S)[0]
+    x = torch.cholesky_solve(b[:, None], chol)[:, 0]
+    return x[:N * 6].reshape(N, 6), x[N * 6:].reshape(C, MAXP)
+
+
+def _solve_step(problem: BAProblem, opt: BAOptions, lam):
+    """One linearization + linear solve by `opt.solver` (explicit_schur
+    on a point-major problem, dense_schur or schur_pcg on any layout).
+    Returns (u_pose, u_cam, d_pts, predicted, g_inf), the step masked."""
+    if opt.solver == "explicit_schur":
+        return _solve_step_explicit_pm(problem, opt, lam)
+    lin = _linearize(problem, opt)
+    ops = _make_operators(problem, *lin, lam)
+    if opt.solver == "dense_schur":
+        u_pose, u_cam = _dense_schur_solve(ops["schur_matvec"],
+                                           ops["b_pose"], ops["b_cam"],
+                                           lin[0].shape[0])
+    else:
+        u_pose, u_cam = _pcg(ops["schur_matvec"], ops["precond"],
+                             ops["b_pose"], ops["b_cam"],
+                             opt.cg_iterations, opt.cg_tolerance)
+    d_pts = ops["back_substitute"](u_pose, u_cam)
+
+    # Re-mask the step (numerical safety; preconditioner identity rows).
+    u_pose = u_pose * _free_pose(problem, opt)
+    u_cam = u_cam * problem.free_cam * torch.as_tensor(
+        intrinsic_refine_mask(opt), dtype=u_cam.dtype, device=u_cam.device)
+    d_pts = d_pts * problem.free_points[:, None]
+
+    # Predicted reduction: -(g^T d + 1/2 d^T H d) with H including damping.
+    t = ops["J_apply"](u_pose, u_cam, d_pts)
+    gTd = (torch.sum(ops["g_pose"] * u_pose) + torch.sum(ops["g_cam"] * u_cam)
+           + torch.sum(ops["g_pts"] * d_pts))
+    dHd = (torch.sum(t * t)
+           + torch.sum(ops["d_pose_l"] * u_pose * u_pose)
+           + torch.sum(ops["d_cam_l"] * u_cam * u_cam)
+           + torch.sum(ops["d_pts_l"] * d_pts * d_pts))
+    predicted = -(gTd + 0.5 * dHd)
+    g_inf = torch.maximum(
+        torch.max(torch.abs(ops["g_pose"])),
+        torch.maximum(torch.max(torch.abs(ops["g_cam"])),
+                      torch.max(torch.abs(ops["g_pts"]))))
+    return u_pose, u_cam, d_pts, predicted, g_inf
+
+
 def lm_update(lam, nu, cost, new_cost, predicted):
     """Madsen-Nielsen damping update (device tensors, no host sync).
     Returns (accept, actual, lam, nu)."""
@@ -460,7 +668,8 @@ def lm_done(opt: BAOptions, accept, actual, cost, g_inf, lam, step_norm,
 
 
 def _bundle_adjust_impl(problem: BAProblem, options: BAOptions):
-    """LM loop over `_solve_step_explicit_pm` (point-major problem)."""
+    """LM loop over `_solve_step` (a point-major problem for the
+    explicit step)."""
     opt = options
     cost0 = evaluate_cost(problem, opt)
     q, t, x, k = (problem.qvecs, problem.tvecs, problem.points,
@@ -475,8 +684,8 @@ def _bundle_adjust_impl(problem: BAProblem, options: BAOptions):
     it = 0
     while it < opt.max_iterations:
         prob = problem._replace(qvecs=q, tvecs=t, points=x, cam_params=k)
-        u_pose, u_cam, d_pts, predicted, g_inf = _solve_step_explicit_pm(
-            prob, opt, lam)
+        u_pose, u_cam, d_pts, predicted, g_inf = _solve_step(prob, opt,
+                                                             lam)
         q2 = quat_retract(q, u_pose[:, :3])
         t2 = t + u_pose[:, 3:]
         x2 = x + d_pts
@@ -508,30 +717,36 @@ def _bundle_adjust_impl(problem: BAProblem, options: BAOptions):
 
 
 def bundle_adjust(problem: BAProblem, options: Optional[BAOptions] = None):
-    """Solve. float32 problems on CUDA go through the fused kernels
-    (raising for what those do not cover yet); everything else runs the
-    point-major explicit-Schur step."""
+    """Solve. float32 problems on CUDA go through the fused kernels.
+    Everything else is routed as sba_tpu routes it: the point-major
+    explicit-Schur step while its couplings fit
+    EXPLICIT_SCHUR_MAX_BYTES (solver auto or explicit_schur); otherwise
+    the dense step for solver dense_schur, or under auto for a reduced
+    system of at most `dense_threshold` unknowns, and the PCG step for
+    the rest. (sba_tpu's explicit_schur above the limit takes its COO
+    explicit step, which is not ported: the port takes the PCG step.)"""
     options = options or BAOptions()
-    if (options.solver in ("auto", "fused") and problem.points.is_cuda
-            and problem.points.dtype == torch.float32):
+    if options.solver not in ("auto", "fused", "explicit_schur",
+                              "dense_schur", "schur_pcg"):
+        raise ValueError(f"unknown solver {options.solver!r}")
+    if options.solver in ("auto", "fused"):
         from sba_tpu_torch.optim import ba_fused
 
-        if not ba_fused.can_use_fused(problem, options):
-            raise NotImplementedError(
-                f"camera model {options.model_id}: CUDA kernel head not "
-                "yet ported")
-        return ba_fused.bundle_adjust_fused(problem, options)
-    if options.solver not in ("auto", "fused", "explicit_schur"):
-        raise NotImplementedError(f"solver {options.solver!r} not ported")
+        if ba_fused.can_use_fused(problem, options):
+            return ba_fused.bundle_adjust_fused(problem, options)
     n, c, p = (problem.qvecs.shape[0], problem.cam_params.shape[0],
                problem.points.shape[0])
-    bytes_needed = (6 * n + 12 * c) * 3 * p * problem.points.element_size()
-    if bytes_needed > 2 * 1024 ** 3:
-        raise NotImplementedError(
-            "problem too large for the explicit Schur step; the PCG step "
-            "is not ported")
-    problem = to_point_major(problem)
-    options = dataclasses.replace(options, solver="explicit_schur")
+    reduced = 6 * n + MAXP * c
+    fits = (reduced * 3 * p * problem.points.element_size()
+            <= EXPLICIT_SCHUR_MAX_BYTES)
+    if fits and options.solver in ("auto", "fused", "explicit_schur"):
+        options = dataclasses.replace(options, solver="explicit_schur")
+        return _bundle_adjust_impl(to_point_major(problem), options)
+    dense = options.solver == "dense_schur" or (
+        options.solver in ("auto", "fused")
+        and reduced <= options.dense_threshold)
+    options = dataclasses.replace(
+        options, solver="dense_schur" if dense else "schur_pcg")
     return _bundle_adjust_impl(problem, options)
 
 

@@ -56,11 +56,9 @@ def use_implicit(lay, options: BAOptions) -> bool:
 
 
 def can_use_fused(problem: BAProblem, options: BAOptions) -> bool:
-    """The problem's tensors are float32 on CUDA and the camera model is
-    one whose CUDA kernel heads are ported."""
-    return (problem.points.is_cuda
-            and problem.points.dtype == torch.float32
-            and options.model_id in bk.CUDA_MODELS)
+    """The problem's tensors are float32 on CUDA (the kernels carry a
+    head for every camera model; `bk.CUDA_MODELS`)."""
+    return problem.points.is_cuda and problem.points.dtype == torch.float32
 
 
 def _pcg(matvec, b, prec, opt: BAOptions, x0=None):

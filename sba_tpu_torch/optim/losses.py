@@ -53,7 +53,7 @@ LOSSES = {
     "cauchy": (_cauchy, _cauchy_d),
 }
 
-# Integer ids the CUDA kernels switch on (csrc/ba_kernels.cu, loss_*).
+# Integer ids the CUDA kernels switch on (csrc/ba_kernels.cuh, loss_*).
 LOSS_IDS = {name: i for i, name in enumerate(LOSSES)}
 
 

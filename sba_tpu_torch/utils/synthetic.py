@@ -30,12 +30,16 @@ def make_ba_problem_numpy(
     image_size=(640, 480),
     focal: float = 500.0,
     observations_per_point: int | None = None,
+    params=None,
 ):
     """Synthetic BA problem with known ground truth, as numpy arrays.
 
     Cameras on an arc looking at a point cloud in front of them. Gauge:
-    pose 0 constant, tvec x of image 1 constant. Returns (fields, truth):
-    `fields` maps `BAProblem` field names to float64 / int32 arrays.
+    pose 0 constant, tvec x of image 1 constant. `params` replaces the
+    camera model's initial parameters (its `init_params` at `focal`),
+    for instance to observe through a distortion. Returns (fields,
+    truth): `fields` maps `BAProblem` field names to float64 / int32
+    arrays.
     """
     rng = np.random.default_rng(seed)
     w, h = image_size
@@ -54,7 +58,8 @@ def make_ba_problem_numpy(
         tvecs[i] = -np_quat_rotate(qvecs[i], centers)
 
     spec = camera_models.model_by_id(model_id)
-    params = np.array(spec.init_params(focal, w, h), np.float64)
+    params = np.array(spec.init_params(focal, w, h) if params is None
+                      else params, np.float64)
     cam_params = np.zeros((1, MAXP))
     cam_params[0, : len(params)] = params
 
@@ -126,6 +131,8 @@ def make_sequential_ba_problem_numpy(
     seed: int = 0,
     image_size=(640, 480),
     focal: float = 500.0,
+    model_id: int = 0,
+    params=None,
 ):
     """Large sequential-capture scene, vectorized numpy.
 
@@ -134,7 +141,10 @@ def make_sequential_ba_problem_numpy(
     of ordered capture). Out-of-view observations are masked, not
     dropped, so every track has exactly `track_len` slots and the fused
     path needs a single bucket. Gauge: pose 0 constant, tvec x of image
-    1 constant. Returns (fields, truth) like `make_ba_problem_numpy`.
+    1 constant. The camera is SIMPLE_PINHOLE (focal, w/2, h/2) unless
+    `params` gives the parameters of camera model `model_id`, through
+    which the points are then observed. Returns (fields, truth) like
+    `make_ba_problem_numpy`.
     """
     rng = np.random.default_rng(seed)
     w, h = image_size
@@ -166,14 +176,20 @@ def make_sequential_ba_problem_numpy(
         + tvecs[obs_image]
     z = np.maximum(p_cam[:, 2], 1e-6)
     uv = p_cam[:, :2] / z[:, None]
-    xy = focal * uv + np.array([w / 2.0, h / 2.0])
+    if params is None:
+        params = np.array([focal, w / 2.0, h / 2.0])
+        xy = focal * uv + np.array([w / 2.0, h / 2.0])
+    else:
+        params = np.asarray(params, np.float64)
+        xy = camera_models.model_by_id(model_id).world_to_image(
+            torch.from_numpy(params), torch.from_numpy(uv)).numpy()
     if pixel_noise:
         xy = xy + rng.normal(scale=pixel_noise, size=xy.shape)
     mask = ((p_cam[:, 2] > 0.1) & (xy[:, 0] >= -50) & (xy[:, 0] < w + 50)
             & (xy[:, 1] >= -50) & (xy[:, 1] < h + 50)).astype(np.float64)
 
     cam_params = np.zeros((1, MAXP))
-    cam_params[0, :3] = [focal, w / 2.0, h / 2.0]
+    cam_params[0, :len(params)] = params
     truth = dict(qvecs=qvecs.copy(), tvecs=tvecs.copy(), points=pts.copy(),
                  cam_params=cam_params.copy())
 
@@ -246,18 +262,23 @@ def rename_images(static, par, perm):
 
 def make_synthetic_reconstruction(num_images: int = 8, num_points: int = 120,
                                   seed: int = 0, image_size=(640, 480),
-                                  focal: float = 500.0) -> Reconstruction:
+                                  focal: float = 500.0, model_id: int = 0,
+                                  params=None,
+                                  observations_per_point: int | None = None
+                                  ) -> Reconstruction:
     """Exact synthetic `Reconstruction` from the `make_ba_problem`
-    geometry (SIMPLE_PINHOLE camera, points seen by >= 2 images)."""
+    geometry (points seen by >= 2 images). The camera is SIMPLE_PINHOLE
+    at `focal`, or camera model `model_id` with its `params`."""
     fields, truth = make_ba_problem_numpy(
         num_images=num_images, num_points=num_points, seed=seed,
-        image_size=image_size, focal=focal)
+        image_size=image_size, focal=focal, model_id=model_id,
+        params=params, observations_per_point=observations_per_point)
     qvecs, tvecs, pts = truth["qvecs"], truth["tvecs"], truth["points"]
-    spec = camera_models.model_by_id(0)
+    spec = camera_models.model_by_id(model_id)
     w, h = image_size
 
     rec = Reconstruction()
-    rec.add_camera(Camera(camera_id=1, model_id=0, width=w, height=h,
+    rec.add_camera(Camera(camera_id=1, model_id=model_id, width=w, height=h,
                           params=np.asarray(
                               truth["cam_params"][0, :spec.num_params],
                               np.float64)))
@@ -265,24 +286,27 @@ def make_synthetic_reconstruction(num_images: int = 8, num_points: int = 120,
     obs_point = fields["obs_point"]
     obs_xy = fields["obs_xy"]
 
-    kp_rows = {i: np.nonzero(obs_image == i)[0] for i in range(num_images)}
+    # Keypoint index of each observation within its image (rows in order).
+    by_image = np.argsort(obs_image, kind="stable")
+    starts = np.searchsorted(obs_image[by_image], np.arange(num_images))
+    kp = np.empty(len(obs_image), np.int64)
+    kp[by_image] = np.arange(len(obs_image)) - starts[obs_image[by_image]]
     for i in range(num_images):
-        rows = kp_rows[i]
+        rows = by_image[obs_image[by_image] == i]
         rec.add_image(Image(
             image_id=i + 1, qvec=qvecs[i].copy(), tvec=tvecs[i].copy(),
             camera_id=1, name=f"image{i:04d}.png",
             xys=obs_xy[rows].astype(np.float64),
             point3D_ids=np.full(len(rows), -1, np.int64)), registered=True)
 
+    by_point = np.argsort(obs_point, kind="stable")
+    bounds = np.searchsorted(obs_point[by_point], np.arange(num_points + 1))
     for p in range(num_points):
-        rows = np.nonzero(obs_point == p)[0]
+        rows = by_point[bounds[p]:bounds[p + 1]]
         if len(rows) < 2:
             continue
-        track = []
-        for r in rows:
-            img = int(obs_image[r])
-            track.append((img + 1, int(np.searchsorted(kp_rows[img], r))))
-        rec.add_point3d(pts[p], track)
+        rec.add_point3d(pts[p], list(zip((obs_image[rows] + 1).tolist(),
+                                         kp[rows].tolist())))
     return rec
 
 

@@ -153,3 +153,110 @@ def test_cli_bundle_adjuster(tmp_path, capsys):
     out = TRec.read(str(tmp_path / "out"))
     assert len(out.images) == 5
     assert out.compute_mean_reprojection_error() < 1e-3 * err0
+
+
+def _f1_scene(pixel_noise):
+    """tests/test_ba.py::test_recovery_noisefree_observations's scene
+    (and the same with pixel noise), as a JAX and as a port problem."""
+    j_prob, _ = j_make_ba_problem(num_images=5, num_points=60,
+                                  pose_noise=0.02, point_noise=0.05,
+                                  pixel_noise=pixel_noise, seed=1)
+    t_prob = tba.problem_from_numpy(
+        {k: np.asarray(v) for k, v in j_prob._asdict().items()
+         if v is not None}, device="cpu")
+    return j_prob, t_prob
+
+
+@pytest.mark.parametrize("pixel_noise", [0.0, 0.5])
+@pytest.mark.parametrize("solver", ["dense_schur", "schur_pcg"])
+def test_implicit_solvers_match_sba_tpu(solver, pixel_noise):
+    """The f64 dense-Schur and PCG solves end where sba_tpu's do: final
+    cost (rtol 1e-6) and poses (atol 1e-6)."""
+    j_prob, t_prob = _f1_scene(pixel_noise)
+    out_j, s_j = jba.bundle_adjust(j_prob, jba.BAOptions(solver=solver))
+    out_t, s_t = tba.bundle_adjust(t_prob, tba.BAOptions(solver=solver))
+    assert float(s_t.final_cost) < 1e-3 * float(s_t.initial_cost)
+    np.testing.assert_allclose(float(s_t.final_cost), float(s_j.final_cost),
+                               rtol=1e-6, atol=1e-12)
+    np.testing.assert_allclose(out_t.qvecs.numpy(), np.asarray(out_j.qvecs),
+                               atol=1e-6)
+    np.testing.assert_allclose(out_t.tvecs.numpy(), np.asarray(out_j.tvecs),
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("solver", ["dense_schur", "schur_pcg"])
+def test_implicit_step_f64_matches_sba_tpu(solver):
+    """One dense or PCG step (`_solve_step` over `_make_operators`) on an
+    OPENCV scene with free intrinsics and a robust loss."""
+    j_prob, t_prob = _problems(4, observations_per_point=None)
+    cam = np.array(j_prob.cam_params)
+    cam[:, 4:8] = (0.02, -0.005, 1e-3, -2e-3)
+    free_cam = np.ones_like(cam)
+    j_prob = j_prob._replace(cam_params=cam, free_cam=free_cam)
+    t_prob = t_prob._replace(cam_params=torch.as_tensor(cam),
+                             free_cam=torch.as_tensor(free_cam))
+    kw = dict(model_id=4, solver=solver, loss="huber", cg_tolerance=1e-12)
+    step = jax.jit(jba._solve_step, static_argnums=(1, 3))
+    out_j = step(j_prob, jba.BAOptions(**kw), jnp.float64(1e-3),
+                 solver == "dense_schur")
+    out_t = tba._solve_step(t_prob, tba.BAOptions(**kw),
+                            torch.tensor(1e-3, dtype=torch.float64))
+    for name, a, b in zip(("u_pose", "u_cam", "d_pts", "predicted", "g_inf"),
+                          out_t, out_j):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a.numpy(), b, rtol=1e-8,
+                                   atol=1e-10 * max(np.abs(b).max(), 1.0),
+                                   err_msg=name)
+
+
+def _routed_step(module, monkeypatch):
+    """Record the step `module.bundle_adjust` routes to instead of
+    solving: explicit (point-major), explicit_coo, dense or pcg."""
+    seen = []
+
+    def record(problem, options, use_dense=None):
+        if options.solver == "explicit_schur":
+            seen.append("explicit_coo" if getattr(
+                options, "obs_layout", "point_major") == "coo"
+                else "explicit")
+        else:
+            dense = (options.solver == "dense_schur" if use_dense is None
+                     else use_dense)
+            seen.append("dense" if dense else "pcg")
+        return None, None
+
+    monkeypatch.setattr(module, "_bundle_adjust_impl", record)
+    return seen
+
+
+@pytest.mark.parametrize("dense_threshold", [512, 16])
+@pytest.mark.parametrize("over_limit", [False, True])
+@pytest.mark.parametrize("solver", ["auto", "explicit_schur", "dense_schur",
+                                    "schur_pcg"])
+def test_solver_routing_matches_sba_tpu(monkeypatch, solver, over_limit,
+                                        dense_threshold):
+    """`bundle_adjust` picks sba_tpu's step for every solver, with the
+    couplings under and over the explicit step's byte limit (the port's
+    limit is lowered instead of allocating 2 GiB; sba_tpu's fixed one is
+    passed by a zero-stride stand-in for the points, which its routing
+    reads only the shape of), and with the reduced system (42 unknowns)
+    under and over `dense_threshold`. The one difference: sba_tpu's
+    explicit_schur over the limit takes its COO explicit step, which is
+    not ported, and the port the PCG step."""
+    j_prob, t_prob = _problems(0)
+    if over_limit:
+        monkeypatch.setattr(tba, "EXPLICIT_SCHUR_MAX_BYTES", 1)
+        reduced = 6 * j_prob.qvecs.shape[0] + 12
+        rows = 2 * 1024 ** 3 // (reduced * 3 * 8) + 1
+        j_prob = j_prob._replace(points=np.broadcast_to(
+            np.zeros(3), (rows, 3)))
+    seen_j = _routed_step(jba, monkeypatch)
+    seen_t = _routed_step(tba, monkeypatch)
+    jba.bundle_adjust(j_prob, jba.BAOptions(
+        solver=solver, dense_threshold=dense_threshold))
+    tba.bundle_adjust(t_prob, tba.BAOptions(
+        solver=solver, dense_threshold=dense_threshold))
+    expect = {"explicit_coo": "pcg"}.get(seen_j[0], seen_j[0])
+    assert seen_t == [expect]
+    assert (seen_j[0] == "explicit") == (solver in ("auto", "explicit_schur")
+                                         and not over_limit)

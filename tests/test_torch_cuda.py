@@ -21,6 +21,56 @@ pytestmark = pytest.mark.cuda
 
 _SMALL = dict(num_images=6, num_points=150, observations_per_point=4,
               pose_noise=0.01, point_noise=0.05, pixel_noise=0.5, seed=0)
+# tests/test_ba_fused.py's small distortion per camera model.
+_DISTORT = {
+    2: {3: 0.02},
+    3: {3: 0.02, 4: -0.005},
+    4: {4: 0.02, 5: -0.005, 6: 1e-3, 7: -2e-3},
+    5: {4: 0.02, 5: -0.005, 6: 1e-3, 7: -2e-3},
+    6: {4: 0.02, 5: -0.005, 6: 1e-3, 7: -2e-3, 8: 1e-3,
+        9: 0.01, 10: -2e-3, 11: 5e-4},
+    7: {4: 0.08},
+    8: {3: 0.02},
+    9: {3: 0.02, 4: -0.005},
+    10: {4: 0.02, 5: -0.005, 6: 1e-3, 7: -2e-3, 8: 1e-3, 9: -5e-4,
+         10: 8e-4, 11: -6e-4},
+}
+# Offsets (u = v) from image 0's principal point of `_near_axis`'s points:
+# on the axis, under and over the fisheye guard r < 1e-8, under and over
+# FOV's r^2 < 1e-4.
+_NEAR_AXIS = (0.0, 3e-9, 2e-8, 4e-3, 6.5e-3, 9e-3)
+
+
+def _model_problem(device, model_id, center=False, free_cam=True, **kw):
+    """The small scene observed through camera model `model_id` with
+    `_DISTORT`'s terms, every camera parameter free (`free_cam`, else
+    all constant); with `center`,
+    image 0 at the identity pose and one point it sees on each ray of
+    `_NEAR_AXIS`."""
+    from sba_tpu_torch.geometry import camera_models
+
+    params = np.array(camera_models.model_by_id(model_id).init_params(
+        500.0, 640, 480), np.float64)
+    for i, val in _DISTORT.get(model_id, {}).items():
+        params[i] = val
+    problem, _ = make_ba_problem(dtype=torch.float32, device=device,
+                                 model_id=model_id, params=params,
+                                 **dict(_SMALL, **kw))
+    if free_cam:
+        problem = problem._replace(
+            free_cam=torch.ones_like(problem.free_cam))
+    if not center:
+        return problem
+    oi = problem.obs_image.cpu().numpy()
+    seen = np.unique(problem.obs_point.cpu().numpy()[oi == 0])
+    pts = problem.points.clone()
+    for p, e in zip(seen, _NEAR_AXIS):
+        depth = 8.0 + p % 3
+        pts[p] = torch.tensor([e * depth, e * depth, depth])
+    q, t = problem.qvecs.clone(), problem.tvecs.clone()
+    q[0] = torch.tensor([1.0, 0.0, 0.0, 0.0])
+    t[0] = 0.0
+    return problem._replace(qvecs=q, tvecs=t, points=pts)
 
 
 @pytest.fixture
@@ -36,11 +86,8 @@ def _rel_err(a, b):
                  / b.double().abs().max().clamp(min=1e-30))
 
 
-@pytest.mark.parametrize("model_id", [0, 1, 2])
-def test_kernels_match_twins(cuda, model_id):
-    problem, _ = make_ba_problem(dtype=torch.float32, device=cuda,
-                                 model_id=model_id, **_SMALL)
-    opt = BAOptions(model_id=model_id, dtype="float32", schur_bf16=False)
+def _check_dense_kernels(cuda, problem, opt):
+    """K1, K4 and K5 against their twins on the problem's buckets."""
     statics, lays, pts0, _, prob, _, _ = ba_fused.prepare(problem, opt)
     par = bk.pack_params(prob.qvecs, prob.tvecs, prob.cam_params,
                          statics[0].image_cam, lays[0])
@@ -52,9 +99,59 @@ def test_kernels_match_twins(cuda, model_id):
                                    k1, p1, (3e-5, 1e-5, 3e-5, 1e-4, 1e-4)):
             assert _rel_err(a, b) <= tol, name
         dup = 1e-3 * torch.ones(6, lay.Npad, device=cuda)
-        duc = torch.zeros(12, lay.C, device=cuda)
+        duc = 1e-2 * torch.ones(12, lay.C, device=cuda)
         dp_k, acc_k = bk.backsub(st, dup, duc, k1[3], k1[4], lam, lay, opt)
         dp_p, acc_p = bk.backsub_plain(st, dup, duc, k1[3], k1[4], lam, lay,
+                                       opt)
+        assert _rel_err(dp_k, dp_p) <= 1e-4
+        assert _rel_err(acc_k, acc_p) <= 1e-4
+        c_k = bk.fused_cost(st, par, pts, lay, opt)
+        c_p = bk.fused_cost_plain(st, par, pts, lay, opt)
+        assert _rel_err(c_k, c_p) <= 1e-4
+
+
+@pytest.mark.parametrize("model_id", list(range(11)))
+def test_kernels_match_twins(cuda, model_id):
+    """K1, K4 and K5 of every camera head against their twins, the
+    intrinsics free so that the heads' derivatives fill the camera rows."""
+    _check_dense_kernels(cuda, _model_problem(cuda, model_id), BAOptions(
+        model_id=model_id, dtype="float32", schur_bf16=False))
+
+
+@pytest.mark.parametrize("model_id", [5, 7, 8, 9, 10])
+def test_heads_near_the_principal_point_match_twins(cuda, model_id):
+    """The fisheye and FOV heads' guards: K1, K4 and K5 against their
+    twins with points at and near image 0's principal point."""
+    _check_dense_kernels(cuda, _model_problem(cuda, model_id, center=True),
+                         BAOptions(model_id=model_id, dtype="float32",
+                                   schur_bf16=False))
+
+
+@pytest.mark.parametrize("model_id", list(range(3, 11)))
+def test_implicit_kernels_match_twins_per_model(cuda, model_id):
+    """K2-K5 of camera models 3-10 against their twins on the implicit
+    path: K2 in its diagonal payload mode for the 5-parameter models,
+    its 6x6 block mode for the others."""
+    problem = _model_problem(cuda, model_id)
+    opt = BAOptions(model_id=model_id, dtype="float32",
+                    fused_mode="implicit")
+    statics, lays, pts0, _, prob, _, _ = ba_fused.prepare(problem, opt)
+    par = bk.pack_params(prob.qvecs, prob.tvecs, prob.cam_params,
+                         statics[0].image_cam, lays[0])
+    lam = torch.tensor(1e-3, device=cuda)
+    for st, lay, pts in zip(statics, lays, pts0):
+        assert lay.BJ == (lay.nparams != 5)
+        k2 = bk.fused_reduce(st, par, pts, lam, lay, opt)
+        p2 = bk.fused_reduce_plain(st, par, pts, lam, lay, opt)
+        for name, a, b in zip(("img_red", "pt_pay", "jw", "jcorr"), k2, p2):
+            assert _rel_err(a.float(), b.float()) <= 1e-4, name
+        dup = 1e-3 * torch.ones(6, lay.Npad, device=cuda)
+        duc = 1e-2 * torch.ones(12, lay.C, device=cuda)
+        m_k = bk.schur_matvec(st, dup, duc, k2[3], lay, opt)
+        m_p = bk.schur_matvec_plain(st, dup, duc, k2[3], lay, opt)
+        assert _rel_err(m_k, m_p) <= 3e-5
+        dp_k, acc_k = bk.backsub(st, dup, duc, k2[1], k2[2], lam, lay, opt)
+        dp_p, acc_p = bk.backsub_plain(st, dup, duc, k2[1], k2[2], lam, lay,
                                        opt)
         assert _rel_err(dp_k, dp_p) <= 1e-4
         assert _rel_err(acc_k, acc_p) <= 1e-4
@@ -129,10 +226,24 @@ def test_fused_solve_on_card_matches_cpu_twins(cuda):
 
 
 def test_unported_pieces_raise_on_card(cuda):
-    problem, _ = make_ba_problem(dtype=torch.float32, device=cuda,
-                                 model_id=4, **_SMALL)
-    with pytest.raises(NotImplementedError, match="camera model 4"):
-        bundle_adjust(problem, BAOptions(model_id=4, dtype="float32"))
+    """An OPENCV (model 4) solve, which raised before its head was
+    ported, runs on the card through K1, K4 and K5 and ends at the CPU
+    twins' final cost (rtol 1e-3). The intrinsics stay constant, as in
+    the SIMPLE_PINHOLE solve above: with them free this 6-image problem
+    has a flat mode (focal length against distortion) that 50 LM
+    iterations do not settle, and two solves stop at different points
+    of it; with them constant both converge by 25. More than 128 images
+    run the implicit path through K2 and K3."""
+    opt = BAOptions(model_id=4, max_iterations=25, dtype="float32")
+    bk.reset_launches()
+    _, s_g = bundle_adjust(_model_problem(cuda, 4, free_cam=False), opt)
+    assert all(bk.LAUNCHES[k] > 0
+               for k in ("fused_schur", "backsub", "fused_cost"))
+    _, s_c = ba_fused.bundle_adjust_fused(
+        _model_problem("cpu", 4, free_cam=False), opt)
+    assert float(s_g.final_cost) < float(s_g.initial_cost)
+    assert abs(float(s_g.final_cost) - float(s_c.final_cost)) \
+        <= 1e-3 * float(s_c.final_cost)
     # More than 128 images: no longer raises, but runs the implicit
     # path through K2 and K3.
     big, _ = make_ba_problem(dtype=torch.float32, device=cuda,

@@ -23,7 +23,7 @@ from sba_tpu_torch.utils.synthetic import (make_sequential_ba_problem_numpy,
 
 torch.set_num_threads(1)
 
-CSRC = Path(bk.__file__).resolve().parent.parent / "csrc" / "ba_kernels.cu"
+CSRC = Path(bk.__file__).resolve().parent.parent / "csrc" / "ba_kernels.cuh"
 
 
 def _bucket(order):
