@@ -9,7 +9,9 @@ Needs one CUDA card and nvcc (found through torch's CUDA_HOME, else
 2. twins          -- K1/K4/K5 against their plain PyTorch twins on the
                      same CUDA tensors at the headline shapes (128 images,
                      30,000 points, ~7 observations per point), models 0
-                     and 2 (K1's S_corr exactly symmetric); a small solve
+                     and 2 (K1's S_corr exactly symmetric), K5 also over
+                     all buckets in one launch (two calls, the same
+                     bits); a small solve
                      through the kernels against the same solve through
                      the twins on the CPU, and bf16 against f32 S_corr;
 3. twins-implicit -- K2-K5 against their twins at the 1024-image
@@ -22,14 +24,15 @@ Needs one CUDA card and nvcc (found through torch's CUDA_HOME, else
                      same step on the CPU;
 4. twins-heads    -- camera models 3-10, each observed through a small
                      distortion (DISTORT) with its intrinsics free: K1,
-                     K4 and K5 against their twins at the headline
-                     shapes, K2-K5 on an implicit bucket (the 1024-image
+                     K4 and K5 (per bucket and over all buckets) against
+                     their twins at the headline shapes, K2-K5 on an implicit bucket (the 1024-image
                      scene for RADIAL and FULL_OPENCV, K2's diagonal and
                      block payload modes; 160 images for the rest);
 5. main           -- `bundle_adjust` on the headline problem in float32
-                     (dense path: K1, K4, K5 must launch), cost must
-                     fall; host prep (`ba_fused.prepare`) and LM it/s
-                     of a warm `solve_prepared`;
+                     (dense path: K1, K4, K5 must launch; K5 once per
+                     cost evaluation), cost must fall; host prep
+                     (`ba_fused.prepare`) and LM it/s of a warm
+                     `solve_prepared`;
 6. main-implicit  -- `bundle_adjust` on the 1024-image scene (implicit
                      path: K2, K3, K4, K5 must launch, K1 must not); LM
                      it/s, K3 launches per LM iteration, peak memory;
@@ -41,7 +44,9 @@ Needs one CUDA card and nvcc (found through torch's CUDA_HOME, else
                      THIN_PRISM_FISHEYE headlines; every cost must fall;
 8. large-ranged   -- 3 LM iterations at 10,240 images / 1.2M points
                      (ranged, bf16 couplings); host prep timed apart;
-                     K2-K5 against their twins at these shapes;
+                     K2-K5 against their twins at these shapes, K5 also
+                     over all buckets (its parameter table read in
+                     place, past shared memory; two calls, same bits);
 9. cli            -- `python -m sba_tpu_torch.cli bundle_adjuster` in
                      float32 on a 20-image (dense), a 160-image
                      (implicit) and a 20-image OPENCV model
@@ -93,11 +98,12 @@ Needs one CUDA card and nvcc (found through torch's CUDA_HOME, else
                      while the host enqueues the timed calls, so they are
                      the device's) against the twins, the
                      memory/compute bound and, for B1-B4, the PyTorch
-                     library call of the same function (K1-K4, K6 and
-                     map_gather also beside their first designs' times,
-                     "was"); K4 with random du, also at the 1024-image
-                     bucket; B1-B4 also beside the least time over the
-                     32-byte sectors their samples touch;
+                     library call of the same function (every kernel
+                     also beside its first design's time, "was"); K5
+                     as one all-bucket launch per LM iteration; K4 with
+                     random du, also at the 1024-image bucket; B1-B4
+                     also beside the least time over the 32-byte
+                     sectors their samples touch (B3's sector floor);
 16. profile       -- device time by kernel over one warm solve of the
                      headline (with K1's split between its linearize-and-
                      reduce kernel and its three Schur kernels, and its
@@ -217,12 +223,14 @@ NCC_SOURCE_CHUNK = 4     # sources K6 stages per chunk (csrc kSrc)
 # Times of the kernels' first designs (a block per tile and source for
 # K6; a thread per point with a float atomic per lane and row for K1, K2
 # and K3, and per outer-product entry for K1's S_corr; a thread per point
-# walking its slots for K4; a thread per sample with the default cache
-# policy for map_gather) at the timing phase's shapes, on an NVIDIA H100
-# 80GB HBM3 at 700 W (PERF.md kernel table), printed beside the current
-# times.
+# walking its slots for K4; a launch per bucket into a zeroed
+# accumulator, a float atomic per block, for K5; a thread per sample
+# with the default cache policy for map_gather and map_gather_pair) at
+# the timing phase's shapes, on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md kernel table), printed beside the current times.
 WAS_MS = {"ncc_cost": 0.6771, "schur_matvec": 0.2602, "fused_schur": 2.3427,
-          "fused_reduce": 1.7302, "backsub": 0.2238, "map_gather": 0.0750}
+          "fused_reduce": 1.7302, "backsub": 0.2238, "map_gather": 0.0750,
+          "fused_cost": 0.0191, "map_gather_pair": 0.0851}
 # K1's CUDA kernels by part, for the profile phase's split; its device
 # time in all is held against its bound there.
 K1_PARTS = {"K1a linearize-and-reduce": r"k12_reduce_kernel",
@@ -453,6 +461,34 @@ def _check_dense_twins(tag, st, lay, par, pts, lam, dup, duc, opt):
     return e1, e4, e5
 
 
+def _check_cost_buckets(phase, tag, statics, lays, pts0, par, opt,
+                        stages):
+    """K5 over all buckets in one launch against the twins' sum, and a
+    second call on the same inputs with the same bits; its launcher
+    stages the parameter table in shared memory iff `stages`. Returns the
+    max abs error."""
+    import torch
+
+    from sba_tpu_torch.ops import ba_kernels as bk
+
+    c1 = bk.fused_cost_buckets(statics, par, pts0, lays, opt)
+    c2 = bk.fused_cost_buckets(statics, par, pts0, lays, opt)
+    c_p = bk.fused_cost_buckets_plain(statics, par, pts0, lays, opt)
+    torch.cuda.synchronize()
+    require(torch.equal(c1, c2), f"{tag} K5 over all buckets: two calls on "
+            f"the same inputs differ ({float(c1)!r} / {float(c2)!r})")
+    e = close(f"{tag} cost over {len(lays)} buckets", c1.reshape(1),
+              c_p.reshape(1), 1e-4)
+    staged = bk.k5_stages_par(par, lays[0])
+    require(staged == stages, f"{tag} K5: the parameter table is "
+            f"{'' if staged else 'not '}staged in shared memory")
+    where = "staged in shared memory" if staged else "read in place"
+    log(phase, f"{tag}: K5 over {len(lays)} buckets in one launch (par "
+        f"{where}) matches the twins' sum, |dcost| {e:.2e}; two calls, the "
+        f"same bits")
+    return e
+
+
 def phase_twins():
     """Each kernel against its twin on identical CUDA inputs."""
     import torch
@@ -475,6 +511,9 @@ def phase_twins():
             log("twins", f"model {model_id} bucket {b} (K={lay.K}, "
                 f"Pp={lay.Pp}): K1/K4/K5 match their twins; |dS| "
                 f"{e1:.2e} |ddp| {e4:.2e} |dcost| {e5:.2e}")
+        e5 = _check_cost_buckets("twins", f"m{model_id}", statics, lays,
+                                 pts0, par, opt, stages=True)
+        errs["fused_cost"] = max(errs["fused_cost"], e5)
 
     # A small solve through the kernels against the same solve through
     # the twins on the CPU (the port's parity tolerance with sba_tpu).
@@ -738,6 +777,9 @@ def phase_main():
     launches = dict(bk.LAUNCHES)
     c0, c1 = float(s.initial_cost), float(s.final_cost)
     require_path(launches, DENSE_KERNELS, IMPLICIT_KERNELS)
+    require(launches["fused_cost"] == s.num_iterations + 1,
+            f"K5 launched {launches['fused_cost']} times for "
+            f"{s.num_iterations + 1} cost evaluations")
     require(c1 < c0, f"cost did not decrease: {c0} -> {c1}")
     for name, v in (("qvecs", out.qvecs), ("tvecs", out.tvecs),
                     ("points", out.points)):
@@ -866,6 +908,9 @@ def phase_large_ranged(errs):
         f" MiB")
     del out, s
     ctx, par, lam, dup, duc = _step_inputs(ctx)
+    errs["fused_cost"] = max(errs["fused_cost"], _check_cost_buckets(
+        "large-ranged", "10240", ctx[0], ctx[1], ctx[2], par, opt,
+        stages=False))
     for b, (st, lay, pts) in enumerate(zip(ctx[0], ctx[1], ctx[2])):
         tag = f"10240 b{b}"
         e = _check_implicit_twins(tag, st, lay, par, pts, lam, dup, duc, opt)
@@ -897,6 +942,9 @@ def phase_twins_heads(errs):
             e = tuple(max(x, y) for x, y in zip(e, eb))
         for name, x in zip(DENSE_KERNELS, e):
             errs[name] = max(errs[name], x)
+        errs["fused_cost"] = max(errs["fused_cost"], _check_cost_buckets(
+            "twins-heads", f"m{m}", ctx[0], ctx[1], ctx[2], par, opt,
+            stages=True))
         log("twins-heads", f"model {m} (np {lay.nparams}) headline, "
             f"{len(ctx[1])} buckets: K1/K4/K5 match their twins; |dS| "
             f"{e[0]:.2e} |ddp| {e[1]:.2e} |dcost| {e[2]:.2e}")
@@ -1010,7 +1058,8 @@ def phase_main_opencv():
 
 def phase_timing_heads():
     """K1 and K5 at the headline and K2 at the 1024-image scene, per LM
-    iteration (all buckets), for OPENCV and FULL_OPENCV, each beside its
+    iteration (all buckets; K5 in one launch), for OPENCV and
+    FULL_OPENCV, each beside its
     bound (`_bounds`: the rows per lane, JW = 36 + 5 np, grow with np)."""
     import torch
 
@@ -1035,8 +1084,8 @@ def phase_timing_heads():
                 "fused_reduce": lambda: [bk.fused_reduce(st, par, p, lam,
                                                          lay, opt)
                                          for st, lay, p in groups],
-                "fused_cost": lambda: [bk.fused_cost(st, par, p, lay, opt)
-                                       for st, lay, p in groups]}
+                "fused_cost": lambda: bk.fused_cost_buckets(
+                    ctx[0], par, ctx[2], ctx[1], opt)}
             bounds = _bounds(ctx[0], ctx[1], opt, names)
             for name in names:
                 ms = time_ms(fns[name], 20)
@@ -1044,7 +1093,8 @@ def phase_timing_heads():
                 log("timing", f"model {m} (np {ctx[1][0].nparams}, JW "
                     f"{ctx[1][0].JW}) {name} at {scene['num_images']} "
                     f"images: {ms:.4f} ms per LM iteration ({len(groups)} "
-                    f"bucket launches), bound {bounds[name][0]:.4f} ms "
+                    f"buckets, {1 if name == 'fused_cost' else len(groups)}"
+                    f" launches), bound {bounds[name][0]:.4f} ms "
                     f"({bounds[name][1]}), {100 * bounds[name][0] / ms:.1f}% "
                     f"of it")
             del ctx, par, groups, fns
@@ -1465,9 +1515,11 @@ def _bounds(statics, lays, opt, kernels):
         b4 += (6 * lay.Npad * 4 + 12 * lay.C * 4 + 19 * Pp * 4 + mask_b
                + (lay.JW + 2) * live * 4 + 3 * Pp * 4)
         f4 += live * (3 * (6 + NP) * 2 + 2 * (6 + NP + 3) * 2 + 2) + 40 * Pp
-        # K5 reads x, y and image of each live lane.
-        b5 += par_b + 3 * Pp * 4 + mask_b + 3 * live * 4
+        # K5 reads x, y and image of each live lane; its one launch over
+        # all buckets reads par once (below).
+        b5 += 3 * Pp * 4 + mask_b + 3 * live * 4
         f5 += live * 60
+    b5 += (7 + lays[0].nparams) * lays[0].Npad * 4
     for name, by, fl in (("fused_schur", b1, f1), ("fused_reduce", b2, f2),
                          ("schur_matvec", b3, f3), ("backsub", b4, f4),
                          ("fused_cost", b5, f5)):
@@ -1487,8 +1539,9 @@ def _kernel_row(name, launches, errs, ms, plain_ms, bound):
 
 
 def phase_timing(ctx, launches, errs):
-    """K1/K4/K5 at the headline: ms per LM iteration (all buckets), and
-    the host's ms to enqueue one. K4 takes random nonzero du."""
+    """K1/K4/K5 at the headline: ms per LM iteration (all buckets; K5 in
+    one launch), and the host's ms to enqueue one. K4 takes random
+    nonzero du."""
     import torch
 
     from sba_tpu_torch.ops import ba_kernels as bk
@@ -1519,9 +1572,9 @@ def phase_timing(ctx, launches, errs):
                                                        o[4], lam, lay,
                                                        opt))),
         "fused_cost": (
-            run(lambda st, lay, p, o: bk.fused_cost(st, par, p, lay, opt)),
-            run(lambda st, lay, p, o: bk.fused_cost_plain(st, par, p, lay,
-                                                          opt))),
+            lambda: bk.fused_cost_buckets(statics, par, pts0, lays, opt),
+            lambda: bk.fused_cost_buckets_plain(statics, par, pts0, lays,
+                                                opt)),
     }
     bounds = _bounds(statics, lays, opt, tuple(fns))
     rows = {}
@@ -1531,8 +1584,11 @@ def phase_timing(ctx, launches, errs):
         rows[name] = _kernel_row(name, launches, errs, ms, plain_ms,
                                  bounds[name])
         was = (f" (was {WAS_MS[name]:.4f} ms)" if name in WAS_MS else "")
+        n_launch = (f"one launch over {len(groups)} buckets"
+                    if name == "fused_cost"
+                    else f"{len(groups)} bucket launches")
         log("timing", f"{name}: {ms:.4f} ms per LM iteration{was} "
-            f"({len(groups)} bucket launches; host {host_ms(kern, 20):.4f}"
+            f"({n_launch}; host {host_ms(kern, 20):.4f}"
             f" ms to enqueue), twin {plain_ms:.3f} ms, "
             f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]}), "
             f"{100 * bounds[name][0] / ms:.1f}% of it")
@@ -2068,8 +2124,9 @@ def phase_timing_sba(inp, launches, errs):
             f"{PROBE_HW} words, {inp['il'].numel()} samples): {ms:.4f} ms"
             f"{was}, twin {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
             f"{bounds[row][0]:.4f} ms ({touched} table words touched), "
-            f"{100 * bounds[row][0] / ms:.1f}% of it; "
-            f"{bounds[row][2]:.4f} ms over their 32-byte sectors, "
+            f"{100 * bounds[row][0] / ms:.1f}% of it; sector floor "
+            f"{bounds[row][2]:.4f} ms over their 32-byte sectors "
+            f"({100 * bounds[row][2] / ms:.1f}% of it), "
             f"{bounds[row][3]:.4f} ms over the whole table")
     return rows
 

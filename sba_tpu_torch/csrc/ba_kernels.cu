@@ -96,13 +96,46 @@ int sba_backsub(int model, int TP, int K, int Pp, int Npad, int C,
   switch (model) { SBA_MODEL_CASES(sba::backsub, a, stream) }
 }
 
-int sba_fused_cost(int model, int loss, float loss_scale, int TP, int K,
-                   int Pp, int Npad, const float* par, const float* pts,
-                   const float* obs_sta, const int* obs_img, float* acc,
-                   cudaStream_t stream) {
-  const K5Args a{loss, TP, K, Pp, Npad, loss_scale * loss_scale, par, pts,
-                 obs_sta, obs_img, acc};
+// K5 over n_buckets buckets (1..kK5MaxBuckets) in one launch: out[0] is
+// written, not added to. dims (host) holds TP, K, Pp and ptrs (host) the
+// device pointers pts, obs_sta, obs_img of each bucket in turn; all
+// buckets read the one parameter table par [7+np, Npad]. work is the
+// caller's workspace of work_words (>= sba_fused_cost_work_words())
+// 4-byte words, zeroed when made and left so by each launch; launches
+// that share it must not overlap.
+int sba_fused_cost_buckets(int model, int loss, float loss_scale,
+                           int n_buckets, int Npad, const float* par,
+                           const int* dims, const void* const* ptrs,
+                           void* work, int work_words, float* out,
+                           cudaStream_t stream) {
+  if (n_buckets < 1 || n_buckets > kK5MaxBuckets ||
+      work_words < kK5WorkWords)
+    return cudaErrorInvalidValue;
+  K5Args a{};
+  a.loss = loss;
+  a.Npad = Npad;
+  a.n_buckets = n_buckets;
+  a.a2 = loss_scale * loss_scale;
+  a.par = par;
+  a.part = static_cast<float*>(work);
+  a.ticket = static_cast<unsigned int*>(work) + kK5MaxBlocks;
+  a.out = out;
+  for (int b = 0; b < n_buckets; ++b)
+    a.b[b] = K5Bucket{dims[3 * b], dims[3 * b + 1], dims[3 * b + 2],
+                      static_cast<const float*>(ptrs[3 * b]),
+                      static_cast<const float*>(ptrs[3 * b + 1]),
+                      static_cast<const int*>(ptrs[3 * b + 2]),
+                      0, 0, 0, 0};
   switch (model) { SBA_MODEL_CASES(sba::fused_cost, a, stream) }
+}
+
+// The size of K5's workspace in 4-byte words.
+int sba_fused_cost_work_words() { return kK5WorkWords; }
+
+// 1 if K5 stages the parameter table par [7+nparams, Npad] in shared
+// memory, 0 if it reads the table in place: the launcher's own rule.
+int sba_fused_cost_stages(int nparams, int Npad, const float* par) {
+  return k5_stages(nparams, Npad, par) ? 1 : 0;
 }
 
 }  // extern "C"

@@ -8,11 +8,11 @@
 //   K2 sba_fused_reduce <- fused_reduce  (_fused_reduce_kernel)
 //   K3 sba_schur_matvec <- schur_matvec  (_schur_matvec_kernel)
 //   K4 sba_backsub      <- backsub       (_backsub_kernel)
-//   K5 sba_fused_cost   <- fused_cost    (_cost_kernel)
+//   K5 sba_fused_cost_buckets <- fused_cost (_cost_kernel)
 // The Python wrappers (sba_tpu_torch/ops/ba_kernels.py) check shapes,
 // types and devices, allocate every output (zeroed where a kernel
-// accumulates) and pass PyTorch's current stream. Every entry point
-// returns cudaGetLastError() after its launches.
+// accumulates; K5 writes its total) and pass PyTorch's current stream.
+// Every entry point returns cudaGetLastError() after its launches.
 //
 // Data layout (the TPU kernel's): per-observation data are [field, lane]
 // rows over O = Pp*K lanes, lane c = b*TP*K + s*TP + p_local holding
@@ -77,12 +77,44 @@ struct K4Args {
   float *dp, *acc;
 };
 
-struct K5Args {
-  int loss, TP, K, Pp, Npad;
-  float a2;
-  const float *par, *pts, *obs_sta;
+// K5 takes up to kK5MaxBuckets track-length buckets in one launch
+// (ops/ba_kernels.py K5_MAX_BUCKETS, optim/ba_fused.py MAX_BUCKETS); all
+// of them read the one parameter table `par`. Its grid has at most
+// kK5MaxBlocks blocks; the caller's workspace holds a partial sum for
+// each block and then the ticket, kK5WorkWords 4-byte words.
+constexpr int kK5MaxBuckets = 3;
+constexpr int kK5MaxBlocks = 1024;
+constexpr int kK5WorkWords = kK5MaxBlocks + 1;
+// The largest parameter table K5 stages in shared memory: the 227 KB
+// opt-in less 1 KB for the kernel's static arrays.
+constexpr int kK5StageMax = 232448 - 1024;
+
+// Whether K5 stages the parameter table [7+np, Npad] in shared memory
+// (it fits kK5StageMax and loads as 16-byte words); else the kernel
+// reads it in place. The launcher decides by this, and
+// sba_fused_cost_stages reports it.
+inline bool k5_stages(int np, int Npad, const float* par) {
+  return sizeof(float) * (7 + np) * (size_t)Npad <= (size_t)kK5StageMax &&
+         Npad % 4 == 0 && reinterpret_cast<uintptr_t>(par) % 16 == 0;
+}
+
+struct K5Bucket {
+  int TP, K, Pp;
+  const float *pts, *obs_sta;
   const int* obs_img;
-  float* acc;
+  // Set by the launcher: multipliers and shifts that divide a lane
+  // number by TP*K and by TP (k5_div).
+  unsigned blk_mul, blk_shr, tp_mul, tp_shr;
+};
+
+struct K5Args {
+  int loss, Npad, n_buckets;
+  float a2;
+  const float* par;
+  K5Bucket b[kK5MaxBuckets];
+  float* part;           // the workspace's kK5MaxBlocks partial sums
+  unsigned int* ticket;  // its last word: 0 between launches
+  float* out;
 };
 
 // K1b's block sizes, mirrored by ops/ba_kernels.py (K1B_UNIT_ITEMS,
@@ -1758,40 +1790,164 @@ cudaError_t launch_backsub(const K4Args& a, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// K5: robust cost at trial parameters, one thread per observation lane.
+// K5: robust cost at trial parameters over all buckets, in one launch.
 //
-// Replaces fused_cost (_cost_kernel): sum of 1/2 mask rho(||r||^2).
-// Block partial sums are added atomically (the TPU kernel accumulates
-// over a sequential grid). Bound: device memory, one read of the
-// observation rows and points; the per-image parameters are gathered
-// from the small [7+np, Npad] table.
+// Replaces fused_cost (_cost_kernel): the sum of 1/2 mask rho(||r||^2)
+// over the observation lanes. The TPU kernel takes one bucket a call and
+// carries its sum across a sequential grid; here one launch takes every
+// bucket of an LM cost evaluation, their lanes numbered one after
+// another. kK5BlocksPerSm blocks a SM walk them: a thread takes kK5Lanes
+// lanes at a time, strided by the grid, and issues all their loads
+// (mask, x, y, image and point; none waits on another, so dead lanes are
+// read too) before it projects any: a group costs one trip to memory. A
+// lane's point comes from its number by multiply-and-shift divisions
+// (k5_div). Each block writes its partial sum to a slot of its own; the
+// last block to finish (an atomic ticket after a fence) adds the slots
+// in a fixed order, writes the total and resets the ticket. No float
+// atomics: the same inputs give the same bits on every call, and the
+// output needs no zeroing. The slots and the ticket are the caller's
+// workspace (a.part, a.ticket), zeroed once when it is made; launches
+// that share one must not overlap, so the wrapper keeps one a stream.
+// Bound: device memory, one read of the mask row and of the live lanes'
+// x, y, image and point; at the headline's ~4 MB the launch, two memory
+// latencies and the tail set the time. The [7+np, Npad] parameter table
+// is staged in shared memory when it fits (kK5StageMax: up to ~3,000
+// images at 12 intrinsics), its copy overlapping the first group's
+// loads, so a lane's 7+np parameter reads hit shared memory; past that
+// (10,240 images) the kernel reads the table in place.
 // ---------------------------------------------------------------------------
 
+constexpr int kK5Threads = 512;
+constexpr int kK5BlocksPerSm = 2;
+constexpr int kK5Lanes = 4;
+static_assert(kK5StageMax + 1024 == kMaxSmem, "K5 stage limit");
+
+// n / d for 0 <= n < 2^31 by a multiply and a shift (the round-up
+// method of Granlund and Montgomery): mul and shr from k5_divisor(d).
+__device__ inline int k5_div(int n, unsigned mul, unsigned shr) {
+  return (int)((__umulhi((unsigned)n, mul) + (unsigned)n) >> shr);
+}
+
+inline void k5_divisor(unsigned d, unsigned& mul, unsigned& shr) {
+  shr = 0;
+  while ((1ull << shr) < d) ++shr;
+  mul = (unsigned)(((1ull << 32) * ((1ull << shr) - d)) / d + 1);
+}
+
+// One lane's observation and point, loaded before its projection.
+struct K5Lane {
+  float mask, ox, oy, x[3];
+  int n;
+};
+
+// Loads lanes v0, v0 + stride, ... (kK5Lanes of them) of the buckets'
+// lane sequence; a lane past the end gets mask 0.
+__device__ inline void k5_load(const K5Args& a,
+                               const int (&end)[kK5MaxBuckets], int v0,
+                               int stride, K5Lane (&d)[kK5Lanes]) {
+#pragma unroll
+  for (int u = 0; u < kK5Lanes; ++u) {
+    const int v = v0 + u * stride;
+    d[u].mask = 0.f;
+    if (v >= end[kK5MaxBuckets - 1]) continue;
+    const int b = v < end[0] ? 0 : (v < end[1] ? 1 : 2);
+    const K5Bucket& B = b == 0 ? a.b[0] : (b == 1 ? a.b[1] : a.b[2]);
+    const int c = v - (b == 0 ? 0 : (b == 1 ? end[0] : end[1]));
+    const int O = B.Pp * B.K;
+    const int q = k5_div(c, B.blk_mul, B.blk_shr);  // c / (TP*K)
+    const int r = c - q * B.TP * B.K;               // slot * TP + p
+    const int pt = q * B.TP + r - k5_div(r, B.tp_mul, B.tp_shr) * B.TP;
+    d[u].mask = __ldg(B.obs_sta + 2LL * O + c);
+    d[u].ox = __ldg(B.obs_sta + c);
+    d[u].oy = __ldg(B.obs_sta + O + c);
+    d[u].n = __ldg(B.obs_img + c);
+    d[u].x[0] = __ldg(B.pts + pt);
+    d[u].x[1] = __ldg(B.pts + B.Pp + pt);
+    d[u].x[2] = __ldg(B.pts + 2 * B.Pp + pt);
+  }
+}
+
+// Adds the loaded lanes' costs to sum, in lane order.
+template <int M>
+__device__ inline void k5_add(const K5Args& a, const float* par,
+                              const K5Lane (&d)[kK5Lanes], float& sum) {
+  constexpr int NP = Head<M>::NP;
+#pragma unroll
+  for (int u = 0; u < kK5Lanes; ++u) {
+    if (d[u].mask == 0.f) continue;
+    float R[3][3], t[3], k[NP];
+    load_pose(par, a.Npad, d[u].n, R, t);
+    for (int m = 0; m < NP; ++m) k[m] = par[(7 + m) * a.Npad + d[u].n];
+    float uu, vv, px, py;
+    camera_uv(R, t, d[u].x, uu, vv);
+    head_project<M>(k, uu, vv, px, py);
+    const float r0 = px - d[u].ox, r1 = py - d[u].oy;
+    sum += 0.5f * d[u].mask * loss_value(a.loss, r0 * r0 + r1 * r1, a.a2);
+  }
+}
 
 template <int M>
-__global__ void __launch_bounds__(kThreads) k5_cost_kernel(K5Args a) {
+__global__ void __launch_bounds__(kK5Threads, kK5BlocksPerSm)
+    k5_cost_kernel(K5Args a, int stage) {
   constexpr int NP = Head<M>::NP;
-  const int64_t O = (int64_t)a.Pp * a.K;
-  const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  float val[1] = {0.f};
-  if (c < O) {
-    const float mask = a.obs_sta[2 * O + c];
-    if (mask != 0.f) {
-      const int64_t blk = (int64_t)a.TP * a.K;
-      const int pt = (int)((c / blk) * a.TP + c % a.TP);
-      const int n = a.obs_img[c];
-      float R[3][3], t[3], k[NP];
-      load_pose(a.par, a.Npad, n, R, t);
-      for (int m = 0; m < NP; ++m) k[m] = a.par[(7 + m) * a.Npad + n];
-      const float x[3] = {a.pts[pt], a.pts[a.Pp + pt], a.pts[2 * a.Pp + pt]};
-      float u, v, px, py;
-      camera_uv(R, t, x, u, v);
-      head_project<M>(k, u, v, px, py);
-      const float r0 = px - a.obs_sta[c], r1 = py - a.obs_sta[O + c];
-      val[0] = 0.5f * mask * loss_value(a.loss, r0 * r0 + r1 * r1, a.a2);
-    }
+  extern __shared__ float4 s_par4[];
+  __shared__ float s_sum[kK5Threads / 32];
+  __shared__ bool s_last;
+  // The end of each bucket in the lane sequence; absent buckets are
+  // empty.
+  int end[kK5MaxBuckets];
+#pragma unroll
+  for (int b = 0; b < kK5MaxBuckets; ++b)
+    end[b] = (b > 0 ? end[b - 1] : 0) +
+             (b < a.n_buckets ? a.b[b].Pp * a.b[b].K : 0);
+  const int stride = gridDim.x * kK5Threads;
+  int v0 = blockIdx.x * kK5Threads + threadIdx.x;
+  K5Lane d[kK5Lanes];
+  k5_load(a, end, v0, stride, d);
+  const float* par = a.par;
+  if (stage) {  // (7+NP)*Npad words, a multiple of 4, 16-byte aligned
+    const float4* src = reinterpret_cast<const float4*>(a.par);
+    const int n4 = (7 + NP) * a.Npad / 4;
+    for (int i = threadIdx.x; i < n4; i += kK5Threads)
+      s_par4[i] = __ldg(src + i);
+    __syncthreads();
+    par = reinterpret_cast<const float*>(s_par4);
   }
-  block_atomic_add<1>(val, a.acc);
+  float sum = 0.f;
+  while (true) {
+    k5_add<M>(a, par, d, sum);
+    v0 += kK5Lanes * stride;
+    if (v0 >= end[kK5MaxBuckets - 1]) break;
+    k5_load(a, end, v0, stride, d);
+  }
+
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  sum = warp_sum(sum);
+  if (lane == 0) s_sum[wid] = sum;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float p = 0.f;
+    for (int w = 0; w < kK5Threads / 32; ++w) p += s_sum[w];
+    a.part[blockIdx.x] = p;
+    __threadfence();
+    s_last = atomicAdd(a.ticket, 1u) == gridDim.x - 1;
+    __threadfence();
+  }
+  __syncthreads();
+  if (!s_last) return;
+  // The last block: every slot is written and fenced.
+  float total = 0.f;
+  for (int i = threadIdx.x; i < (int)gridDim.x; i += kK5Threads)
+    total += __ldcg(a.part + i);
+  total = warp_sum(total);
+  if (lane == 0) s_sum[wid] = total;  // thread 0 read s_sum before the sync
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    total = 0.f;
+    for (int w = 0; w < kK5Threads / 32; ++w) total += s_sum[w];
+    *a.out = total;
+    atomicExch(a.ticket, 0u);
+  }
 }
 
 }  // namespace
@@ -1824,12 +1980,52 @@ cudaError_t backsub(const K4Args& a, cudaStream_t s) {
   return launch_backsub<Head<M>::NP>(a, s);
 }
 
+// One launch over a.n_buckets buckets; the grid is sized by their lanes
+// and the SM count (kK5BlocksPerSm blocks a SM).
 template <int M>
-cudaError_t fused_cost(const K5Args& a, cudaStream_t s) {
-  const int64_t O = (int64_t)a.Pp * a.K;
-  const int blocks = (int)((O + kThreads - 1) / kThreads);
-  if (blocks == 0) return cudaSuccess;
-  k5_cost_kernel<M><<<blocks, kThreads, 0, s>>>(a);
+cudaError_t fused_cost(const K5Args& args, cudaStream_t s) {
+  constexpr int NP = Head<M>::NP;
+  if (args.n_buckets < 1 || args.n_buckets > kK5MaxBuckets ||
+      args.Npad <= 0 || args.part == nullptr || args.ticket == nullptr)
+    return cudaErrorInvalidValue;
+  K5Args a = args;
+  int64_t lanes = 0;
+  for (int b = 0; b < a.n_buckets; ++b) {
+    K5Bucket& B = a.b[b];
+    if (B.TP <= 0 || B.K <= 0 || B.Pp < 0 || B.Pp % B.TP != 0)
+      return cudaErrorInvalidValue;
+    lanes += (int64_t)B.Pp * B.K;
+    k5_divisor((unsigned)B.TP * B.K, B.blk_mul, B.blk_shr);
+    k5_divisor((unsigned)B.TP, B.tp_mul, B.tp_shr);
+  }
+  // Lane numbers, and the next group's first, stay inside int.
+  if (lanes > 0x7fffffffLL - (int64_t)kK5Lanes * kK5Threads * kK5MaxBlocks)
+    return cudaErrorInvalidValue;
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   dev);
+    if (err != cudaSuccess) return err;
+  }
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        k5_cost_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kK5StageMax);
+    if (err != cudaSuccess) return err;
+    attr = true;
+  }
+  const size_t par_bytes = sizeof(float) * (7 + NP) * (size_t)a.Npad;
+  const bool stage = k5_stages(NP, a.Npad, a.par);
+  int64_t blocks = (lanes + kK5Threads - 1) / kK5Threads;
+  if (blocks > kK5BlocksPerSm * sms) blocks = kK5BlocksPerSm * sms;
+  if (blocks > kK5MaxBlocks) blocks = kK5MaxBlocks;
+  if (blocks < 1) blocks = 1;  // no lanes: the total is 0
+  k5_cost_kernel<M><<<(int)blocks, kK5Threads, stage ? par_bytes : 0, s>>>(
+      a, stage ? 1 : 0);
   return cudaGetLastError();
 }
 

@@ -34,10 +34,14 @@
 //
 // Both kernels: one sample per thread, 256 threads a block, blocks in
 // sample order, so that the blocks an SM holds at once gather from one
-// map. map_gather's index loads and output stores stream past the caches
+// map. Their index loads and output stores stream past the caches
 // (evict-first), leaving L2 to the maps. The time is set by the rate at
-// which an SM issues divergent requests, one per random sample; the
-// designs tried against it are in PERF.md §6.
+// which an SM issues divergent requests, one per random sample, on top
+// of the maps' sectors from device memory: B3 at the probes' shape takes
+// about as long with every sample in one L2-resident map as with its
+// indices sorted (no divergence), and longer with both at once. The
+// designs tried against it (sorted samples, a persistent grid, vector
+// loads, cache policies, a cluster-held map) are in PERF.md §6.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,11 +68,11 @@ __global__ void __launch_bounds__(kThreads) b_map_gather_pair_kernel(
   const int64_t k = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (k >= n) return;
   const int64_t base = per > 0 ? (k / per) * hw : 0;
-  const uint2 w = __ldg(table + base + __ldg(idx + k));
+  const uint2 w = __ldg(table + base + __ldcs(idx + k));
   if (out_sum != nullptr) {
-    out_sum[k] = w.x + w.y;
+    __stcs(out_sum + k, w.x + w.y);
   } else {
-    out_pair[k] = w;
+    __stcs(out_pair + k, w);
   }
 }
 

@@ -2,12 +2,14 @@
 
 Port of the five kernels of ``sba_tpu/ops/ba_kernels.py``: K1
 `fused_schur` (dense path), K2 `fused_reduce` and K3 `schur_matvec`
-(implicit path), K4 `backsub` and K5 `fused_cost`. Each wrapper launches
-the hand-written kernel of ``csrc/ba_kernels.cuh`` when its tensors are on
-CUDA, and runs the plain PyTorch twin beside it only when they lie on
-the CPU. The twins repeat the kernels' arithmetic on whole lane arrays,
-camera heads included: sba_tpu's analytic heads for all 11 camera
-models (`_head`; K5's twin projects through ``geometry.camera_models``).
+(implicit path), K4 `backsub` and K5 `fused_cost` (one bucket) /
+`fused_cost_buckets` (all buckets of a cost evaluation in one launch).
+Each wrapper launches the hand-written kernel of ``csrc/ba_kernels.cuh``
+when its tensors are on CUDA, and runs the plain PyTorch twin beside it
+only when they lie on the CPU. The twins repeat the kernels' arithmetic
+on whole lane arrays, camera heads included: sba_tpu's analytic heads
+for all 11 camera models (`_head`; K5's twin projects through
+``geometry.camera_models``).
 
 Layout (the TPU kernel's, kept so that outputs compare entry by entry):
 observations are point-major and slot-major within a block of TP points:
@@ -39,6 +41,7 @@ flag for its two effects on the numbers only: `jcorr` is bfloat16 iff
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -73,6 +76,9 @@ K12_WINDOW = 128
 K1B_UNIT_ITEMS = 128
 K1B_GROUP_WORDS = 20
 K1B_ENTRIES = 36
+
+# K5's buckets per launch (csrc kK5MaxBuckets).
+K5_MAX_BUCKETS = 3
 
 # Launch counts of the CUDA kernels (a wrapper adds one per launch).
 LAUNCHES = {"fused_schur": 0, "fused_reduce": 0, "schur_matvec": 0,
@@ -1083,20 +1089,79 @@ def backsub(static: KernelStatic, du_pose_t, du_cam_t, pt_pay, jw, lam,
 
 
 def fused_cost(static: KernelStatic, par, pts, lay: KernelLayout, opt):
-    """K5: sum of 1/2 mask rho(||r||^2) at the given parameters (0-d)."""
+    """K5: sum of 1/2 mask rho(||r||^2) at the given parameters (0-d), on
+    one bucket: a one-bucket launch of `fused_cost_buckets`."""
+    return fused_cost_buckets([static], par, [pts], [lay], opt)
+
+
+def fused_cost_buckets_plain(statics, par, pts_list, lays, opt):
+    """Plain twin of `fused_cost_buckets`: the buckets' twin costs, added
+    in bucket order."""
+    return sum(fused_cost_plain(st, par, p, lay, opt)
+               for st, p, lay in zip(statics, pts_list, lays))
+
+
+def fused_cost_buckets(statics, par, pts_list, lays, opt):
+    """K5 over every bucket of a cost evaluation in ONE launch (at most
+    K5_MAX_BUCKETS buckets sharing `par`): the 0-d total, written by the
+    kernel with no fill beforehand and the same bits on every call."""
     if not par.is_cuda:
-        return fused_cost_plain(static, par, pts, lay, opt)
+        return fused_cost_buckets_plain(statics, par, pts_list, lays, opt)
+    nb = len(lays)
+    if not 1 <= nb <= K5_MAX_BUCKETS or len(statics) != nb \
+            or len(pts_list) != nb:
+        raise ValueError(f"fused_cost_buckets: 1 to {K5_MAX_BUCKETS} "
+                         f"buckets, got {len(statics)} / {len(pts_list)} / "
+                         f"{nb}")
+    for st, p, lay in zip(statics, pts_list, lays):
+        if (lay.Npad, lay.nparams) != (lays[0].Npad, lays[0].nparams):
+            raise ValueError("fused_cost_buckets: buckets differ in Npad "
+                             "or nparams")
+        _check_cost_inputs(st, par, p, lay, opt)
+    dims = (ctypes.c_int * (3 * nb))(
+        *[v for lay in lays for v in (lay.TP, lay.K, lay.Pp)])
+    ptrs = (ctypes.c_void_p * (3 * nb))(
+        *[t.data_ptr() for st, p in zip(statics, pts_list)
+          for t in (p, st.obs_sta, st.obs_img)])
+    work = _k5_work(par.device)
+    out = torch.empty((), dtype=torch.float32, device=par.device)
+    err = cuda_build.lib().sba_fused_cost_buckets(
+        opt.model_id, LOSS_IDS[opt.loss], opt.loss_scale, nb, lays[0].Npad,
+        par.data_ptr(), dims, ptrs, work.data_ptr(), work.numel(),
+        out.data_ptr(), _stream())
+    cuda_build.check(err, "sba_fused_cost_buckets")
+    LAUNCHES["fused_cost"] += 1
+    return out
+
+
+# K5's cross-block workspaces (its blocks' partial sums and a ticket),
+# one for each (device, stream): launches that share one must not
+# overlap, and launches on one stream never do. Each is zeroed once, on
+# its stream, and every launch leaves its ticket at zero.
+_K5_WORK = {}
+
+
+def _k5_work(device):
+    stream = torch.cuda.current_stream(device)
+    key = (stream.device_index, stream.cuda_stream)
+    work = _K5_WORK.get(key)
+    if work is None:
+        work = _K5_WORK[key] = torch.zeros(
+            cuda_build.lib().sba_fused_cost_work_words(), dtype=torch.int32,
+            device=device)
+    return work
+
+
+def k5_stages_par(par, lay: KernelLayout) -> bool:
+    """Whether K5 stages the parameter table `par` [7+np, Npad] in shared
+    memory, else reads it in place: the kernel launcher's own rule."""
+    return bool(cuda_build.lib().sba_fused_cost_stages(
+        lay.nparams, lay.Npad, par.data_ptr()))
+
+
+def _check_cost_inputs(static, par, pts, lay, opt):
     _check_model(opt)
     _check(static.obs_sta, "obs_sta", (3, lay.Pp * lay.K))
     _check(static.obs_img, "obs_img", (lay.Pp * lay.K,), torch.int32)
     _check(par, "par", (7 + lay.nparams, lay.Npad))
     _check(pts, "pts", (3, lay.Pp))
-    acc = torch.zeros(1, dtype=torch.float32, device=par.device)
-    err = cuda_build.lib().sba_fused_cost(
-        opt.model_id, LOSS_IDS[opt.loss], opt.loss_scale, lay.TP, lay.K,
-        lay.Pp, lay.Npad, par.data_ptr(), pts.data_ptr(),
-        static.obs_sta.data_ptr(), static.obs_img.data_ptr(),
-        acc.data_ptr(), _stream())
-    cuda_build.check(err, "sba_fused_cost")
-    LAUNCHES["fused_cost"] += 1
-    return acc[0]

@@ -125,10 +125,15 @@ _SIGNATURES = {
     # dp, acc, stream
     "sba_backsub": [_I, _I, _I, _I, _I, _I,
                     _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    # model, loss, loss_scale, TP, K, Pp, Npad,
-    # par, pts, obs_sta, obs_img, acc, stream
-    "sba_fused_cost": [_I, _I, _F, _I, _I, _I, _I,
-                       _P, _P, _P, _P, _P, _P],
+    # model, loss, loss_scale, n_buckets, Npad, par,
+    # dims (host int[3n]: TP, K, Pp), ptrs (host void*[3n]: pts, obs_sta,
+    # obs_img), work, work_words, out, stream
+    "sba_fused_cost_buckets": [_I, _I, _F, _I, _I, _P,
+                               ctypes.POINTER(_I), ctypes.POINTER(_P),
+                               _P, _I, _P, _P],
+    "sba_fused_cost_work_words": [],
+    # nparams, Npad, par
+    "sba_fused_cost_stages": [_I, _I, _P],
     # H, W, S, r, step, sigma_spatial, inv2sc2, fin_min,
     # ref, v, inb, cost, stream
     "sba_ncc_cost": [_I, _I, _I, _I, _I, _D, _F, _F,

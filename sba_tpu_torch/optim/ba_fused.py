@@ -387,8 +387,7 @@ def _fused_lm_loop(statics, lays, pts0, problem, options, free_arrays):
 
     def cost_of(q, t, pts_list, k):
         par = bk.pack_params(q, t, k, image_cam, lay0)
-        return sum(bk.fused_cost(static, par, pts_b, lay, opt)
-                   for static, lay, pts_b in zip(statics, lays, pts_list))
+        return bk.fused_cost_buckets(statics, par, pts_list, lays, opt)
 
     q, t, k = problem.qvecs, problem.tvecs, problem.cam_params
     pts_t = pts0

@@ -1,10 +1,10 @@
 """Time the hand-written kernels K1 (`fused_schur`), K2 (`fused_reduce`),
-K3 (`schur_matvec`), K4 (`backsub`), K6 (`ncc_cost`) and `map_gather`
-(B1/B2/B4) on the card, for one or more builds of the kernel sources, in
-one process.
+K3 (`schur_matvec`), K4 (`backsub`), K5 (`fused_cost`), K6 (`ncc_cost`),
+`map_gather` (B1/B2/B4) and `map_gather_pair` (B3) on the card, for one
+or more builds of the kernel sources, in one process.
 
     python -m sba_tpu_torch.utils.kernel_timing [--csrc DIR ...] \
-        [--kernels k1 k2 k3 k4 k6 gather] [--rounds 2] [--reps 50]
+        [--kernels k1 k2 k3 k4 k5 k6 gather pair] [--rounds 2] [--reps 50]
 
 Each `--csrc` names a directory of CUDA sources with this package's C
 entry points (an older checkout's ``sba_tpu_torch/csrc``, say); with
@@ -12,9 +12,10 @@ none, the package's own. Each is built into a library of its own, and
 the libraries are timed in turns on the same inputs (first to last,
 then last to first, `--rounds` times), so that two versions compare on
 one card within one call; every source must have the package's C
-signatures (for K1 sources before its Schur tile table, compare whole
-checkouts with `sba_tpu_torch.utils.ba_timing`). The inputs are the main
-path's shapes:
+signatures for the kernels timed (for K1 sources before its Schur tile
+table, compare whole checkouts with `sba_tpu_torch.utils.ba_timing`); a
+directory may hold only the source of the kernels timed (map_gather.cu
+alone for `gather` and `pair`). The inputs are the main path's shapes:
 
 - K1: one LM iteration of the headline (bench.py:473: 128 images,
   30,000 points, ~7 observations per point; its three track-length
@@ -30,6 +31,11 @@ path's shapes:
 - K4: one LM iteration of the headline (its three buckets, from K1's
   outputs) and of the 1024-image scene (one bucket, from K2's), with
   random nonzero du;
+- K5: one LM cost evaluation of the headline (three buckets) and of the
+  1024-image scene (one bucket): one `fused_cost_buckets` launch; for a
+  library without it (sources before the all-bucket K5), the LM loop's
+  old evaluation: per bucket a zeroed accumulator and one
+  `sba_fused_cost` launch, then the buckets' sum;
 - K6: 4 sources x 1200 x 1600 (r=3 step 1, r=5 step 1, r=3 step 2) on
   random images, each source with a band outside it;
 - gather: `map_gather` at the probes' shape (B1's form: 50 maps of
@@ -37,7 +43,16 @@ path's shapes:
   bench_sba linearization (bench.py:94: 50 images at 640x480, pixel step
   10; the path's flat form, about 3.8M samples), each beside
   `torch.take` of the same words (the library call; the same time for
-  every library).
+  every library);
+- pair: `map_gather_pair` at the probes' shape (B3's summed form on the
+  interleaved depth|label table, 8-byte words) and on the first pair
+  gather of a two-map bench_sba linearization (bench.py:94's scene at 12
+  labels; the path's flat form, both words), each beside `torch.take`
+  of the same 8-byte words; and two index laws that isolate B3's floors
+  at the probes' shape: the same indices sorted within each map (the
+  same words and sectors, no divergence: the memory floor) and all
+  samples from map 0 (a 2.4 MB table that stays in L2: the rate of
+  divergent requests).
 
 Prints the card's name and power limit, the compiler's register and
 spill lines for the timed kernels, and one line per (case, library):
@@ -47,15 +62,16 @@ reaches the CUDA-event time, the host bounds the solve's use of the
 kernel) and the largest
 difference from the plain twin on the same inputs, relative to the
 twin's largest entry (for integer words: the count of words that
-differ). For K1, K2 and K4 it also prints the device time of each CUDA
-kernel inside one call, from `torch.profiler` (the split between a
-wrapper's launches, and the output fills beside K4).
+differ). For K1, K2, K4 and K5 it also prints the device time of each
+CUDA kernel inside one call, from `torch.profiler` (the split between a
+wrapper's launches, and the output fills beside K4 and the old K5).
 Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import subprocess
 from pathlib import Path
 
@@ -77,8 +93,8 @@ LARGE = dict(num_images=1024, num_points=120_000, track_len=7,
              pose_noise=0.005, point_noise=0.02, pixel_noise=0.5, seed=0)
 NCC_CASES = ((3, 1), (5, 1), (3, 2))
 # Kernel names whose ptxas lines are printed.
-KERNEL_NAMES = ("k1_", "k2_", "k12_", "k3_matvec", "k4_backsub", "k6_ncc",
-                "b_map_gather_kernel")
+KERNEL_NAMES = ("k1_", "k2_", "k12_", "k3_matvec", "k4_backsub", "k5_cost",
+                "k6_ncc", "b_map_gather_kernel", "b_map_gather_pair")
 # The probes' shape (benchmarks/gather_micro.py): maps, words per map,
 # samples per map.
 PROBE_MAPS, PROBE_HW, PROBE_PER = 50, 640 * 480, 150_528
@@ -86,6 +102,8 @@ PROBE_MAPS, PROBE_HW, PROBE_PER = 50, 640 * 480, 150_528
 SBA_SCENE = dict(num_images=50, image_size=(640, 480), focal=500.0,
                  pose_noise=0.003, seed=0)
 SBA_OPT = dict(pixel_step=10, max_iterations=10, mode="soft")
+# The two-map path: the same scene at 12 labels (a palette over 8).
+SBA_PAIR_LABELS = 12
 
 
 def time_ms(fn, reps):
@@ -297,6 +315,80 @@ def k4_cases():
     return cases
 
 
+# K5's C entry in sources before the all-bucket K5: one bucket, added
+# into `acc` (model, loss, loss_scale, TP, K, Pp, Npad, par, pts,
+# obs_sta, obs_img, acc, stream).
+_ONE_BUCKET_K5 = [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                  *[ctypes.c_int] * 4, *[ctypes.c_void_p] * 6]
+
+
+def load_other(path):
+    """Load a kernel library built from another checkout's sources, or
+    from some of them (map_gather.cu alone): declare those of the
+    package's C entry points that it has, and K5's one-bucket entry."""
+    cdll = ctypes.CDLL(str(path))
+    for name, argtypes in cuda_build._SIGNATURES.items():
+        if hasattr(cdll, name):
+            getattr(cdll, name).argtypes = argtypes
+            getattr(cdll, name).restype = ctypes.c_int
+    if hasattr(cdll, "sba_fused_cost"):
+        cdll.sba_fused_cost.argtypes = _ONE_BUCKET_K5
+        cdll.sba_fused_cost.restype = ctypes.c_int
+    if hasattr(cdll, "sba_error_string"):
+        cdll.sba_error_string.argtypes = [ctypes.c_int]
+        cdll.sba_error_string.restype = ctypes.c_char_p
+    return cdll
+
+
+def _cost_per_bucket(statics, par, pts0, lays, opt):
+    """The LM loop's cost evaluation before the all-bucket K5: per bucket
+    a zeroed accumulator and one `sba_fused_cost` launch (which added
+    into it), then the buckets' sum."""
+    lib = cuda_build.lib()
+    accs = []
+    for st, lay, p in zip(statics, lays, pts0):
+        acc = torch.zeros(1, dtype=torch.float32, device=par.device)
+        cuda_build.check(lib.sba_fused_cost(
+            opt.model_id, bk.LOSS_IDS[opt.loss], opt.loss_scale, lay.TP,
+            lay.K, lay.Pp, lay.Npad, par.data_ptr(), p.data_ptr(),
+            st.obs_sta.data_ptr(), st.obs_img.data_ptr(), acc.data_ptr(),
+            bk._stream()), "sba_fused_cost")
+        accs.append(acc[0])
+    return sum(accs)
+
+
+def k5_cases():
+    """{name: (per-library call, twin outputs, output names)}: one LM cost
+    evaluation (all buckets) at the headline and at the 1024-image
+    scene."""
+    cases = {}
+    for tag, make in (
+            ("headline", lambda: make_ba_problem(
+                dtype=torch.float32, device="cuda", **HEADLINE)[0]),
+            ("1024 img", lambda: make_sequential_ba_problem(
+                **LARGE, device="cuda")[0])):
+        opt = BAOptions(dtype="float32")
+        statics, lays, pts0, par, _ = _step(ba_fused.prepare(make(), opt))
+        staged = (bk.k5_stages_par(par, lays[0])
+                  if hasattr(cuda_build.lib(), "sba_fused_cost_stages")
+                  else "?")
+        print(f"k5 {tag}: {len(lays)} buckets, K = {[l.K for l in lays]}, "
+              f"Pp = {[l.Pp for l in lays]}, par staged in shared memory: "
+              f"{staged}", flush=True)
+
+        def call(statics=statics, lays=lays, pts0=pts0, par=par, opt=opt):
+            if hasattr(cuda_build.lib(), "sba_fused_cost_buckets"):
+                out = bk.fused_cost_buckets(statics, par, pts0, lays, opt)
+            else:
+                out = _cost_per_bucket(statics, par, pts0, lays, opt)
+            return [(out.reshape(1),)]
+
+        plain = bk.fused_cost_buckets_plain(statics, par, pts0, lays, opt)
+        cases[f"k5 {tag} ({len(lays)} buckets)"] = (
+            call, [(plain.reshape(1),)], ("cost",))
+    return cases
+
+
 def k6_cases():
     """Random images; each source lies outside the reference's view on a
     band of 240-540 columns (about a fifth of the pixels, as in the
@@ -321,33 +413,41 @@ def k6_cases():
     return cases
 
 
-def _sba_chunk_gather():
+def _sba_chunk_gather(pair=False):
     """(table, idx) of the first `map_gather` of one bench_sba
-    linearization on the card: the path's flat form on the packed maps."""
+    linearization on the card: the path's flat form on the packed maps;
+    with `pair`, of the first `map_gather_pair` of the scene at
+    SBA_PAIR_LABELS labels (the two-map path's interleaved table)."""
     from sba_tpu_torch.ops import interpolation
     from sba_tpu_torch.optim import sba as tsba
     from sba_tpu_torch.utils.synthetic import make_sba_scene
 
-    scene = make_sba_scene(**SBA_SCENE)       # q, t, cam, depth, sem, q0, t0
+    spec = dict(SBA_SCENE, num_labels=SBA_PAIR_LABELS) if pair \
+        else SBA_SCENE
+    scene = make_sba_scene(**spec)            # q, t, cam, depth, sem, q0, t0
     opt = tsba.SBAOptions(**SBA_OPT)
     problem = tsba.build_sba_problem(scene[5], scene[6], *scene[2:5], opt,
                                      dtype=torch.float32, device="cuda")
     seen = []
-    real = (tsba.map_gather, interpolation.map_gather)
+    mods = (interpolation,) if pair else (tsba, interpolation)
+    name = "map_gather_pair" if pair else "map_gather"
+    real = getattr(interpolation, name)
 
-    def record(table, idx, per=0, hw=0):
+    def record(table, idx, per=0, hw=0, *rest):
         seen.append((table, idx.clone(), per, hw))
-        return real[0](table, idx, per, hw)
+        return real(table, idx, per, hw, *rest)
 
-    tsba.map_gather = interpolation.map_gather = record
+    for m in mods:
+        setattr(m, name, record)
     try:
         tsba._linearize_system(problem, opt)
     finally:
-        tsba.map_gather, interpolation.map_gather = real
+        for m in mods:
+            setattr(m, name, real)
     table, idx, per, hw = seen[0]
     assert per == 0
-    print(f"gather bench_sba: {len(seen)} map_gather calls per "
-          f"linearization; the first: {idx.numel()} samples from "
+    print(f"{'pair' if pair else 'gather'} bench_sba: {len(seen)} {name} "
+          f"calls per linearization; the first: {idx.numel()} samples from "
           f"{table.numel()} {table.dtype} words", flush=True)
     return table, idx
 
@@ -381,6 +481,46 @@ def gather_cases():
     return cases
 
 
+def pair_cases():
+    """{name: (per-library call, twin outputs, output names)}:
+    map_gather_pair at the probes' shape (summed form), with its indices
+    sorted within each map and with every sample from map 0, and on a
+    two-map bench_sba chunk (both words), with torch.take on the same
+    8-byte words beside the first and the last."""
+    from sba_tpu_torch.ops import map_gather as mg
+
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    n = PROBE_MAPS * PROBE_HW
+    inter = torch.randint(-2 ** 31, 2 ** 31 - 1, (n, 2), dtype=torch.int32,
+                          generator=gen).cuda()
+    il = torch.randint(0, PROBE_HW, (PROBE_MAPS, PROBE_PER),
+                       dtype=torch.int32, generator=gen).cuda()
+    gi = (il.long() + PROBE_HW * torch.arange(
+        PROBE_MAPS, device="cuda")[:, None])
+    il_sorted = il.sort(dim=-1).values.contiguous()
+    table, idx = _sba_chunk_gather(pair=True)
+    total = il.numel()
+    cases = {}
+    for tag, (tab, ii, per, hw, summed) in (
+            ("probe", (inter, il, PROBE_PER, PROBE_HW, True)),
+            ("probe sorted in each map",
+             (inter, il_sorted, PROBE_PER, PROBE_HW, True)),
+            ("probe all from map 0", (inter, il, total, PROBE_HW, True)),
+            ("bench_sba chunk", (table, idx, 0, 0, False))):
+        cases[f"pair {tag}"] = (
+            lambda tab=tab, ii=ii, per=per, hw=hw, summed=summed: [(
+                mg.map_gather_pair(tab, ii, per, hw, summed),)],
+            [(mg.map_gather_pair_plain(tab, ii, per, hw, summed),)],
+            ("out",))
+    words = (("probe", inter, gi), ("bench_sba chunk", table, idx.long()))
+    for tag, tab, g in words:
+        t64 = tab.reshape(-1).view(torch.int64)
+        cases[f"pair {tag} torch.take"] = (
+            lambda t64=t64, g=g: [(torch.take(t64, g),)],
+            [(torch.take(t64, g),)], ("out",))
+    return cases
+
+
 def _errors(outs, plain, names):
     """'name rel_err' for each output: the largest |kernel - twin| over
     the buckets, relative to the twin's largest |entry|."""
@@ -404,8 +544,10 @@ def main(argv=None):
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--kernels", nargs="+",
-                    choices=("k1", "k2", "k3", "k4", "k6", "gather"),
-                    default=("k1", "k2", "k3", "k4", "k6", "gather"))
+                    choices=("k1", "k2", "k3", "k4", "k5", "k6", "gather",
+                             "pair"),
+                    default=("k1", "k2", "k3", "k4", "k5", "k6", "gather",
+                             "pair"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_timing: needs a CUDA device")
@@ -417,7 +559,8 @@ def main(argv=None):
     libs = []
     for d in dirs:
         path, log = cuda_build.build(d.resolve())
-        libs.append(cuda_build.load(path))
+        own_src = d.resolve() == cuda_build.CSRC_DIR.resolve()
+        libs.append(cuda_build.load(path) if own_src else load_other(path))
         lines = log.splitlines()
         for i, line in enumerate(lines):
             if "entry function" in line and any(k in line
@@ -427,19 +570,21 @@ def main(argv=None):
                       + " | ".join(x.replace("ptxas info    : ", "")
                                    for x in info), flush=True)
         print(f"lib{len(libs) - 1} = {d}", flush=True)
-    own = cuda_build.lib()
-
-    cases = {}
-    for k, make in (("k1", k1_cases), ("k2", k2_cases), ("k3", k3_cases),
-                    ("k4", k4_cases), ("k6", k6_cases),
-                    ("gather", gather_cases)):
-        if k in args.kernels:
-            cases.update(make())
-    # The wrappers launch through cuda_build.lib(): point it at each
-    # library in turn, and back at the package's own at the end.
+    # The wrappers launch through cuda_build.lib(): the inputs are made
+    # with the last library, the timing points it at each library in
+    # turn, and the package's own comes back at the end.
+    own = cuda_build._LIB
     order = list(range(len(libs)))
     times = {}
     try:
+        cuda_build._LIB = libs[-1]
+        cases = {}
+        for k, make in (("k1", k1_cases), ("k2", k2_cases),
+                        ("k3", k3_cases), ("k4", k4_cases),
+                        ("k5", k5_cases), ("k6", k6_cases),
+                        ("gather", gather_cases), ("pair", pair_cases)):
+            if k in args.kernels:
+                cases.update(make())
         for _ in range(args.rounds):
             for i in order + order[::-1]:
                 cuda_build._LIB = libs[i]
@@ -458,7 +603,7 @@ def main(argv=None):
                       + f"; host {host:.4f} ms to enqueue one); max |err| "
                       "/ twin scale: " + _errors(outs, plain, names),
                       flush=True)
-                if name[:2] in ("k1", "k2", "k4"):
+                if name[:2] in ("k1", "k2", "k4", "k5"):
                     split = kernel_split(call, args.reps)
                     for kname, (n, ms) in sorted(split.items(),
                                                  key=lambda kv: -kv[1][1]):

@@ -11,6 +11,7 @@ image Hpp has rank 2 and its inverse amplifies f32 rounding by up to
 1/lambda, so two correct f32 evaluations differ there at ~1e-4.
 """
 
+import dataclasses
 import re
 from pathlib import Path
 
@@ -150,6 +151,87 @@ def test_fused_cost_twin_matches_sba_tpu(model_id):
     c_j = jbk.fused_cost(st_j, par_j, pts_j, lay_j, opt_j, interpret=True)
     c_t = tbk.fused_cost(st_t, par_t, pts_t, lay_t, opt_t)
     np.testing.assert_allclose(float(c_t), float(c_j), rtol=1e-4)
+
+
+def _bucket_setup(model_id):
+    """A 12-image f32 scene whose tracks fall into three track-length
+    buckets, with a tenth of the observations masked out (dead lanes
+    beside the padding), prepared by both packages."""
+    problem, _ = j_make_ba_problem(
+        num_images=12, num_points=300, observations_per_point=5,
+        pose_noise=0.01, point_noise=0.05, pixel_noise=0.5,
+        dtype=jnp.float32, model_id=model_id, seed=model_id + 1)
+    cam = np.array(problem.cam_params)
+    for i, val in _DISTORT.get(model_id, {}).items():
+        cam[:, i] = val
+    mask = np.array(problem.obs_mask)
+    mask[np.random.default_rng(model_id).random(mask.shape) < 0.1] = 0.0
+    problem = problem._replace(cam_params=jnp.asarray(cam, jnp.float32),
+                               obs_mask=jnp.asarray(mask, jnp.float32))
+    kw = dict(model_id=model_id, dtype="float32", loss="cauchy",
+              loss_scale=2.0)
+    ctx_j = jbf.prepare(problem, JOpt(**kw))
+    ctx_t = tbf.prepare(problem_from_numpy(_numpy_fields(problem), "cpu",
+                                           torch.float32), TOpt(**kw))
+    return ctx_j, ctx_t
+
+
+@pytest.mark.parametrize("model_id", [0, 4, 10])
+def test_fused_cost_buckets_twin_matches_sba_tpu(model_id):
+    """K5 over all buckets of a cost evaluation (its twin on the CPU)
+    against the sum of sba_tpu's per-bucket fused_cost."""
+    ctx_j, ctx_t = _bucket_setup(model_id)
+    statics, lays, pts0, _, prob, opt_j, _ = ctx_j
+    par = jbk.pack_params(prob.qvecs, prob.tvecs, prob.cam_params,
+                          statics[0].image_cam, lays[0])
+    want = sum(float(jbk.fused_cost(st, par, p, lay, opt_j, interpret=True))
+               for st, lay, p in zip(statics, lays, pts0))
+    statics, lays_t, pts0, _, prob, opt_t, _ = ctx_t
+    assert len(lays_t) == len(lays) == 3
+    assert [lay.K for lay in lays_t] == [lay.K for lay in lays]
+    dead = [float((st.obs_sta[2] == 0).float().mean()) for st in statics]
+    assert min(dead) > 0.05
+    par = tbk.pack_params(prob.qvecs, prob.tvecs, prob.cam_params,
+                          statics[0].image_cam, lays_t[0])
+    tbk.reset_launches()
+    got = tbk.fused_cost_buckets(statics, par, pts0, lays_t, opt_t)
+    assert got.shape == () and tbk.LAUNCHES["fused_cost"] == 0
+    np.testing.assert_allclose(float(got), want, rtol=1e-4)
+
+
+def test_lm_loop_cost_goes_through_fused_cost_buckets(monkeypatch):
+    """Each LM cost evaluation is one `fused_cost_buckets` call over all
+    buckets; the per-bucket `fused_cost` is not called."""
+    _, ctx_t = _bucket_setup(0)
+    calls = []
+    real = tbk.fused_cost_buckets
+
+    def counted(statics, par, pts_list, lays, opt):
+        calls.append(len(lays))
+        return real(statics, par, pts_list, lays, opt)
+
+    def per_bucket(*args):
+        raise AssertionError("the LM loop called the per-bucket fused_cost")
+
+    monkeypatch.setattr(tbk, "fused_cost_buckets", counted)
+    monkeypatch.setattr(tbk, "fused_cost", per_bucket)
+    statics, lays, pts0, _, prob, opt, free_arrays = ctx_t
+    opt = dataclasses.replace(opt, max_iterations=3, function_tolerance=0.0,
+                              gradient_tolerance=0.0,
+                              parameter_tolerance=0.0)
+    _, summary = tbf._fused_lm_loop(statics, lays, pts0, prob, opt,
+                                    free_arrays)
+    assert summary.num_iterations == 3
+    assert calls == [3] * (summary.num_iterations + 1)
+
+
+def test_k5_bucket_limit_matches_the_kernel_source():
+    """K5's bucket limit in the wrapper is the kernel's (csrc
+    kK5MaxBuckets) and the LM loop's (MAX_BUCKETS)."""
+    src = (Path(tbk.__file__).resolve().parent.parent / "csrc"
+           / "ba_kernels.cuh").read_text()
+    assert re.search(r"kK5MaxBuckets = (\d+);", src).group(1) == str(
+        tbk.K5_MAX_BUCKETS) == str(tbf.MAX_BUCKETS)
 
 
 def _k1_both(j, t, lam=1e-3):

@@ -186,6 +186,107 @@ def test_implicit_kernels_match_twins(cuda, ranged):
         assert _rel_err(m_k, m_p) <= 3e-5
 
 
+def _cost_inputs(problem, opt):
+    statics, lays, pts0, _, prob, _, _ = ba_fused.prepare(problem, opt)
+    par = bk.pack_params(prob.qvecs, prob.tvecs, prob.cam_params,
+                         statics[0].image_cam, lays[0])
+    return statics, lays, pts0, par
+
+
+def _check_cost_buckets(statics, lays, pts0, par, opt, reps=20):
+    """K5 over all buckets: one launch, the twin's sum at _rel_err 1e-4,
+    and the same bits on `reps` calls. Returns the first result."""
+    want = bk.fused_cost_buckets_plain(statics, par, pts0, lays, opt)
+    bk.reset_launches()
+    outs = [bk.fused_cost_buckets(statics, par, pts0, lays, opt)
+            for _ in range(reps)]
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES["fused_cost"] == reps
+    assert outs[0].shape == () and outs[0].dtype == torch.float32
+    assert _rel_err(outs[0], want) <= 1e-4
+    assert all(torch.equal(o, outs[0]) for o in outs)
+    return outs[0]
+
+
+@pytest.mark.parametrize("model_id", list(range(11)))
+def test_fused_cost_buckets_match_twin_and_repeat_bits(cuda, model_id):
+    """K5 over the three buckets of a 12-image scene in one launch, with
+    the parameter table staged in shared memory: every camera head
+    against its twin, bit-identical over 20 calls, and the one-bucket
+    `fused_cost` (the same kernel) against each bucket's twin."""
+    problem = _model_problem(cuda, model_id, num_images=12, num_points=300,
+                             observations_per_point=5)
+    opt = BAOptions(model_id=model_id, dtype="float32", loss="cauchy",
+                    loss_scale=2.0)
+    statics, lays, pts0, par = _cost_inputs(problem, opt)
+    assert len(lays) == 3 and bk.k5_stages_par(par, lays[0])
+    _check_cost_buckets(statics, lays, pts0, par, opt)
+    for st, lay, pts in zip(statics, lays, pts0):
+        c_k = bk.fused_cost(st, par, pts, lay, opt)
+        assert _rel_err(c_k, bk.fused_cost_plain(st, par, pts, lay, opt)) \
+            <= 1e-4
+
+
+@pytest.mark.parametrize("model_id, num_images", [(0, 6000), (6, 3100)])
+def test_fused_cost_buckets_read_par_in_place(cuda, model_id, num_images):
+    """K5 where the parameter table [7+np, Npad] passes the shared-memory
+    opt-in limit (SIMPLE_PINHOLE at 6,000 images, FULL_OPENCV at 3,100):
+    the kernel reads it in place, against its twin and bit-identical
+    over 20 calls."""
+    problem = _model_problem(cuda, model_id, num_images=num_images,
+                             num_points=3000, observations_per_point=5)
+    opt = BAOptions(model_id=model_id, dtype="float32")
+    statics, lays, pts0, par = _cost_inputs(problem, opt)
+    assert not bk.k5_stages_par(par, lays[0])
+    _check_cost_buckets(statics, lays, pts0, par, opt)
+
+
+def test_fused_cost_buckets_with_dead_buckets(cuda):
+    """K5 with one bucket whose lanes are all masked out, and with every
+    bucket so: the twin's sum (0 when all are dead), bit-identical over
+    20 calls."""
+    problem, _ = make_ba_problem(dtype=torch.float32, device=cuda,
+                                 **dict(_SMALL, num_images=12,
+                                        num_points=300,
+                                        observations_per_point=5))
+    opt = BAOptions(dtype="float32")
+    statics, lays, pts0, par = _cost_inputs(problem, opt)
+    assert len(lays) == 3
+    for dead in ({1}, {0, 1, 2}):
+        sts = [st._replace(obs_sta=torch.cat([st.obs_sta[:2],
+                                              0 * st.obs_sta[2:]]))
+               if b in dead else st for b, st in enumerate(statics)]
+        got = _check_cost_buckets(sts, lays, pts0, par, opt)
+        assert (float(got) == 0.0) == (len(dead) == 3)
+
+
+def test_fused_cost_buckets_on_two_streams(cuda):
+    """K5 launched in turn on two streams, each with its own workspace,
+    40 calls in flight at once: every result has the bits of a call on
+    the default stream, and later calls on the default stream too."""
+    problem, _ = make_ba_problem(dtype=torch.float32, device=cuda,
+                                 **dict(_SMALL, num_images=12,
+                                        num_points=300,
+                                        observations_per_point=5))
+    opt = BAOptions(dtype="float32")
+    statics, lays, pts0, par = _cost_inputs(problem, opt)
+    want = bk.fused_cost_buckets(statics, par, pts0, lays, opt)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = []
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    for _ in range(20):
+        for s in streams:
+            with torch.cuda.stream(s):
+                outs.append(bk.fused_cost_buckets(statics, par, pts0, lays,
+                                                  opt))
+    torch.cuda.synchronize()
+    assert len({w.data_ptr() for w in bk._K5_WORK.values()}) >= 3
+    assert all(torch.equal(o, want) for o in outs)
+    assert torch.equal(bk.fused_cost_buckets(statics, par, pts0, lays, opt),
+                       want)
+
+
 def test_fused_solve_on_card_matches_cpu_twins(cuda):
     """The card's f32 solve ends at the CPU twins' cost (rtol 1e-3), as
     the f32 sums report it and as one float64 evaluation on the CPU of
@@ -535,6 +636,41 @@ def test_map_gather_bit_equal_at_odd_lengths_and_views(cuda, dtype, form):
             torch.cuda.synchronize()
             assert torch.equal(buf[1:], want), (hw, n, off)
             assert int(buf[0]) == 0
+
+
+@pytest.mark.parametrize("form", ["probe", "flat"])
+def test_map_gather_pair_bit_equal_at_odd_lengths_and_views(cuda, form):
+    """map_gather_pair (B3's kernel) equals its twin bit for bit at n = 1,
+    3 and 4097, on index views offset by 0-3 elements, in its summed and
+    pair forms, on the probes' layout (indices local to their map) and
+    the flat one, with maps of 1024 and 1021 pixels."""
+    from sba_tpu_torch.ops import map_gather as mg
+
+    gen = torch.Generator().manual_seed(2)
+    for hw, (n, (maps, per)) in ((hw, c) for hw in (1024, 1021)
+                                 for c in _ODD_LENGTHS.items()
+                                 if c[0] in (1, 3, 4097)):
+        table = torch.randint(-2 ** 31, 2 ** 31 - 1, (maps * hw, 2),
+                              dtype=torch.int32, generator=gen)
+        il = torch.randint(0, hw, (n + 3,), dtype=torch.int32,
+                           generator=gen)
+        if form == "flat":
+            il = (il + hw * ((torch.arange(n + 3) % n) // per)).int()
+            per_, hw_ = 0, 0
+        else:
+            per_, hw_ = per, hw
+        table, il = table.to(cuda), il.to(cuda)
+        for off in range(4):
+            if form == "probe" and off:     # samples map by position
+                idx = torch.cat([il[:off], il[:n]])[off:]
+            else:
+                idx = il[off:off + n]
+            assert idx.storage_offset() == off and idx.is_contiguous()
+            for summed in (True, False):
+                want = mg.map_gather_pair_plain(table, idx, per_, hw_, summed)
+                got = mg.map_gather_pair(table, idx, per_, hw_, summed)
+                assert got.dtype == want.dtype and torch.equal(got, want), (
+                    hw, n, off, summed)
 
 
 @pytest.mark.parametrize("order", ["sorted", "spread"])
