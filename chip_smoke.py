@@ -94,7 +94,27 @@ Needs one CUDA card and nvcc (found through torch's CUDA_HOME, else
                      on an 8-image 640x480 model with TIFF maps, at its
                      defaults (float64, forward mode) and in hard_numeric
                      mode;
-15. timing        -- per-kernel CUDA-event times (the stream sleeps
+15. gsba          -- geometric-semantic BA in float32 through
+                     `geometric_semantic_bundle_adjust` (plain PyTorch,
+                     no kernel of its own): bench_gsba (bench.py:125: 20
+                     images, 640x480, soft, 10 LM iterations, tolerances
+                     off; the cost, the hard mean IoU and the cylinder's
+                     centre error must improve; the first LM step against
+                     the float64 solve on the card at 1e-3 of scale, the
+                     costs at rtol 1e-4; warm LM it/s as bench.py's
+                     `_delta_rate`) and the forest (bench.py:318: 16
+                     trunks x 32 images at 640x480, 3 to 10 LM iterations
+                     as time allows; the cost and the mean own-view hard
+                     IoU must improve, and the final cost must match the
+                     float64 solve's on the card at rtol 1e-3; warm LM
+                     it/s, chunks, peak memory, and the trunks whose
+                     own-view IoU fell in either solve);
+16. cli-gsba      -- `python -m sba_tpu_torch.cli
+                     geometric_semantic_bundle_adjuster` at its defaults
+                     (cuda, float64) on an 8-image 640x480 model with
+                     semantic TIFFs and a perturbed cylinders.txt: the
+                     printed line, and the cylinder's centre error falls;
+17. timing        -- per-kernel CUDA-event times (the stream sleeps
                      while the host enqueues the timed calls, so they are
                      the device's) against the twins, the
                      memory/compute bound and, for B1-B4, the PyTorch
@@ -104,13 +124,14 @@ Needs one CUDA card and nvcc (found through torch's CUDA_HOME, else
                      random du, also at the 1024-image bucket; B1-B4
                      also beside the least time over the 32-byte
                      sectors their samples touch (B3's sector floor);
-16. profile       -- device time by kernel over one warm solve of the
+18. profile       -- device time by kernel over one warm solve of the
                      headline (with K1's split between its linearize-and-
                      reduce kernel and its three Schur kernels, and its
                      share of its bound), of the
                      1024-image scene, of one 1600x1200 photometric
-                     PatchMatch solve and of the bench_sba SBA solve
-                     (torch.profiler), and the device's busy share.
+                     PatchMatch solve, of the bench_sba SBA solve and of
+                     the bench_gsba GSBA solve (torch.profiler), and the
+                     device's busy share.
 
 Prints one progress line per phase, a `{"kernels": [...]}` line, the
 card's name and power limit, and as its last line
@@ -175,6 +196,21 @@ SBA_OPT = dict(pixel_step=10, max_iterations=10, mode="soft",
 SBA_PAIR_SCENE = dict(SBA_SCENE, num_images=20, num_labels=12)
 # The CLI's model: 8 images of the bench_sba scene.
 SBA_CLI_SCENE = dict(SBA_SCENE, num_images=8)
+# bench.py:125 bench_gsba: one trunk seen by 20 images at 640x480, soft,
+# 10 LM iterations, tolerances off; and bench.py:318 bench_gsba_forest:
+# 16 trunks x 2 close-up views, 640x480, focal 700 (LM iterations as the
+# deadline allows, at least 3).
+GSBA_SCENE = dict(num_images=20, image_size=(640, 480), pose_noise=0.01,
+                  cylinder_noise=0.05, seed=0)
+GSBA_OPT = dict(mode="soft", max_iterations=10, function_tolerance=0.0,
+                gradient_tolerance=0.0, parameter_tolerance=0.0)
+FOREST_SCENE = dict(num_cylinders=16, cameras_per_cylinder=2,
+                    image_size=(640, 480), focal=700.0, pose_noise=0.005,
+                    cylinder_noise=0.03, seed=0)
+FOREST_MIN_IT, FOREST_MAX_IT, FOREST_SECONDS = 3, 10, 20.0
+# The GSBA CLI's model: 8 images of the bench_gsba scene at their true
+# poses (tests/test_cli_semantic.py's setting), the cylinder perturbed.
+GSBA_CLI_SCENE = dict(GSBA_SCENE, num_images=8, pose_noise=0.0)
 # tests/test_ba_fused.py:28-40: a small distortion per camera model, so
 # that every analytic head runs off its pinhole special case.
 DISTORT = {
@@ -2140,6 +2176,269 @@ def phase_profile_sba(problem, opt):
         problem, opt)[1].num_iterations, "LM it")
 
 
+def _centre_error(tvec, cyl):
+    import numpy as np
+
+    return float(np.linalg.norm(np.asarray(tvec, np.float64) - cyl.tvec))
+
+
+def _gsba_rates(problem, opt_kw):
+    """bench.py's two readings of a warm solve: 10 / the median time of
+    a 10-iteration solve, and `_delta_rate` (best of 4 interleaved 5-
+    and 20-iteration solves, (20 - 5) / their difference). Returns (ms
+    per LM iteration of the 10-iteration solve, its it/s, the per-added-
+    iteration it/s)."""
+    import numpy as np
+    import torch
+
+    from sba_tpu_torch.optim.gsba import (GSBAOptions,
+                                          geometric_semantic_bundle_adjust)
+
+    def run(n_it):
+        o = GSBAOptions(**dict(opt_kw, max_iterations=n_it))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        float(geometric_semantic_bundle_adjust(problem, o)[1].final_cost)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    run(5)
+    t10 = float(np.median([run(10) for _ in range(3)]))
+    best = {5: float("inf"), 20: float("inf")}
+    for _ in range(4):
+        for n in best:
+            best[n] = min(best[n], run(n))
+    return t10 * 1e3 / 10, 10 / t10, 15 / (best[20] - best[5])
+
+
+def phase_gsba():
+    """Geometric-semantic BA at full width in float32: bench_gsba (cost,
+    hard mean IoU and cylinder centre error must improve; the first LM
+    step and cost against the float64 solve on the card; warm rates) and
+    the 16-trunk forest (cost and mean own-view hard IoU improve, the
+    final cost matches float64's; warm rate, chunks, peak memory). A
+    trunk's own-view IoU may fall: sba_tpu's solve of a forest trades
+    one trunk's views against the others' (one 1 - IoU residual per
+    image against the union mask; tests/test_torch_gsba.py::
+    test_forest_trunk_trade_matches_sba_tpu). Returns (bench_gsba's
+    problem and options, its warm ms per LM iteration)."""
+    import numpy as np
+    import torch
+
+    from sba_tpu_torch.optim import gsba as tg
+    from sba_tpu_torch.utils.synthetic import (make_gsba_forest_scene,
+                                               make_gsba_scene)
+
+    t = time.perf_counter()
+    q, tv, cam, sem, cyl, q0, t0, cyl0 = make_gsba_scene(**GSBA_SCENE)
+    log("gsba", f"bench_gsba scene ({GSBA_SCENE['num_images']} x "
+        f"{GSBA_SCENE['image_size']}, {int((sem > 0).sum())} trunk "
+        f"pixels) made on the host in {time.perf_counter() - t:.1f} s")
+    opt = tg.GSBAOptions(**GSBA_OPT)
+    probs = {dt: tg.build_gsba_problem(q0, t0, cam, sem, [cyl0], opt,
+                                       dtype=dt, device="cuda")
+             for dt in (torch.float32, torch.float64)}
+    p32, p64 = probs[torch.float32], probs[torch.float64]
+    iou0 = float(tg.evaluate_iou(p32).mean())
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out, s = tg.geometric_semantic_bundle_adjust(p32, opt)
+    c0, c1 = float(s.initial_cost), float(s.final_cost)
+    wall = time.perf_counter() - t
+    e0 = _centre_error(cyl0.tvec, cyl)
+    e1 = _centre_error(out.cyl_tvec[0].cpu(), cyl)
+    iou1 = float(s.mean_iou)
+    require(s.num_iterations == GSBA_OPT["max_iterations"]
+            and bool(torch.isfinite(out.cyl_tvec).all()),
+            f"bench_gsba: {s.num_iterations} iterations")
+    require(c1 < c0 and iou1 > iou0 and e1 < e0,
+            f"bench_gsba: cost {c0} -> {c1}, hard mean IoU {iou0} -> "
+            f"{iou1}, centre error {e0} -> {e1}")
+    log("gsba", f"bench_gsba f32: cost {c0:.6g} -> {c1:.6g} in "
+        f"{s.num_iterations} it, {wall:.2f} s cold; hard mean IoU "
+        f"{iou0:.4f} -> {iou1:.4f}; cylinder centre error {e0:.5f} -> "
+        f"{e1:.5f}")
+
+    # The first LM step and the first iteration's cost, float32 against
+    # float64 on the card.
+    steps = {}
+    for dt, p in probs.items():
+        free = tg._free_vector(p, opt)
+        g, H = tg._linearize(p, opt, free)
+        lam = torch.as_tensor(1.0 / opt.initial_trust_radius, dtype=dt,
+                              device="cuda")
+        steps[dt] = tg._lm_step(H, g, lam, free)[0]
+    _, s64 = tg.geometric_semantic_bundle_adjust(
+        p64, tg.GSBAOptions(**dict(GSBA_OPT, max_iterations=1)))
+    step_err = close("bench_gsba first LM step f32 vs f64",
+                     steps[torch.float32], steps[torch.float64], 1e-3)
+    cost_gap = [abs(float(s.cost_trace[i]) - float(s64.cost_trace[i]))
+                / float(s64.cost_trace[i]) for i in (0, 1)]
+    require(max(cost_gap) <= 1e-4,
+            f"bench_gsba f32 vs f64 costs (initial, first iteration): "
+            f"{cost_gap}")
+    ms_it, rate10, rate_d = _gsba_rates(p32, GSBA_OPT)
+    step_max = float(steps[torch.float64].abs().max())
+    log("gsba", f"bench_gsba f32 vs f64 on the card: first LM step "
+        f"|err| {step_err:.3e} (of {step_max:.3e}),"
+        f" costs {cost_gap[0]:.2e} / {cost_gap[1]:.2e} relative; warm "
+        f"10-iteration solve {ms_it:.2f} ms per LM iteration = "
+        f"{rate10:.2f} LM it/s with its fixed costs; per added iteration "
+        f"(bench.py _delta_rate, 5 and 20) {rate_d:.2f} LM it/s")
+    del probs, p64
+
+    t = time.perf_counter()
+    q, tv, cam, sem, cyls, q0, t0, cyls0 = make_gsba_forest_scene(
+        **FOREST_SCENE)
+    log("gsba", f"forest scene ({len(cyls)} trunks x {len(q)} images x "
+        f"{FOREST_SCENE['image_size']}) made on the host in "
+        f"{time.perf_counter() - t:.1f} s")
+    pf = tg.build_gsba_problem(q0, t0, cam, sem, cyls0, opt,
+                               dtype=torch.float32, device="cuda")
+    own = np.arange(len(q)) // FOREST_SCENE["cameras_per_cylinder"]
+
+    def own_iou(iou):
+        """Each trunk's mean hard IoU over its own close-up views."""
+        iou = iou.cpu().numpy()[np.arange(len(q)), own]
+        return np.array([iou[own == k].mean() for k in range(len(cyls))])
+
+    own0 = own_iou(tg.evaluate_iou(pf))
+    chunks = tg.image_chunks(pf)
+    # Iterations as the deadline allows: the forest's float32 solve gets
+    # FOREST_SECONDS, less if the deadline is nearer.
+    left = min(FOREST_SECONDS,
+               DEADLINE_S - (time.perf_counter() - T0) - 240)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    _, sf = tg.geometric_semantic_bundle_adjust(pf, tg.GSBAOptions(
+        **dict(GSBA_OPT, max_iterations=FOREST_MIN_IT)))
+    float(sf.final_cost)
+    cold = time.perf_counter() - t
+    n_it = int(min(FOREST_MAX_IT, max(FOREST_MIN_IT,
+                                      left * FOREST_MIN_IT / cold)))
+    on = tg.GSBAOptions(**dict(GSBA_OPT, max_iterations=n_it))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, sf = tg.geometric_semantic_bundle_adjust(pf, on)
+    fc0, fc1 = float(sf.initial_cost), float(sf.final_cost)
+    warm = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    own1 = own_iou(sf.per_image_iou)
+    # The same solve in float64 (the path held to sba_tpu's on the CPU).
+    p64 = tg.build_gsba_problem(q0, t0, cam, sem, cyls0, opt,
+                                dtype=torch.float64, device="cuda")
+    t = time.perf_counter()
+    _, s64 = tg.geometric_semantic_bundle_adjust(p64, on)
+    c64 = float(s64.final_cost)
+    wall64 = time.perf_counter() - t
+    own64 = own_iou(s64.per_image_iou)
+    require(fc1 < fc0 and own1.mean() > own0.mean(),
+            f"forest: cost {fc0} -> {fc1}, mean own-view hard IoU "
+            f"{own0.mean()} -> {own1.mean()}")
+    require(abs(fc1 - c64) <= 1e-3 * c64,
+            f"forest: float32 final cost {fc1} against float64 {c64}")
+    fell = np.nonzero(own1 < own0)[0].tolist()
+    fell64 = np.nonzero(own64 < own0)[0].tolist()
+    log("gsba", f"forest f32: cost {fc0:.6g} -> {fc1:.6g} in {n_it} it "
+        f"(float64 {c64:.6g}, {wall64:.2f} s); own-view hard IoU mean "
+        f"{own0.mean():.4f} -> {own1.mean():.4f} (float64 "
+        f"{own64.mean():.4f}), largest f32-f64 gap "
+        f"{np.abs(own1 - own64).max():.4f}; trunks whose own-view IoU "
+        f"fell: {fell} (float64 {fell64}); warm {n_it}-iteration solve "
+        f"{warm * 1e3:.1f} ms = {n_it / warm:.2f} LM it/s with its fixed "
+        f"costs ({cold:.2f} s for the first {FOREST_MIN_IT}); "
+        f"{len(chunks)} chunks of up to {chunks[0].stop} images under "
+        f"{tg.GSBA_CHUNK_BYTES / 2 ** 30:.0f} GiB; peak device memory "
+        f"{peak:.1f} MiB (float32)")
+    return (p32, opt), ms_it
+
+
+def _write_gsba_workspace(work, scene):
+    """A SIMPLE_PINHOLE model of the scene's initial poses, its semantic
+    TIFF maps and the perturbed cylinder."""
+    import numpy as np
+
+    from sba_tpu_torch.geometry import camera_models
+    from sba_tpu_torch.io.colmap_models import Camera, Image
+    from sba_tpu_torch.io.maps import write_float_map_tiff
+    from sba_tpu_torch.models.cylinder import write_cylinders_text
+    from sba_tpu_torch.models.reconstruction import Reconstruction
+
+    q, tv, cam, sem, cyl, q0, t0, cyl0 = scene
+    n, h, w = sem.shape
+    rec = Reconstruction()
+    sp = camera_models.model_by_name("SIMPLE_PINHOLE").model_id
+    rec.add_camera(Camera(camera_id=1, model_id=sp, width=w, height=h,
+                          params=np.asarray(cam[0], np.float64)))
+    (work / "maps").mkdir(parents=True)
+    for i in range(n):
+        rec.add_image(Image(image_id=i + 1, qvec=q0[i], tvec=t0[i],
+                            camera_id=1, name=f"im{i}.png",
+                            xys=np.zeros((0, 2)),
+                            point3D_ids=np.zeros(0, np.int64)),
+                      registered=True)
+        write_float_map_tiff(sem[i], work / "maps" / f"im{i}_semantic.tiff")
+    rec.write(str(work / "in"))
+    write_cylinders_text([cyl0], work / "cylinders.txt")
+
+
+def phase_cli_gsba():
+    """geometric_semantic_bundle_adjuster on the card at its defaults
+    (float64): the printed line, and the output cylinder's centre closer
+    to the truth."""
+    from sba_tpu_torch.models.cylinder import read_cylinders_text
+    from sba_tpu_torch.ops import cuda_build
+    from sba_tpu_torch.utils.synthetic import make_gsba_scene
+
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="cli_gsba_",
+                                 dir=cuda_build.BUILD_DIR))
+    try:
+        scene = make_gsba_scene(**GSBA_CLI_SCENE)
+        _write_gsba_workspace(work, scene)
+        cmd = [sys.executable, "-m", "sba_tpu_torch.cli",
+               "geometric_semantic_bundle_adjuster",
+               "--input_path", str(work / "in"),
+               "--output_path", str(work / "out"),
+               "--data_path", str(work / "maps"),
+               "--input_geometry", str(work / "cylinders.txt")]
+        env = dict(os.environ, PYTHONPATH=str(ROOT))
+        budget = max(30.0, DEADLINE_S - (time.perf_counter() - T0) - 60)
+        t = time.perf_counter()
+        res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                             text=True, timeout=budget)
+        wall = time.perf_counter() - t
+        require(res.returncode == 0, f"CLI exit {res.returncode}:\n"
+                f"{res.stdout}\n{res.stderr}")
+        m = re.search(r"GSBA: cost (\S+) -> (\S+), mean IoU (\S+)",
+                      res.stdout)
+        require(m is not None, f"unexpected CLI output:\n{res.stdout}")
+        c0, c1, iou = (float(x) for x in m.groups())
+        (out,) = read_cylinders_text(work / "out" / "cylinders.txt")
+        cyl, cyl0 = scene[4], scene[7]
+        e0, e1 = _centre_error(cyl0.tvec, cyl), _centre_error(out.tvec, cyl)
+        require(c1 < c0 and e1 < e0,
+                f"CLI: cost {c0} -> {c1}, centre error {e0} -> {e1}")
+        log("cli-gsba", f"defaults (cuda, float64), "
+            f"{GSBA_CLI_SCENE['num_images']} x "
+            f"{GSBA_CLI_SCENE['image_size']}: cost {c0:.6g} -> {c1:.6g}, "
+            f"mean IoU {iou:.4f}; cylinder centre error {e0:.5f} -> "
+            f"{e1:.5f}; {wall:.1f} s wall")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_profile_gsba(problem, opt):
+    """Device time by kernel over one warm 10-iteration bench_gsba
+    solve."""
+    from sba_tpu_torch.optim.gsba import geometric_semantic_bundle_adjust
+
+    return _profile("bench_gsba GSBA", lambda: (
+        geometric_semantic_bundle_adjust(problem, opt)[1].num_iterations),
+        "LM it")
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(DEADLINE_S, exit=True)
     import torch
@@ -2176,6 +2475,8 @@ def main() -> int:
     gather_launches, sba_ctx, sba_ms, pair_launches = run("sba", phase_sba)
     gather_launches["map_gather_pair"] = pair_launches["map_gather_pair"]
     run("cli-sba", phase_cli_sba)
+    gsba_ctx, gsba_ms = run("gsba", phase_gsba)
+    run("cli-gsba", phase_cli_gsba)
     rows = run("timing", phase_timing, ctx, launches, errs)
     rows.update(run("timing", phase_timing_implicit, ctx_i, launches_i,
                     errs, k3_per_it))
@@ -2197,6 +2498,8 @@ def main() -> int:
               pm_ms, "solve")
     _log_busy("bench_sba SBA", run("profile", phase_profile_sba, *sba_ctx),
               sba_ms)
+    _log_busy("bench_gsba GSBA", run("profile", phase_profile_gsba,
+                                     *gsba_ctx), gsba_ms)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -1,11 +1,20 @@
-"""`colmap`-style command line of the port: global BA, semantic BA and
-the dense chain.
+"""`colmap`-style command line of the port: the database commands,
+global BA, semantic and geometric-semantic BA, and the dense chain.
 
+    python -m sba_tpu_torch.cli database_creator --database_path db.db
+    python -m sba_tpu_torch.cli database_cleaner --database_path db.db \
+        --type matches
+    python -m sba_tpu_torch.cli database_merger --database_path1 a.db \
+        --database_path2 b.db --merged_database_path m.db
     python -m sba_tpu_torch.cli bundle_adjuster --input_path sparse/0 \
         --output_path ba/ [--device cuda] [--BundleAdjustment.dtype float32]
     python -m sba_tpu_torch.cli semantic_bundle_adjuster \
         --input_path sparse/0 --output_path sba/ --data_path maps/ \
         [--run_path run/] [--SemanticBundleAdjustment.mode hard_numeric]
+    python -m sba_tpu_torch.cli geometric_semantic_bundle_adjuster \
+        --input_path sparse/0 --output_path gsba/ --data_path maps/ \
+        --input_geometry cylinders.txt [--output_geometry out.txt] \
+        [--GeometricSemanticBundleAdjustment.max_iterations 40]
     python -m sba_tpu_torch.cli image_undistorter --image_path images \
         --input_path sparse/0 --output_path ws [--device cuda]
     python -m sba_tpu_torch.cli patch_match_stereo --workspace_path ws
@@ -13,11 +22,12 @@ the dense chain.
         --output_path ws/fused.ply
 
 Flags, file layout and printed lines follow sba_tpu's CLI. ``--device``
-(default "cuda") selects where a command runs. On CUDA, bundle_adjuster
+(default "cuda") selects where a command runs; the database commands
+run on the host. On CUDA, bundle_adjuster
 with ``--BundleAdjustment.dtype float32`` goes through the BA kernels,
 semantic_bundle_adjuster samples every map through the map-gather
-kernels and patch_match_stereo scores through the NCC kernel, and every
-command prints the launch counts of its kernels.
+kernels and patch_match_stereo scores through the NCC kernel, and those
+commands print the launch counts of their kernels.
 """
 
 from __future__ import annotations
@@ -40,6 +50,80 @@ def _require(flags, *names):
         raise SystemExit(
             "missing required flags: " + " ".join(f"--{m}" for m in missing))
     return [flags[n] for n in names]
+
+
+# ---------------------------------------------------------------------------
+# database commands (ref: exe/database.cc)
+# ---------------------------------------------------------------------------
+
+
+def run_database_creator(flags):
+    from sba_tpu_torch.io.database import Database
+
+    (path,) = _require(flags, "database_path")
+    Database(path).close()
+    print(f"created database {path}")
+
+
+def run_database_cleaner(flags):
+    """Drop matches and two-view geometries, features, or everything
+    (ref: exe/database.cc RunDatabaseCleaner, --type all|matches|features)."""
+    from sba_tpu_torch.io.database import Database
+
+    path, clean_type = _require(flags, "database_path", "type")
+    db = Database(path)
+    t = clean_type.lower()
+    if t in ("all", "matches"):
+        db.conn.execute("DELETE FROM matches")
+        db.conn.execute("DELETE FROM two_view_geometries")
+    if t in ("all", "features"):
+        db.conn.execute("DELETE FROM keypoints")
+        db.conn.execute("DELETE FROM descriptors")
+    if t == "all":
+        db.conn.execute("DELETE FROM images")
+        db.conn.execute("DELETE FROM cameras")
+    db.commit()
+    db.close()
+    print(f"cleaned ({t}) {path}")
+
+
+def run_database_merger(flags):
+    """Merge two databases into one (ref: exe/database.cc
+    RunDatabaseMerger); image and camera ids are remapped, image names
+    must be disjoint."""
+    from sba_tpu_torch.io.database import Database
+
+    p1, p2, out = _require(flags, "database_path1", "database_path2",
+                           "merged_database_path")
+    dbo = Database(out)
+    for src_path in (p1, p2):
+        src = Database(src_path)
+        cam_map = {}
+        for cid, cam in src.read_cameras().items():
+            cam_map[cid] = dbo.write_camera(
+                cam["model_id"], cam["width"], cam["height"],
+                cam["params"], cam["prior_focal_length"])
+        img_map = {}
+        for iid, img in src.read_images().items():
+            img_map[iid] = dbo.write_image(
+                img["name"], cam_map[img["camera_id"]])
+            kp = src.read_keypoints(iid)
+            if len(kp):
+                dbo.write_keypoints(img_map[iid], kp)
+            d = src.read_descriptors(iid)
+            if len(d):
+                dbo.write_descriptors(img_map[iid], d)
+        for (a, b), m in src.read_all_matches().items():
+            dbo.write_matches(img_map[a], img_map[b], m)
+        for (a, b), g in src.read_all_two_view_geometries().items():
+            dbo.write_two_view_geometry(
+                img_map[a], img_map[b], g["inlier_matches"],
+                config=g["config"], F=g["F"], E=g["E"], H=g["H"],
+                qvec=g["qvec"], tvec=g["tvec"])
+        src.close()
+    dbo.close()
+    print(f"merged {p1} + {p2} -> {out}")
+
 
 
 def run_bundle_adjuster(flags):
@@ -86,6 +170,32 @@ def run_semantic_bundle_adjuster(flags):
           f"{float(s.final_cost):.6g} in {int(s.num_iterations)} iters")
     if device != "cpu":
         print("kernel launches: " + json.dumps(map_gather.LAUNCHES))
+
+
+def run_geometric_semantic_bundle_adjuster(flags):
+    """Joint refinement of a COLMAP model's poses and a list of cylinders
+    against per-image semantic TIFF maps (ref: exe/sfm.cc:200
+    RunGeometricSemanticBundleAdjuster)."""
+    from sba_tpu_torch.controllers.geometric_semantic_ba import (
+        GeometricSemanticBAControllerOptions,
+        run_geometric_semantic_bundle_adjustment,
+    )
+
+    input_path, output_path, data_path, input_geometry = _require(
+        flags, "input_path", "output_path", "data_path", "input_geometry")
+    device = _device(flags)
+    opt = GeometricSemanticBAControllerOptions(
+        input_path=input_path, output_path=output_path, data_path=data_path,
+        input_geometry=input_geometry,
+        output_geometry=flags.get("output_geometry"),
+        run_path=flags.get("run_path"))
+    opt.gsba = apply_flags(
+        opt.gsba, "GeometricSemanticBundleAdjustment", flags)
+    _, _, summary = run_geometric_semantic_bundle_adjustment(
+        opt, device=device)
+    print(f"GSBA: cost {float(summary.initial_cost):.6g} -> "
+          f"{float(summary.final_cost):.6g}, "
+          f"mean IoU {float(summary.mean_iou):.4f}")
 
 
 def _device(flags) -> str:
@@ -385,8 +495,13 @@ def run_stereo_fuser(flags):
     _print_ncc_launches(device)
 
 
-COMMANDS = {"bundle_adjuster": run_bundle_adjuster,
+COMMANDS = {"database_creator": run_database_creator,
+            "database_cleaner": run_database_cleaner,
+            "database_merger": run_database_merger,
+            "bundle_adjuster": run_bundle_adjuster,
             "semantic_bundle_adjuster": run_semantic_bundle_adjuster,
+            "geometric_semantic_bundle_adjuster":
+                run_geometric_semantic_bundle_adjuster,
             "image_undistorter": run_image_undistorter,
             "patch_match_stereo": run_patch_match_stereo,
             "stereo_fuser": run_stereo_fuser}

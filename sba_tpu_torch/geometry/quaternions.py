@@ -193,3 +193,21 @@ def np_quat_to_rotmat(q):
         [1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)],
         [2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)],
         [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)]])
+
+
+def np_quat_normalize(q, eps=1e-12):
+    q = np.asarray(q, np.float64)
+    n = np.linalg.norm(q, axis=-1, keepdims=True)
+    return q / np.maximum(n, eps)
+
+
+def np_angle_axis_to_quat(aa):
+    """Angle-axis [3] -> w-first quaternion [4] (first-order branch
+    below 1e-12 rad)."""
+    aa = np.asarray(aa, np.float64)
+    angle = np.linalg.norm(aa)
+    if angle < 1e-12:
+        return np_quat_normalize(np.concatenate([[1.0], 0.5 * aa]))
+    axis = aa / angle
+    return np.concatenate([[np.cos(angle / 2.0)],
+                           np.sin(angle / 2.0) * axis])

@@ -1,7 +1,8 @@
 """Synthetic scenes for tests and benchmarks, built with numpy only.
 
 Port of `make_ba_problem`, `make_sequential_ba_problem`,
-`make_synthetic_reconstruction` and `_lookat_pose` (used by
+`make_synthetic_reconstruction`, `make_sba_scene`, `make_gsba_scene`,
+`make_gsba_forest_scene` and `_lookat_pose` (used by
 ``utils/render.py``) from ``sba_tpu/utils/synthetic.py``: the
 same geometry and the same sequence of draws from
 ``numpy.random.default_rng(seed)``, so one seed gives the same arrays.
@@ -426,3 +427,161 @@ def make_sba_scene(
     q0, t0 = _sba_scene_noise(rng, qvecs, tvecs, pose_noise)
     cam_params = np.tile(cam, (num_images, 1))
     return qvecs, tvecs, cam_params, depth, semantic, q0, t0
+
+
+def _hard_silhouettes(cyl, qvecs, tvecs, cam, h, w):
+    """[N, H, W] float64 hard masks of one cylinder in every image (the
+    cylinder module's hard rasterizer on the CPU), and valid [N]."""
+    from sba_tpu_torch.models.cylinder import (project_quadrilateral,
+                                               quadrilateral_mask)
+
+    n = len(qvecs)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float64))
+
+    quad, valid = project_quadrilateral(
+        t(np.tile(cyl.qvec, (n, 1))), t(np.tile(cyl.tvec, (n, 1))),
+        t(np.full(n, cyl.radius)), t(np.full(n, cyl.height)),
+        t(qvecs), t(tvecs), t(np.tile(cam, (n, 1))))
+    return (quadrilateral_mask(quad, h, w, hard=True).numpy(),
+            valid.numpy())
+
+
+def make_gsba_scene(
+    num_images: int = 4,
+    image_size=(64, 48),
+    focal: float = 55.0,
+    radius: float = 0.4,
+    height: float = 3.0,
+    cam_dist: float = 8.0,
+    trunk_class: float = 250.0,
+    pose_noise: float = 0.0,
+    cylinder_noise: float = 0.0,
+    seed: int = 0,
+):
+    """Synthetic scene for geometric-semantic BA: one vertical cylinder at
+    the origin, cameras on a circle looking at it; the semantic maps are
+    the hard ground-truth silhouettes (trunk_class inside).
+
+    Returns (qvecs_gt, tvecs_gt, cam_params [N,3], semantic_maps [N,H,W],
+    cylinder_gt, qvecs_init, tvecs_init, cylinder_init)."""
+    from sba_tpu_torch.models.cylinder import Cylinder
+
+    rng = np.random.default_rng(seed)
+    w, h = image_size
+    cam = np.array([focal, w / 2.0, h / 2.0])
+    cyl = Cylinder(qvec=[1.0, 0, 0, 0], tvec=[0.0, 0.0, -height / 2],
+                   radius=radius, height=height)
+
+    qvecs = np.zeros((num_images, 4))
+    tvecs = np.zeros((num_images, 3))
+    for i in range(num_images):
+        ang = 2 * np.pi * i / num_images + rng.uniform(-0.1, 0.1)
+        center = np.array([cam_dist * np.cos(ang), cam_dist * np.sin(ang),
+                           rng.uniform(-0.5, 0.5)])
+        qvecs[i], tvecs[i] = _lookat_pose(center, [0.0, 0.0, 0.0])
+
+    masks, valid = _hard_silhouettes(cyl, qvecs, tvecs, cam, h, w)
+    if not valid.all():
+        raise ValueError("cameras must see the cylinder")
+    semantic = np.where(masks > 0.5, trunk_class, 0.0)
+
+    q0, t0 = _sba_scene_noise(rng, qvecs, tvecs, pose_noise)
+    if cylinder_noise:
+        cyl0 = Cylinder(
+            qvec=cyl.qvec + rng.normal(scale=cylinder_noise, size=4),
+            tvec=cyl.tvec + rng.normal(scale=cylinder_noise, size=3),
+            radius=cyl.radius * float(np.exp(rng.normal(
+                scale=cylinder_noise))),
+            height=cyl.height * float(np.exp(rng.normal(
+                scale=cylinder_noise))))
+    else:
+        cyl0 = Cylinder(qvec=cyl.qvec, tvec=cyl.tvec, radius=cyl.radius,
+                        height=cyl.height)
+    cam_params = np.tile(cam, (num_images, 1))
+    return qvecs, tvecs, cam_params, semantic, cyl, q0, t0, cyl0
+
+
+def make_gsba_forest_scene(
+    num_cylinders: int = 16,
+    cameras_per_cylinder: int = 2,
+    image_size=(96, 72),
+    focal: float = 100.0,
+    radius: float = 0.35,
+    height: float = 4.0,
+    spacing: float = 4.0,
+    cam_dist_factor: float = 0.6,
+    trunk_class: float = 250.0,
+    pose_noise: float = 0.0,
+    cylinder_noise: float = 0.0,
+    seed: int = 0,
+):
+    """Forest of trunks for K-cylinder GSBA: vertical cylinders on a
+    jittered line, `cameras_per_cylinder` close-up cameras per trunk,
+    each mask the UNION of all silhouettes (as the reference reads one
+    boolean trunk mask per image against a cylinder list). The cameras
+    look at their trunk from one side of the line, from a fixed palette
+    of azimuths (+-35 degrees about the perpendicular, the first two 70
+    degrees apart), so that no other trunk enters a view: the cost
+    1 - IoU against the union is degenerate for whole-forest views (one
+    fat quad over every trunk scores against the whole union).
+
+    Returns (qvecs_gt, tvecs_gt, cam_params, semantic, cylinders_gt, q0,
+    t0, cylinders_init)."""
+    from sba_tpu_torch.models.cylinder import Cylinder
+
+    rng = np.random.default_rng(seed)
+    w, h = image_size
+    cam = np.array([focal, w / 2.0, h / 2.0])
+
+    cyls = []
+    for k in range(num_cylinders):
+        cx = (k - (num_cylinders - 1) / 2.0) * spacing
+        cy = rng.uniform(-0.1, 0.1) * spacing
+        cyls.append(Cylinder(
+            qvec=[1.0, 0, 0, 0], tvec=[cx, cy, -height / 2],
+            radius=radius * float(np.exp(rng.uniform(-0.2, 0.2))),
+            height=height))
+
+    num_images = num_cylinders * cameras_per_cylinder
+    cam_dist = cam_dist_factor * spacing
+    palette = [55.0, 125.0, 235.0, 305.0, 90.0, 270.0]
+    qvecs = np.zeros((num_images, 4))
+    tvecs = np.zeros((num_images, 3))
+    i = 0
+    for c in cyls:
+        for j in range(cameras_per_cylinder):
+            ang = palette[j % len(palette)] / 180.0 * np.pi \
+                + rng.uniform(-0.03, 0.03)
+            center = np.array([c.tvec[0] + cam_dist * np.cos(ang),
+                               c.tvec[1] + cam_dist * np.sin(ang),
+                               rng.uniform(-0.2, 0.2)])
+            qvecs[i], tvecs[i] = _lookat_pose(
+                center, [c.tvec[0], c.tvec[1], 0.0])
+            i += 1
+
+    union = np.zeros((num_images, h, w))
+    for c in cyls:
+        m, valid = _hard_silhouettes(c, qvecs, tvecs, cam, h, w)
+        union = np.maximum(union, m * valid.astype(np.float64)[:, None,
+                                                               None])
+    semantic = np.where(union > 0.5, trunk_class, 0.0)
+
+    q0, t0 = _sba_scene_noise(rng, qvecs, tvecs, pose_noise)
+    cyls0 = []
+    for c in cyls:
+        if cylinder_noise > 0:
+            q = np.asarray(c.qvec) + rng.normal(scale=cylinder_noise, size=4)
+            cyls0.append(Cylinder(
+                qvec=q / np.linalg.norm(q),
+                tvec=np.asarray(c.tvec) + rng.normal(scale=cylinder_noise,
+                                                     size=3),
+                radius=c.radius * float(np.exp(rng.normal(
+                    scale=cylinder_noise))),
+                height=c.height * float(np.exp(rng.normal(
+                    scale=cylinder_noise)))))
+        else:
+            cyls0.append(c)
+    cam_params = np.tile(cam, (num_images, 1))
+    return qvecs, tvecs, cam_params, semantic, cyls, q0, t0, cyls0

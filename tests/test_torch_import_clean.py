@@ -41,7 +41,12 @@ def test_port_and_chip_smoke_import_without_jax():
                  "sba_tpu_torch.optim.sba",
                  "sba_tpu_torch.io.maps",
                  "sba_tpu_torch.controllers.semantic_ba",
-                 "sba_tpu_torch.utils.card_repeat"):
+                 "sba_tpu_torch.utils.card_repeat",
+                 "sba_tpu_torch.models.cylinder",
+                 "sba_tpu_torch.optim.gsba",
+                 "sba_tpu_torch.controllers.geometric_semantic_ba",
+                 "sba_tpu_torch.io.database",
+                 "sba_tpu_torch.cli"):
         assert name in modules, name
     res = subprocess.run(
         [sys.executable, "-c", _PROBE.format(root=str(ROOT),
