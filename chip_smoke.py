@@ -103,8 +103,9 @@ Needs one CUDA card and nvcc (found through torch's CUDA_HOME, else
                      the float64 solve on the card at 1e-3 of scale, the
                      costs at rtol 1e-4; warm LM it/s as bench.py's
                      `_delta_rate`) and the forest (bench.py:318: 16
-                     trunks x 32 images at 640x480, 3 to 10 LM iterations
-                     as time allows; the cost and the mean own-view hard
+                     trunks x 32 images at 640x480, 10 LM iterations
+                     (3 could leave every step rejected, under a
+                     second); the cost and the mean own-view hard
                      IoU must improve, and the final cost must match the
                      float64 solve's on the card at rtol 1e-3; warm LM
                      it/s, chunks, peak memory, and the trunks whose
@@ -114,7 +115,23 @@ Needs one CUDA card and nvcc (found through torch's CUDA_HOME, else
                      (cuda, float64) on an 8-image 640x480 model with
                      semantic TIFFs and a perturbed cylinders.txt: the
                      printed line, and the cylinder's centre error falls;
-17. timing        -- per-kernel CUDA-event times (the stream sleeps
+17. twins-frontend -- the front end on the card against the port's own
+                     CPU path on the same inputs: SIFT of four 320x240
+                     views (rows within 1e-3 px / 1e-3 rad, u8
+                     descriptors within 1; map_gather launched twice an
+                     image), `match_pairs_batched` on one descriptor
+                     stack (rows equal but 0.1%), and
+                     `estimate_two_view_geometry_batch` with the same
+                     sample tensors (configurations equal, inliers within
+                     1%);
+18. frontend      -- `feature_extractor`, `exhaustive_matcher` (276
+                     pairs) and, on a copy of the database,
+                     `sequential_matcher` of `python -m sba_tpu_torch.cli`
+                     at their defaults on 24 rendered 1600x1200 views
+                     (8192 features, batches of 8 images and 32 pairs,
+                     4096 trials); map_gather launches counted during
+                     extraction; FRONTEND_GATES against the true poses;
+19. timing        -- per-kernel CUDA-event times (the stream sleeps
                      while the host enqueues the timed calls, so they are
                      the device's) against the twins, the
                      memory/compute bound and, for B1-B4, the PyTorch
@@ -124,14 +141,18 @@ Needs one CUDA card and nvcc (found through torch's CUDA_HOME, else
                      random du, also at the 1024-image bucket; B1-B4
                      also beside the least time over the 32-byte
                      sectors their samples touch (B3's sector floor);
-18. profile       -- device time by kernel over one warm solve of the
+20. profile       -- device time by kernel over one warm solve of the
                      headline (with K1's split between its linearize-and-
                      reduce kernel and its three Schur kernels, and its
                      share of its bound), of the
                      1024-image scene, of one 1600x1200 photometric
                      PatchMatch solve, of the bench_sba SBA solve and of
                      the bench_gsba GSBA solve (torch.profiler), and the
-                     device's busy share.
+                     device's busy share; then the front end's device
+                     time per image (SIFT, 8 x 1600x1200) and per pair
+                     (match and verify, 16 pairs), its busy share,
+                     map_gather's launches and time per image, and its
+                     top operations with cuSOLVER's marked.
 
 Prints one progress line per phase, a `{"kernels": [...]}` line, the
 card's name and power limit, and as its last line
@@ -207,7 +228,7 @@ GSBA_OPT = dict(mode="soft", max_iterations=10, function_tolerance=0.0,
 FOREST_SCENE = dict(num_cylinders=16, cameras_per_cylinder=2,
                     image_size=(640, 480), focal=700.0, pose_noise=0.005,
                     cylinder_noise=0.03, seed=0)
-FOREST_MIN_IT, FOREST_MAX_IT, FOREST_SECONDS = 3, 10, 20.0
+FOREST_IT = 10            # LM iterations of the forest solves
 # The GSBA CLI's model: 8 images of the bench_gsba scene at their true
 # poses (tests/test_cli_semantic.py's setting), the cylinder perturbed.
 GSBA_CLI_SCENE = dict(GSBA_SCENE, num_images=8, pose_noise=0.0)
@@ -2070,7 +2091,7 @@ def _write_sba_workspace(work, scene):
 
 def phase_cli_sba():
     """semantic_bundle_adjuster on the card: defaults (float64, forward
-    mode) and hard_numeric."""
+    mode) cut to 10 LM iterations, and hard_numeric."""
     from sba_tpu_torch.ops import cuda_build
     from sba_tpu_torch.utils.synthetic import make_sba_scene
 
@@ -2079,7 +2100,9 @@ def phase_cli_sba():
                                  dir=cuda_build.BUILD_DIR))
     try:
         _write_sba_workspace(work, make_sba_scene(**SBA_CLI_SCENE))
-        for tag, extra in (("defaults", ()),
+        for tag, extra in (("defaults", (
+                               "--SemanticBundleAdjustment.max_iterations",
+                               "10")),
                            ("hard_numeric", (
                                "--SemanticBundleAdjustment.mode",
                                "hard_numeric",
@@ -2304,20 +2327,15 @@ def phase_gsba():
 
     own0 = own_iou(tg.evaluate_iou(pf))
     chunks = tg.image_chunks(pf)
-    # Iterations as the deadline allows: the forest's float32 solve gets
-    # FOREST_SECONDS, less if the deadline is nearer.
-    left = min(FOREST_SECONDS,
-               DEADLINE_S - (time.perf_counter() - T0) - 240)
+    # The first solve warms up; with 3 iterations every LM step could be
+    # rejected (the cost unchanged), 10 take about a second.
+    on = tg.GSBAOptions(**dict(GSBA_OPT, max_iterations=FOREST_IT))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
-    _, sf = tg.geometric_semantic_bundle_adjust(pf, tg.GSBAOptions(
-        **dict(GSBA_OPT, max_iterations=FOREST_MIN_IT)))
+    _, sf = tg.geometric_semantic_bundle_adjust(pf, on)
     float(sf.final_cost)
     cold = time.perf_counter() - t
-    n_it = int(min(FOREST_MAX_IT, max(FOREST_MIN_IT,
-                                      left * FOREST_MIN_IT / cold)))
-    on = tg.GSBAOptions(**dict(GSBA_OPT, max_iterations=n_it))
     torch.cuda.synchronize()
     t = time.perf_counter()
     _, sf = tg.geometric_semantic_bundle_adjust(pf, on)
@@ -2340,14 +2358,14 @@ def phase_gsba():
             f"forest: float32 final cost {fc1} against float64 {c64}")
     fell = np.nonzero(own1 < own0)[0].tolist()
     fell64 = np.nonzero(own64 < own0)[0].tolist()
-    log("gsba", f"forest f32: cost {fc0:.6g} -> {fc1:.6g} in {n_it} it "
-        f"(float64 {c64:.6g}, {wall64:.2f} s); own-view hard IoU mean "
+    log("gsba", f"forest f32: cost {fc0:.6g} -> {fc1:.6g} in {FOREST_IT} "
+        f"it (float64 {c64:.6g}, {wall64:.2f} s); own-view hard IoU mean "
         f"{own0.mean():.4f} -> {own1.mean():.4f} (float64 "
         f"{own64.mean():.4f}), largest f32-f64 gap "
         f"{np.abs(own1 - own64).max():.4f}; trunks whose own-view IoU "
-        f"fell: {fell} (float64 {fell64}); warm {n_it}-iteration solve "
-        f"{warm * 1e3:.1f} ms = {n_it / warm:.2f} LM it/s with its fixed "
-        f"costs ({cold:.2f} s for the first {FOREST_MIN_IT}); "
+        f"fell: {fell} (float64 {fell64}); warm {FOREST_IT}-iteration "
+        f"solve {warm * 1e3:.1f} ms = {FOREST_IT / warm:.2f} LM it/s with "
+        f"its fixed costs ({cold:.2f} s for the first); "
         f"{len(chunks)} chunks of up to {chunks[0].stop} images under "
         f"{tg.GSBA_CHUNK_BYTES / 2 ** 30:.0f} GiB; peak device memory "
         f"{peak:.1f} MiB (float32)")
@@ -2439,6 +2457,577 @@ def phase_profile_gsba(problem, opt):
         "LM it")
 
 
+# ---------------------------------------------------------------------------
+# The front end: SIFT (gradient taps through map_gather), matching, E/F/H
+# verification, and the three commands at full width
+# ---------------------------------------------------------------------------
+
+# 24 views of 1600x1200 on a ring, focal at the extractor's default prior
+# (1.2 x the longer side, the value a camera without EXIF gets).
+FRONTEND_SCENE = dict(num_images=24, image_size=(1600, 1200),
+                      focal=1.2 * 1600, seed=7)
+TWINS_FRONTEND_SIZE = (320, 240)
+TWINS_VERIFY_PAIRS = 3    # of the 6; the CPU side's verification is slow
+PROFILE_PAIRS = 16        # pairs matched and verified under the profiler
+TWIN_FULL_PAIRS = 4       # full-width pairs verified on the card and CPU
+PLANAR_DUMP_MATCHES = 2   # PLANAR pairs written with all their matches
+# Gates, set from probes on the card (PERF.md section 6, PR 14). A PLANAR
+# pair's stored rotation is held at 7 deg: one of H's two decompositions
+# that pass the cheirality vote with every point is 4.8204 deg off, and
+# sba_tpu's tie-break takes it (tests/test_torch_frontend.py::
+# test_planar_pose_of_card_homographies); the best decomposition is held
+# at max_rot_deg.
+FRONTEND_GATES = dict(min_features=1000, min_inliers=15, max_rot_deg=2.0,
+                      max_rot_planar_deg=7.0, max_dir_deg=10.0)
+CUSOLVER = r"syevj|gesvdj|gesvd|getrf|getrs|geqrf|orgqr|potrf|cusolver|" \
+    r"batched_svd|jacobi|trsm|ormqr|lu_"
+
+
+def _frontend_rows(ft_a, ft_b):
+    """Rows of `ft_a` (keypoints [K, 4], mask [K]) with a row of `ft_b`
+    within 1e-3 px in x, y and scale and 1e-3 rad in orientation: (share
+    of a's valid rows, index into b per a row or -1)."""
+    import torch
+
+    ka, kb = ft_a[0][ft_a[1]], ft_b[0][ft_b[1]]
+    d = (ka[:, None, :] - kb[None, :, :]).abs()
+    d[..., 3] = torch.minimum(d[..., 3], 2 * torch.pi - d[..., 3])
+    worst = d.amax(-1)
+    best = worst.argmin(1)
+    ok = worst.gather(1, best[:, None])[:, 0] <= 1e-3
+    return float(ok.float().mean()), torch.where(ok, best, -1)
+
+
+def _fixed_draws(kind, trials, pairs, masks_r):
+    """Deterministic CPU draws per (family, trials, pair), so the card and
+    the CPU verify with the same samples."""
+    import torch
+
+    from sba_tpu_torch.optim.ransac import draw_samples
+
+    ssz = {"F": 7, "H": 4, "E": 5}[kind]
+    out = []
+    for p in pairs:
+        g = torch.Generator().manual_seed(
+            1000003 * int(p) + 7919 * trials + ord(kind))
+        out.append(draw_samples(masks_r.shape[1], trials, ssz,
+                                mask=torch.as_tensor(masks_r[p]),
+                                generator=g))
+    return torch.stack(out).numpy()
+
+
+def phase_twins_frontend():
+    """The front end on the card against the port's own CPU path on the
+    same inputs: SIFT of one 320x240 view (map_gather launches counted),
+    the batched matcher on one descriptor stack, and the batched verifier
+    with the same sample tensors."""
+    import numpy as np
+    import torch
+
+    from sba_tpu_torch.estimators.two_view_geometry import (
+        estimate_two_view_geometry_batch, pack_matches)
+    from sba_tpu_torch.features.matching import match_pairs_batched
+    from sba_tpu_torch.features.sift import (descriptors_to_uint8,
+                                             extract_sift)
+    from sba_tpu_torch.ops import map_gather
+    from sba_tpu_torch.utils.render import render_scene
+
+    w, h = TWINS_FRONTEND_SIZE
+    scene = render_scene(num_images=4, image_size=(w, h), focal=1.2 * w,
+                         seed=5, device="cuda")
+    imgs = scene["images"].astype(np.float32) / 255.0
+    map_gather.reset_launches()
+    card = [extract_sift(im, device="cuda") for im in imgs]
+    torch.cuda.synchronize()
+    launches = map_gather.LAUNCHES["map_gather"]
+    require(launches == 2 * len(imgs),
+            f"SIFT: map_gather launched {launches} times for {len(imgs)} "
+            "images (expected two each)")
+    cpu = [extract_sift(im, device="cpu") for im in imgs]
+    shares, dshares = [], []
+    for c, p in zip(card, cpu):
+        kc = (c.keypoints.cpu(), c.mask.cpu())
+        share, idx = _frontend_rows(kc, (p.keypoints, p.mask))
+        uc = descriptors_to_uint8(c.descriptors.cpu())[kc[1]][idx >= 0]
+        up = descriptors_to_uint8(p.descriptors)[p.mask][idx[idx >= 0]]
+        dshares.append(float(((uc.int() - up.int()).abs() <= 1)
+                             .float().mean()))
+        shares.append(share)
+        require(int(c.mask.sum()) > 200,
+                f"SIFT on the card: {int(c.mask.sum())} features")
+    require(min(shares) >= 0.98 and min(dshares) >= 0.99,
+            f"SIFT card vs CPU: rows within 1e-3 {shares}, u8 descriptors "
+            f"within 1 {dshares}")
+    log("twins-frontend", f"SIFT {len(imgs)} x {w}x{h}: features "
+        f"{[int(c.mask.sum()) for c in card]}; rows of the card with a CPU "
+        f"row within 1e-3 px / 1e-3 rad {[round(s, 4) for s in shares]}; "
+        f"u8 descriptor entries within 1 {[round(s, 5) for s in dshares]}; "
+        f"map_gather launches {launches}")
+
+    # One descriptor stack (the CPU path's u8 rows), matched on both.
+    n = max(int(p.mask.sum()) for p in cpu)
+    npad = max(256, -(-n // 256) * 256)
+    stack = np.zeros((len(cpu), npad, 128), np.uint8)
+    nvalid = np.zeros(len(cpu), np.int32)
+    kps = []
+    for i, p in enumerate(cpu):
+        d = descriptors_to_uint8(p.descriptors)[p.mask].numpy()
+        stack[i, :len(d)] = d
+        nvalid[i] = len(d)
+        kps.append(p.keypoints[p.mask][:, :2].double().numpy())
+    pairs = np.array([(a, b) for a in range(4) for b in range(a + 1, 4)])
+    mc, _ = match_pairs_batched(torch.as_tensor(stack, device="cuda"),
+                                torch.as_tensor(nvalid, device="cuda"), pairs)
+    mp, _ = match_pairs_batched(torch.as_tensor(stack),
+                                torch.as_tensor(nvalid), pairs)
+    mc = mc.cpu().numpy()
+    mp = mp.numpy()
+    rows = int(nvalid[pairs[:, 0]].sum())
+    diff = int((mc != mp).sum())
+    require(diff <= 0.001 * rows,
+            f"matcher card vs CPU: {diff} of {rows} rows differ")
+    log("twins-frontend", f"match_pairs_batched {len(pairs)} pairs: "
+        f"{int((mp >= 0).sum())} matches; {diff} of {rows} rows differ")
+
+    matches = []
+    for j, (a, b) in enumerate(pairs):
+        i1 = np.nonzero(mp[j] >= 0)[0]
+        matches.append((a, b, np.stack([i1, mp[j][i1]], -1)))
+    matches = matches[:TWINS_VERIFY_PAIRS]
+    xy1, xy2, vm = pack_matches(kps, matches)
+    cam = np.tile([[1.2 * w, 1.2 * w, w / 2, h / 2]], (len(matches), 1))
+    sizes = [(w, h)] * len(matches)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        res[dev] = estimate_two_view_geometry_batch(
+            xy1, xy2, vm, cam, cam, sizes, sizes, dtype=torch.float32,
+            device=dev, draw_fn=_fixed_draws)
+    cfg = [(r.config, q.config) for r, q in zip(res["cuda"], res["cpu"])]
+    inl = [(r.num_inliers, q.num_inliers)
+           for r, q in zip(res["cuda"], res["cpu"])]
+    require(all(a == b for a, b in cfg)
+            and all(abs(a - b) <= 0.01 * max(b, 1) for a, b in inl),
+            f"verifier card vs CPU: configurations {cfg}, inliers {inl}")
+    log("twins-frontend", f"estimate_two_view_geometry_batch {len(matches)} "
+        f"pairs, same draws: configurations {[a for a, _ in cfg]} equal; "
+        f"inliers card/CPU {inl}")
+    return launches
+
+
+def _run_frontend_cli(args, tag):
+    """`python -m sba_tpu_torch.cli <args>` in this process (the same
+    entry point, without a second process start and kernel load):
+    (printed output, wall seconds)."""
+    import contextlib
+    import io
+
+    from sba_tpu_torch import cli
+
+    buf = io.StringIO()
+    t = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            code = cli.main(list(args))
+    except SystemExit as e:
+        code = e.code
+    wall = time.perf_counter() - t
+    out = buf.getvalue()
+    require(code == 0, f"{tag}: exit {code}:\n{out[-3000:]}")
+    return out, wall
+
+
+def _rot_deg(Ra, Rb):
+    import numpy as np
+
+    c = (np.trace(Ra @ Rb.T) - 1.0) / 2.0
+    return float(np.degrees(np.arccos(np.clip(c, -1.0, 1.0))))
+
+
+def _frontend_gates(db_path, scene, ring, tag, planar_out=None):
+    """Features per image, and the ring-neighbour pairs' inliers and
+    relative pose against the scene's truth; of a PLANAR pair also the
+    best of its H's decompositions (the stored pose takes the one
+    sba_tpu's cheirality vote and tie-break pick). `planar_out`: a path
+    where the PLANAR ring pairs' H, intrinsics, true and stored poses and
+    errors go (np.savez_compressed), with all matched keypoints of the
+    PLANAR_DUMP_MATCHES pairs whose rotation errs most: the input of
+    tests/test_torch_frontend.py::test_planar_pose_of_card_homographies."""
+    import numpy as np
+
+    from sba_tpu_torch.estimators.homography_matrix import \
+        decompose_homography
+    from sba_tpu_torch.geometry import camera_models
+    from sba_tpu_torch.geometry.quaternions import np_quat_to_rotmat
+    from sba_tpu_torch.io.database import Database
+
+    g = FRONTEND_GATES
+    db = Database(str(db_path))
+    try:
+        ids = sorted(db.read_images())
+        feats = [db.num_keypoints_for_image(i) for i in ids]
+        tvg = db.read_all_two_view_geometries()
+        cams, images = db.read_cameras(), db.read_images()
+
+        def K(iid):
+            cam = cams[images[iid]["camera_id"]]
+            spec = camera_models.model_by_id(cam["model_id"])
+            p = cam["params"]
+            fi, ci = spec.focal_idxs, spec.principal_idxs
+            return np.array([[p[fi[0]], 0, p[ci[0]]],
+                             [0, p[fi[-1]], p[ci[1]]], [0, 0, 1.0]])
+
+        R = [np_quat_to_rotmat(q) for q in scene["qvecs"]]
+        worst = dict(inliers=10 ** 9, rot={2: 0.0, 4: 0.0}, dir=0.0,
+                     h_best=0.0)
+        configs = {}
+        planar = []
+        for a, b in ring:
+            key = (ids[a], ids[b])
+            require(key in tvg, f"{tag}: pair {key} not verified")
+            geo = tvg[key]
+            n = len(geo["inlier_matches"])
+            Rr = R[b] @ R[a].T
+            tr = scene["tvecs"][b] - Rr @ scene["tvecs"][a]
+            rot = _rot_deg(np_quat_to_rotmat(geo["qvec"]), Rr)
+            cfg = geo["config"]
+            configs[cfg] = configs.get(cfg, 0) + 1
+            worst["inliers"] = min(worst["inliers"], n)
+            require(cfg in (2, 4) and n >= g["min_inliers"],
+                    f"{tag}: pair {key}: config {cfg}, {n} inliers")
+            worst["rot"][cfg] = max(worst["rot"][cfg], rot)
+            lim = g["max_rot_deg"] if cfg == 2 else g["max_rot_planar_deg"]
+            require(rot <= lim, f"{tag}: pair {key}: config {cfg}, "
+                    f"rotation error {rot:.3f} deg")
+            if cfg == 4:
+                Ks = (K(key[0]), K(key[1]))
+                Rs, _, _ = decompose_homography(np.asarray(geo["H"]), *Ks)
+                best = min(_rot_deg(np.asarray(Rc), Rr) for Rc in Rs)
+                worst["h_best"] = max(worst["h_best"], best)
+                require(best <= g["max_rot_deg"],
+                        f"{tag}: pair {key}: no decomposition of H within "
+                        f"{g['max_rot_deg']} deg (best {best:.3f})")
+                planar.append((rot, key, geo, Rr, tr) + Ks)
+            if cfg == 2:
+                t = np.asarray(geo["tvec"])
+                c = float(t @ tr / (np.linalg.norm(t) * np.linalg.norm(tr)))
+                ang = float(np.degrees(np.arccos(np.clip(c, -1, 1))))
+                worst["dir"] = max(worst["dir"], ang)
+                require(ang <= g["max_dir_deg"],
+                        f"{tag}: pair {key}: translation direction error "
+                        f"{ang:.3f} deg")
+        require(min(feats) >= g["min_features"],
+                f"{tag}: features per image {feats}")
+        n_ok = sum(len(v["inlier_matches"]) >= g["min_inliers"]
+                   for v in tvg.values())
+        if planar_out is not None and planar:
+            _dump_planar(db, planar, planar_out)
+    finally:
+        db.close()
+    log("frontend", f"{tag}: features per image min {min(feats)} / mean "
+        f"{np.mean(feats):.0f} / max {max(feats)}; {len(ring)} ring pairs: "
+        f"configs {configs}, min inliers {worst['inliers']}, max rotation "
+        f"error {worst['rot'][2]:.4f} deg CALIBRATED, {worst['rot'][4]:.4f} "
+        f"deg PLANAR (the best of each PLANAR H's decompositions: max "
+        f"{worst['h_best']:.4f} deg), max translation direction error "
+        f"{worst['dir']:.4f} deg (CALIBRATED); {n_ok}/{len(tvg)} stored "
+        f"pairs with >= {g['min_inliers']} inliers")
+
+
+def _dump_planar(db, planar, path):
+    """See _frontend_gates; planar: (rotation error, pair, geometry,
+    true R, true t, K1, K2) per PLANAR pair."""
+    import numpy as np
+
+    planar = sorted(planar, key=lambda x: -x[0])
+    cols = list(zip(*planar))
+    out = dict(
+        pairs=np.array(cols[1]), rot_err_deg=np.array(cols[0]),
+        H=np.stack([np.asarray(geo["H"]) for geo in cols[2]]),
+        qvec=np.stack([np.asarray(geo["qvec"]) for geo in cols[2]]),
+        R_true=np.stack(cols[3]), t_true=np.stack(cols[4]),
+        K1=np.stack(cols[5]), K2=np.stack(cols[6]))
+    for j, (i1, i2) in enumerate(cols[1][:PLANAR_DUMP_MATCHES]):
+        m = db.read_matches(i1, i2).astype(np.int64)
+        out[f"xy1_{j}"] = db.read_keypoints(i1)[m[:, 0], :2]
+        out[f"xy2_{j}"] = db.read_keypoints(i2)[m[:, 1], :2]
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(path, **out)
+    log("frontend", f"{len(planar)} PLANAR ring pairs (and the matches of "
+        f"{min(len(planar), PLANAR_DUMP_MATCHES)}) written to {path}")
+
+
+def phase_frontend():
+    """feature_extractor, exhaustive_matcher and sequential_matcher of
+    `python -m sba_tpu_torch.cli` at their defaults on the card (24 views
+    of 1600x1200, 8192 features, batches of 8 images and 32 pairs,
+    4096 trials), gated on the scene's true poses."""
+    import numpy as np
+
+    from sba_tpu_torch.ops import cuda_build, map_gather
+    from sba_tpu_torch.utils.render import render_scene
+
+    t = time.perf_counter()
+    scene = render_scene(device="cuda", **FRONTEND_SCENE)
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="frontend_",
+                                 dir=cuda_build.BUILD_DIR))
+    from PIL import Image as PILImage
+
+    (work / "imgs").mkdir()
+    for k, im in enumerate(scene["images"]):
+        PILImage.fromarray(im).save(work / "imgs" / f"view{k:03d}.png",
+                                    compress_level=1)
+    n = FRONTEND_SCENE["num_images"]
+    log("frontend", f"rendered and wrote {n} x "
+        f"{FRONTEND_SCENE['image_size']} in {time.perf_counter() - t:.1f} s")
+    try:
+        db = work / "db.db"
+        map_gather.reset_launches()
+        out, wall = _run_frontend_cli(
+            ["feature_extractor", "--database_path", str(db),
+             "--image_path", str(work / "imgs")], "feature_extractor")
+        m = re.search(r"extraction: (\S+) s for (\d+) images \((\S+) "
+                      r"images/s\)", out)
+        k = re.search(r"kernel launches: (\{.*\})", out)
+        require(m is not None and k is not None,
+                f"feature_extractor output:\n{out[-2000:]}")
+        launches = json.loads(k.group(1))["map_gather"]
+        require(launches > 0 and launches == map_gather.LAUNCHES["map_gather"],
+                f"feature_extractor: map_gather launches {launches}")
+        log("frontend", f"feature_extractor: {m.group(3)} images/s "
+            f"({m.group(1)} s of extraction calls for {m.group(2)} images), "
+            f"{wall:.1f} s wall; map_gather launches {launches} "
+            f"({launches / n:.3f} per image)")
+        shutil.copy(db, work / "seq.db")
+        rates = {}
+        for cmd, path in (("exhaustive_matcher", db),
+                          ("sequential_matcher", work / "seq.db")):
+            out, wall = _run_frontend_cli(
+                [cmd, "--database_path", str(path)], cmd)
+            m = re.search(r"match (\S+) s, verify (\S+) s, host/db (\S+) s "
+                          r"for (\d+) pairs \((\S+) pairs/s", out)
+            v = re.search(r"verified (\d+)/(\d+) pairs", out)
+            require(m is not None and v is not None,
+                    f"{cmd} output:\n{out[-2000:]}")
+            rates[cmd] = float(m.group(5))
+            log("frontend", f"{cmd}: {v.group(1)}/{v.group(2)} pairs "
+                f"verified; match {m.group(1)} s, verify {m.group(2)} s, "
+                f"host/db {m.group(3)} s; {m.group(5)} pairs/s matched and "
+                f"verified; {wall:.1f} s wall")
+        ring = [(i, i + 1) for i in range(n - 1)]
+        _frontend_gates(db, scene, ring + [(0, n - 1)], "exhaustive",
+                        ROOT / "chiprun_out" / "frontend_planar.npz")
+        _frontend_gates(work / "seq.db", scene, ring, "sequential")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return scene
+
+
+def _gather_checked(extract):
+    """`extract()` with every launch of SIFT's map_gather held bit-equal
+    to map_gather_plain on the same card tensors: (its result, (samples,
+    table words) per launch)."""
+    import torch
+
+    from sba_tpu_torch.features import sift
+    from sba_tpu_torch.ops import map_gather as mg
+
+    calls, same = [], []
+
+    def checked(table, idx, *args):
+        out = mg.map_gather(table, idx, *args)
+        same.append(torch.equal(out, mg.map_gather_plain(table, idx, *args)))
+        calls.append((idx.numel(), table.numel()))
+        return out
+
+    sift.map_gather = checked
+    try:
+        out = extract()
+    finally:
+        sift.map_gather = mg.map_gather
+    require(bool(calls) and all(same),
+            f"map_gather against map_gather_plain: launches (samples, "
+            f"table words) {calls}, bit-equal {same}")
+    return out, calls
+
+
+def phase_twins_frontend_full(scene):
+    """The front end's kernel and verifier on the card against the plain
+    path at the frontend phase's shapes: one batch of 8 views of
+    1600x1200 extracted with each map_gather launch checked bit-equal to
+    map_gather_plain, its pairs matched on the card, and the
+    TWIN_FULL_PAIRS pairs with the most matches (past the 512 cap, so
+    the cap's subsampling and the full-set re-evaluation run) verified on
+    the card and on the CPU with the same draws, under a memory budget
+    that sub-batches the 5-point RANSAC two pairs a launch.
+    Returns what the profile reuses."""
+    import numpy as np
+    import torch
+
+    from sba_tpu_torch.estimators import two_view_geometry as tvg
+    from sba_tpu_torch.features.matching import match_pairs_batched
+    from sba_tpu_torch.features.sift import extract_sift_batch
+
+    imgs = scene["images"][:8].astype(np.float32) / 255.0
+    (kps, desc, mask), calls = _gather_checked(
+        lambda: extract_sift_batch(imgs, device="cuda"))
+    h, w = imgs.shape[1:]
+    log("twins-frontend", f"SIFT {len(imgs)} x {w}x{h} on the card: "
+        f"{len(calls)} map_gather launches of {[c[0] for c in calls]} "
+        f"samples over {calls[0][1]} table words, each bit-equal to "
+        "map_gather_plain on the same card tensors")
+
+    I = len(imgs)
+    nvalid = mask.sum(1).astype(np.int32)
+    stack = np.zeros((I, -(-int(nvalid.max()) // 256) * 256, 128), np.uint8)
+    for i in range(I):
+        stack[i, :nvalid[i]] = desc[i][mask[i]]
+    sd = torch.as_tensor(stack, device="cuda")
+    nv = torch.as_tensor(nvalid, device="cuda")
+    xy = [kps[i][mask[i]][:, :2].astype(np.float64) for i in range(I)]
+    pairs = np.array([(a, b) for a in range(I) for b in range(a + 1, I)])
+    m, _ = match_pairs_batched(sd, nv, pairs)
+    m = m.cpu().numpy()
+    matches = []
+    for j, (a, b) in enumerate(pairs):
+        i1 = np.nonzero(m[j] >= 0)[0]
+        matches.append((a, b, np.stack([i1, m[j][i1]], -1)))
+    sel = sorted(matches, key=lambda x: -len(x[2]))[:TWIN_FULL_PAIRS]
+    cap = tvg._TVG_RANSAC_CAP
+    require(len(sel[-1][2]) > cap,
+            f"full-width pairs' matches {[len(x[2]) for x in sel]}: not "
+            f"past the cap of {cap}")
+    xy1, xy2, vm = tvg.pack_matches(xy, sel)
+    f = FRONTEND_SCENE["focal"]
+    cam = np.tile([[f, f, w / 2, h / 2]], (len(sel), 1))
+    sizes = [(w, h)] * len(sel)
+    budget = tvg.SUB_BATCH_BYTES
+    # Two pairs a launch at the 5-point RANSAC's first round (256 trials
+    # x 10 models x the capped correspondences x 4 bytes each).
+    tvg.SUB_BATCH_BYTES = 2 * 256 * 10 * cap * 4
+    res = {}
+    try:
+        for dev in ("cuda", "cpu"):
+            t = time.perf_counter()
+            res[dev] = tvg.estimate_two_view_geometry_batch(
+                xy1, xy2, vm, cam, cam, sizes, sizes, dtype=torch.float32,
+                device=dev, draw_fn=_fixed_draws)
+            res[dev, "s"] = time.perf_counter() - t
+    finally:
+        tvg.SUB_BATCH_BYTES = budget
+    cfg = [(r.config, q.config) for r, q in zip(res["cuda"], res["cpu"])]
+    inl = [(r.num_inliers, q.num_inliers)
+           for r, q in zip(res["cuda"], res["cpu"])]
+    require(all(a == b for a, b in cfg)
+            and all(abs(a - b) <= 0.01 * max(b, 1) for a, b in inl),
+            f"verifier card vs CPU at full width: configurations {cfg}, "
+            f"inliers {inl}")
+    log("twins-frontend", f"estimate_two_view_geometry_batch on "
+        f"{len(sel)} full-width pairs of {[len(x[2]) for x in sel]} "
+        f"matches (bucket {vm.shape[1]}, RANSAC on {cap} each, 5-point "
+        f"RANSAC two pairs a launch), same draws: configurations "
+        f"{[a for a, _ in cfg]} equal; inliers card/CPU {inl}; card "
+        f"{res['cuda', 's']:.2f} s, CPU {res['cpu', 's']:.2f} s")
+    return imgs, sd, nv, xy, pairs
+
+
+def phase_profile_frontend(full):
+    """Device time of one batch of 8 images extracted and of one batch
+    of PROFILE_PAIRS pairs matched and verified (torch.profiler): per
+    image and per pair, busy share, map_gather's launches and time per
+    image, and the top device operations with cuSOLVER's apart. `full`:
+    the batch of phase_twins_frontend_full (already warm)."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sba_tpu_torch.estimators.two_view_geometry import (
+        estimate_two_view_geometry_batch, pack_matches)
+    from sba_tpu_torch.features.matching import match_pairs_batched
+    from sba_tpu_torch.features.sift import (SiftExtractionOptions,
+                                             extract_sift_batch)
+    from sba_tpu_torch.ops import map_gather
+
+    imgs, sd, nv, xy, pairs = full
+    pairs = pairs[:PROFILE_PAIRS]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    def run(label, fn, n, unit):
+        torch.cuda.synchronize()
+        map_gather.reset_launches()
+        t = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        ev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+        busy = sum(dev_us(e) for e in ev)
+        gat = [e for e in ev if "b_map_gather" in e.key]
+        sol = [e for e in ev if re.search(CUSOLVER, e.key, re.I)]
+        if busy <= 0:
+            log("profile", f"{label}: the profiler saw no device time: "
+                "busy share not measured")
+            return out
+        log("profile", f"{label}: device {busy / 1e3 / n:.3f} ms/{unit} "
+            f"({busy / 1e3:.1f} ms for {n}), busy "
+            f"{100 * busy / 1e6 / wall:.1f}% of {wall * 1e3:.1f} ms "
+            f"profiled wall; map_gather "
+            f"{map_gather.LAUNCHES['map_gather']} launches, "
+            f"{sum(map(dev_us, gat)) / 1e3 / n:.4f} ms/{unit}; cuSOLVER "
+            f"{sum(map(dev_us, sol)) / 1e3 / n:.3f} ms/{unit} "
+            f"({100 * sum(map(dev_us, sol)) / busy:.1f}% of device time, "
+            f"{sum(e.count for e in sol)} launches)")
+        for e in sorted(ev, key=dev_us, reverse=True)[:10]:
+            log("profile", f"{dev_us(e) / 1e3:8.3f} ms {e.count:6d}x "
+                f"{'[cuSOLVER] ' if e in sol else ''}{e.key[:70]}")
+        return out
+
+    run("front end: SIFT 8 x 1600x1200",
+        lambda: extract_sift_batch(imgs, device="cuda"), len(imgs), "image")
+    # map_gather's floor at SIFT's index law: each launch reads an int32
+    # index and writes a word per sample (table reads not counted); a
+    # sample per grid point (256) of every candidate row of the batch.
+    opt = SiftExtractionOptions()
+    h, w = imgs.shape[1:]
+    n_oct = min(opt.num_octaves,
+                max(1, int(np.floor(np.log2(min(h, w) / 16.0))) + 1))
+    rows = min(opt.max_num_features, n_oct * opt.desc_candidates_per_octave)
+    samples = len(imgs) * rows * 256
+    log("profile", f"front end: map_gather at SIFT's index law: "
+        f"{samples} samples a launch (orientation, then descriptors); "
+        f"floor of its indices and output "
+        f"{samples * 8 / HBM_BYTES_PER_S * 1e3:.4f} ms a launch (table "
+        f"reads not counted)")
+    w, h = FRONTEND_SCENE["image_size"]
+    f = FRONTEND_SCENE["focal"]
+
+    def match_and_verify(pairs=pairs):
+        """The matcher commands' device path (cli._match_and_verify)
+        without the database."""
+        m, _ = match_pairs_batched(sd, nv, pairs)
+        m = m.cpu().numpy()
+        matches = []
+        for j, (a, b) in enumerate(pairs):
+            i1 = np.nonzero(m[j] >= 0)[0]
+            if len(i1):
+                matches.append((a, b, np.stack([i1, m[j][i1]], -1)))
+        xy1, xy2, vm = pack_matches(xy, matches)
+        cam = np.tile([[f, f, w / 2, h / 2]], (len(matches), 1))
+        return estimate_two_view_geometry_batch(
+            xy1, xy2, vm, cam, cam, [(w, h)] * len(matches),
+            [(w, h)] * len(matches), dtype=torch.float32, device="cuda")
+
+    match_and_verify(pairs[:2])                      # warm
+    run(f"front end: match + verify {len(pairs)} pairs", match_and_verify,
+        len(pairs), "pair")
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(DEADLINE_S, exit=True)
     import torch
@@ -2477,6 +3066,10 @@ def main() -> int:
     run("cli-sba", phase_cli_sba)
     gsba_ctx, gsba_ms = run("gsba", phase_gsba)
     run("cli-gsba", phase_cli_gsba)
+    run("twins-frontend", phase_twins_frontend)
+    fe_scene = run("frontend", phase_frontend)
+    fe_full = run("twins-frontend", phase_twins_frontend_full, fe_scene)
+    del fe_scene
     rows = run("timing", phase_timing, ctx, launches, errs)
     rows.update(run("timing", phase_timing_implicit, ctx_i, launches_i,
                     errs, k3_per_it))
@@ -2500,6 +3093,8 @@ def main() -> int:
               sba_ms)
     _log_busy("bench_gsba GSBA", run("profile", phase_profile_gsba,
                                      *gsba_ctx), gsba_ms)
+    run("profile", phase_profile_frontend, fe_full)
+    del fe_full
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -1,11 +1,16 @@
 """`colmap`-style command line of the port: the database commands,
-global BA, semantic and geometric-semantic BA, and the dense chain.
+the front end (features, matching, verification), global BA, semantic
+and geometric-semantic BA, and the dense chain.
 
     python -m sba_tpu_torch.cli database_creator --database_path db.db
     python -m sba_tpu_torch.cli database_cleaner --database_path db.db \
         --type matches
     python -m sba_tpu_torch.cli database_merger --database_path1 a.db \
         --database_path2 b.db --merged_database_path m.db
+    python -m sba_tpu_torch.cli feature_extractor --database_path db.db \
+        --image_path imgs/ [--SiftExtraction.use_gpu 0]
+    python -m sba_tpu_torch.cli exhaustive_matcher --database_path db.db
+    python -m sba_tpu_torch.cli sequential_matcher --database_path db.db
     python -m sba_tpu_torch.cli bundle_adjuster --input_path sparse/0 \
         --output_path ba/ [--device cuda] [--BundleAdjustment.dtype float32]
     python -m sba_tpu_torch.cli semantic_bundle_adjuster \
@@ -27,7 +32,11 @@ run on the host. On CUDA, bundle_adjuster
 with ``--BundleAdjustment.dtype float32`` goes through the BA kernels,
 semantic_bundle_adjuster samples every map through the map-gather
 kernels and patch_match_stereo scores through the NCC kernel, and those
-commands print the launch counts of their kernels.
+commands print the launch counts of their kernels; feature_extractor
+samples SIFT's gradients through the map_gather kernel and prints its
+launches, and the matchers print their match / verify / host seconds.
+``--SiftExtraction.use_gpu 0`` and ``--SiftMatching.use_gpu 0`` ask for
+the CPU, as ``--device cpu`` does.
 """
 
 from __future__ import annotations
@@ -124,6 +133,267 @@ def run_database_merger(flags):
     dbo.close()
     print(f"merged {p1} + {p2} -> {out}")
 
+
+
+# ---------------------------------------------------------------------------
+# feature commands (ref: exe/feature.cc)
+# ---------------------------------------------------------------------------
+
+
+_IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".tif", ".tiff")
+_FALSE = ("0", "false", "False")
+
+
+def _list_images(image_path, image_list_path=None) -> List[str]:
+    if image_list_path:
+        with open(image_list_path) as f:
+            return [l.strip() for l in f if l.strip()]
+    names = []
+    for root, _dirs, files in os.walk(image_path):
+        for fn in sorted(files):
+            if fn.lower().endswith(_IMAGE_EXTS):
+                names.append(os.path.relpath(os.path.join(root, fn),
+                                             image_path))
+    return sorted(names)
+
+
+def _frontend_device(flags, section: str) -> str:
+    """`--<section>.use_gpu 0` asks for the CPU, as `--device cpu` does;
+    otherwise `_device` (a missing card fails). The two flags of the
+    section that are not options of its dataclass (use_gpu, batch_size)
+    are taken out of `flags`."""
+    use_gpu = flags.pop(f"{section}.use_gpu", "1") not in _FALSE
+    return _device(flags) if use_gpu else "cpu"
+
+
+def run_feature_extractor(flags):
+    """Ref: exe/feature.cc:104 RunFeatureExtractor: load on the host,
+    register cameras (EXIF focal prior, else the default factor) and
+    images, then extract in fixed-size batches of same-shape images on
+    the device (the last batch padded by repetition) and write the
+    keypoints and uint8 descriptors."""
+    from sba_tpu_torch.features.sift import (
+        SiftExtractionOptions, extract_sift_batch, load_image_gray)
+    from sba_tpu_torch.geometry import camera_models
+    from sba_tpu_torch.io.database import Database
+    from sba_tpu_torch.io.image_reader import (
+        ImageReaderOptions, camera_params_for_image)
+    from sba_tpu_torch.ops import map_gather
+
+    db_path, image_path = _require(flags, "database_path", "image_path")
+    flags = dict(flags)
+    device = _frontend_device(flags, "SiftExtraction")
+    batch_size = int(flags.pop("SiftExtraction.batch_size", "8"))
+    opt = apply_flags(SiftExtractionOptions(), "SiftExtraction", flags)
+    camera_model = flags.get("ImageReader.camera_model", "SIMPLE_RADIAL")
+    single_camera = flags.get("ImageReader.single_camera", "0") in (
+        "1", "true", "True")
+    names = _list_images(image_path, flags.get("image_list_path"))
+    if not names:
+        raise SystemExit(f"no images found under {image_path}")
+
+    db = Database(db_path)
+    spec = camera_models.model_by_name(camera_model)
+    reader_opt = ImageReaderOptions(camera_model=camera_model,
+                                    single_camera=single_camera)
+    shared_camera_id = None
+    by_shape = {}
+    for name in names:
+        full = os.path.join(image_path, name)
+        img = load_image_gray(full, max_size=opt.max_image_size)
+        h, w = img.shape
+        if shared_camera_id is None or not single_camera:
+            _model, params, has_prior = camera_params_for_image(
+                full, w, h, reader_opt)
+            cam_id = db.write_camera(spec.model_id, w, h, params,
+                                     prior_focal_length=has_prior)
+            if single_camera:
+                shared_camera_id = cam_id
+        else:
+            cam_id = shared_camera_id
+        image_id = db.write_image(name, cam_id)
+        by_shape.setdefault(img.shape, []).append((image_id, name, img))
+
+    map_gather.reset_launches()
+    total = 0
+    t_dev = 0.0
+    for _shape, items in by_shape.items():
+        for i0 in range(0, len(items), batch_size):
+            chunk = items[i0:i0 + batch_size]
+            stack = np.stack([c[2] for c in chunk])
+            if len(chunk) < batch_size:
+                stack = np.concatenate([stack, np.repeat(
+                    stack[-1:], batch_size - len(chunk), axis=0)])
+            t = time.perf_counter()
+            kps, desc_u8, mask = extract_sift_batch(stack, opt, device=device)
+            t_dev += time.perf_counter() - t
+            for j, (image_id, name, _img) in enumerate(chunk):
+                m = mask[j]
+                db.write_keypoints(image_id, kps[j][m])
+                db.write_descriptors(image_id, desc_u8[j][m])
+                total += 1
+                print(f"  {name}: {int(m.sum())} features")
+    db.commit()
+    db.close()
+    print(f"extracted features for {total} images -> {db_path} [{device}]")
+    print(f"extraction: {t_dev:.3f} s for {total} images "
+          f"({total / max(t_dev, 1e-9):.3f} images/s)")
+    if device != "cpu":
+        print("kernel launches: " + json.dumps(
+            {"map_gather": map_gather.LAUNCHES["map_gather"]}))
+
+
+def _match_and_verify(db, pairs_idx, image_ids, flags):
+    """Matching and geometric verification shared by the matcher commands
+    (ref: feature/matching.cc SiftFeatureMatcher + verifier): the
+    descriptors go to the device once as an [I, npad, 128] uint8 stack;
+    each batch of `SiftMatching.batch_size` pairs is matched in one call,
+    and its non-empty pairs are verified (E/F/H) in one call at the
+    batch's power-of-two match bucket; the host writes the database.
+    Prints the seconds spent matching, verifying and on the host."""
+    import torch
+
+    from sba_tpu_torch.estimators.two_view_geometry import (
+        TwoViewGeometryOptions, estimate_two_view_geometry_batch,
+        pack_matches)
+    from sba_tpu_torch.features.matching import (
+        SiftMatchingOptions, match_pairs_batched)
+    from sba_tpu_torch.geometry import camera_models
+
+    flags = dict(flags)
+    device = _frontend_device(flags, "SiftMatching")
+    Bp = int(flags.pop("SiftMatching.batch_size", "32"))
+    mopt = apply_flags(SiftMatchingOptions(), "SiftMatching", flags)
+    vopt = apply_flags(TwoViewGeometryOptions(), "TwoViewGeometry", flags)
+
+    cams = db.read_cameras()
+    images = db.read_images()
+    max_n = 1
+    for iid in image_ids:
+        max_n = max(max_n, db.num_keypoints_for_image(iid))
+    npad = max(256, -(-max_n // 256) * 256)
+
+    I = len(image_ids)
+    stack = np.zeros((I, npad, 128), np.uint8)
+    nvalid = np.zeros(I, np.int32)
+    kp_cache = {}
+    for ii, iid in enumerate(image_ids):
+        d = db.read_descriptors(iid)
+        nvalid[ii] = len(d)
+        stack[ii, :len(d)] = d
+        kp_cache[ii] = db.read_keypoints(iid)
+    stack_dev = torch.as_tensor(stack, device=device)
+    nvalid_dev = torch.as_tensor(nvalid, device=device)
+
+    def fxycxy(iid):
+        cam = cams[images[iid]["camera_id"]]
+        spec = camera_models.model_by_id(cam["model_id"])
+        p = cam["params"]
+        fi = spec.focal_idxs
+        return (p[fi[0]], p[fi[-1]], p[spec.principal_idxs[0]],
+                p[spec.principal_idxs[1]])
+
+    def imsize(iid):
+        cam = cams[images[iid]["camera_id"]]
+        return (cam["width"], cam["height"])
+
+    t_match = t_verify = t_host = 0.0
+    num_verified = 0
+    pairs_list = [tuple(int(v) for v in p) for p in pairs_idx]
+    for b0 in range(0, len(pairs_list), Bp):
+        batch = pairs_list[b0:b0 + Bp]
+        t0 = time.perf_counter()
+        pidx = np.array(batch + [batch[-1]] * (Bp - len(batch)), np.int64)
+        m_dev, _n = match_pairs_batched(stack_dev, nvalid_dev, pidx, mopt)
+        m_all = m_dev.cpu().numpy()
+        t_match += time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        verify = []
+        for j, (a, b) in enumerate(batch):
+            row = m_all[j]
+            i1f = np.nonzero(row >= 0)[0]
+            m = np.stack([i1f, row[i1f]], axis=-1).astype(np.int32)
+            if len(m) == 0:
+                continue
+            db.write_matches(image_ids[a], image_ids[b], m.astype(np.uint32))
+            verify.append((a, b, m))
+        t_host += time.perf_counter() - t0
+        if not verify:
+            continue
+        xy1, xy2, vmask = pack_matches(kp_cache, verify)
+        Bv = len(verify)
+        c1 = np.zeros((Bv, 4))
+        c2 = np.zeros((Bv, 4))
+        sz1, sz2 = [], []
+        for j, (a, b, _) in enumerate(verify):
+            i1, i2 = image_ids[a], image_ids[b]
+            c1[j] = fxycxy(i1)
+            c2[j] = fxycxy(i2)
+            sz1.append(imsize(i1))
+            sz2.append(imsize(i2))
+        t0 = time.perf_counter()
+        tvs = estimate_two_view_geometry_batch(
+            xy1, xy2, vmask, c1, c2, sz1, sz2, options=vopt, seed=b0,
+            dtype=torch.float32, device=device)
+        t_verify += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for (a, b, m), tv in zip(verify, tvs):
+            i1, i2 = image_ids[a], image_ids[b]
+            inl = m[tv.inlier_mask[:len(m)]] if tv.num_inliers else m[:0]
+            db.write_two_view_geometry(
+                i1, i2, inl.astype(np.uint32), config=tv.config, F=tv.F,
+                E=tv.E, H=tv.H, qvec=tv.qvec, tvec=tv.tvec)
+            if tv.num_inliers >= vopt.min_num_inliers:
+                num_verified += 1
+            print(f"  pair ({images[i1]['name']}, {images[i2]['name']}): "
+                  f"{len(m)} matches, {tv.num_inliers} inliers")
+        t_host += time.perf_counter() - t0
+    db.commit()
+    n = len(pairs_list)
+    print(f"match {t_match:.3f} s, verify {t_verify:.3f} s, host/db "
+          f"{t_host:.3f} s for {n} pairs "
+          f"({n / max(t_match + t_verify, 1e-9):.3f} pairs/s matched and "
+          f"verified) [{device}]")
+    return num_verified
+
+
+def run_exhaustive_matcher(flags):
+    """Ref: exe/feature.cc:221."""
+    from sba_tpu_torch.features.pairing import exhaustive_pairs
+    from sba_tpu_torch.io.database import Database
+
+    (db_path,) = _require(flags, "database_path")
+    db = Database(db_path)
+    image_ids = sorted(db.read_images())
+    block = int(flags.get("ExhaustiveMatching.block_size", "50"))
+    pairs = exhaustive_pairs(len(image_ids), block_size=block)
+    n = _match_and_verify(db, pairs, image_ids, flags)
+    db.close()
+    print(f"verified {n}/{len(pairs)} pairs")
+
+
+def run_sequential_matcher(flags):
+    """Ref: exe/feature.cc:298: image i against i+1..i+overlap and the
+    quadratic jumps i+2^k. `SequentialMatching.loop_detection 1` needs
+    the vocabulary tree, which is not ported yet, and fails."""
+    from sba_tpu_torch.features.pairing import sequential_pairs
+    from sba_tpu_torch.io.database import Database
+
+    (db_path,) = _require(flags, "database_path")
+    if flags.get("SequentialMatching.loop_detection", "0") not in _FALSE:
+        raise SystemExit("--SequentialMatching.loop_detection needs the "
+                         "vocabulary tree, which is not ported yet")
+    db = Database(db_path)
+    image_ids = sorted(db.read_images())
+    overlap = int(flags.get("SequentialMatching.overlap", "10"))
+    quad = flags.get("SequentialMatching.quadratic_overlap", "1") in (
+        "1", "true", "True")
+    pairs = list(sequential_pairs(len(image_ids), overlap=overlap,
+                                  quadratic_overlap=quad))
+    n = _match_and_verify(db, pairs, image_ids, flags)
+    db.close()
+    print(f"verified {n}/{len(pairs)} pairs")
 
 
 def run_bundle_adjuster(flags):
@@ -498,6 +768,9 @@ def run_stereo_fuser(flags):
 COMMANDS = {"database_creator": run_database_creator,
             "database_cleaner": run_database_cleaner,
             "database_merger": run_database_merger,
+            "feature_extractor": run_feature_extractor,
+            "exhaustive_matcher": run_exhaustive_matcher,
+            "sequential_matcher": run_sequential_matcher,
             "bundle_adjuster": run_bundle_adjuster,
             "semantic_bundle_adjuster": run_semantic_bundle_adjuster,
             "geometric_semantic_bundle_adjuster":

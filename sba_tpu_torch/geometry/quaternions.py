@@ -211,3 +211,30 @@ def np_angle_axis_to_quat(aa):
     axis = aa / angle
     return np.concatenate([[np.cos(angle / 2.0)],
                            np.sin(angle / 2.0) * axis])
+
+
+def np_rotmat_to_quat(R):
+    """Numpy rotation matrix [3, 3] -> w-first quaternion (Shepperd,
+    branch by the trace and then the largest diagonal entry)."""
+    R = np.asarray(R, np.float64)
+    m00, m01, m02 = R[0]
+    m10, m11, m12 = R[1]
+    m20, m21, m22 = R[2]
+    tr = m00 + m11 + m22
+    if tr > 0:
+        s = 2.0 * np.sqrt(tr + 1.0)
+        q = np.array([0.25 * s, (m21 - m12) / s, (m02 - m20) / s,
+                      (m10 - m01) / s])
+    elif m00 >= m11 and m00 >= m22:
+        s = 2.0 * np.sqrt(1.0 + m00 - m11 - m22)
+        q = np.array([(m21 - m12) / s, 0.25 * s, (m01 + m10) / s,
+                      (m02 + m20) / s])
+    elif m11 >= m22:
+        s = 2.0 * np.sqrt(1.0 + m11 - m00 - m22)
+        q = np.array([(m02 - m20) / s, (m01 + m10) / s, 0.25 * s,
+                      (m12 + m21) / s])
+    else:
+        s = 2.0 * np.sqrt(1.0 + m22 - m00 - m11)
+        q = np.array([(m10 - m01) / s, (m02 + m20) / s, (m12 + m21) / s,
+                      0.25 * s])
+    return np_quat_normalize(q)

@@ -908,3 +908,159 @@ def test_gsba_solve_on_card_matches_cpu(cuda, monkeypatch):
     assert torch.equal(s1.cost_trace.nan_to_num(-1.0),
                        s2.cost_trace.nan_to_num(-1.0))
     assert torch.equal(s1.per_image_iou, s2.per_image_iou)
+
+
+# ---------------------------------------------------------------------------
+# the front end
+# ---------------------------------------------------------------------------
+
+
+def _views(n=4, size=(320, 240)):
+    from sba_tpu_torch.utils.render import render_scene
+
+    sc = render_scene(num_images=n, image_size=size, focal=1.2 * size[0],
+                      seed=5, device="cpu")
+    return sc
+
+
+def _same_draws(kind, trials, pairs, masks_r):
+    """Seeded CPU draws per (family, trials, pair): the card and the CPU
+    verify with the same samples."""
+    from sba_tpu_torch.optim.ransac import draw_samples
+
+    ssz = {"F": 7, "H": 4, "E": 5}[kind]
+    return torch.stack([draw_samples(
+        masks_r.shape[1], trials, ssz, mask=torch.as_tensor(masks_r[p]),
+        generator=torch.Generator().manual_seed(
+            1000003 * int(p) + 7919 * trials + ord(kind)))
+        for p in pairs]).numpy()
+
+
+def _rows_share(kc, mc, kp, mp):
+    """Share of the card's valid rows with a CPU row within 1e-3 px in x,
+    y and scale and 1e-3 rad in orientation; and the CPU row of each."""
+    a, b = kc[mc], kp[mp]
+    d = (a[:, None, :] - b[None, :, :]).abs()
+    d[..., 3] = torch.minimum(d[..., 3], 2 * torch.pi - d[..., 3])
+    worst = d.amax(-1)
+    best = worst.argmin(1)
+    ok = worst.gather(1, best[:, None])[:, 0] <= 1e-3
+    return float(ok.float().mean()), torch.where(ok, best, -1)
+
+
+def test_sift_on_card_matches_cpu(cuda):
+    """SIFT of 320x240 views on the card (gradient taps through the
+    map_gather kernel, two launches an image) against the CPU path."""
+    from sba_tpu_torch.features.sift import (descriptors_to_uint8,
+                                             extract_sift)
+    from sba_tpu_torch.ops import map_gather as mg
+
+    sc = _views()
+    for im in sc["images"]:
+        img = im.astype(np.float32) / 255.0
+        mg.reset_launches()
+        c = extract_sift(img, device=cuda)
+        torch.cuda.synchronize()
+        assert mg.LAUNCHES["map_gather"] == 2
+        p = extract_sift(img, device="cpu")
+        share, idx = _rows_share(c.keypoints.cpu(), c.mask.cpu(),
+                                 p.keypoints, p.mask)
+        assert share >= 0.98 and int(c.mask.sum()) > 200
+        uc = descriptors_to_uint8(c.descriptors.cpu())[c.mask.cpu()][idx >= 0]
+        up = descriptors_to_uint8(p.descriptors)[p.mask][idx[idx >= 0]]
+        assert float(((uc.int() - up.int()).abs() <= 1).float().mean()) \
+            >= 0.99
+
+
+def test_matcher_and_verifier_on_card_match_cpu(cuda):
+    """match_pairs_batched on one descriptor stack (rows equal but 0.1%)
+    and estimate_two_view_geometry_batch with the same draws
+    (configurations equal, inliers within 1%), card against CPU."""
+    from sba_tpu_torch.estimators.two_view_geometry import (
+        estimate_two_view_geometry_batch, pack_matches)
+    from sba_tpu_torch.features.matching import match_pairs_batched
+    from sba_tpu_torch.features.sift import (descriptors_to_uint8,
+                                             extract_sift)
+
+    sc = _views()
+    feats = [extract_sift(im.astype(np.float32) / 255.0, device="cpu")
+             for im in sc["images"]]
+    I = len(feats)
+    N = 256 * -(-max(int(f.mask.sum()) for f in feats) // 256)
+    stack = np.zeros((I, N, 128), np.uint8)
+    nvalid = np.array([int(f.mask.sum()) for f in feats], np.int32)
+    for i, f in enumerate(feats):
+        stack[i, :nvalid[i]] = descriptors_to_uint8(f.descriptors)[f.mask]
+    pairs = np.array([(a, b) for a in range(I) for b in range(a + 1, I)])
+    mc, _ = match_pairs_batched(torch.as_tensor(stack, device=cuda),
+                                torch.as_tensor(nvalid, device=cuda), pairs)
+    mp, _ = match_pairs_batched(torch.as_tensor(stack),
+                                torch.as_tensor(nvalid), pairs)
+    mc, mp = mc.cpu().numpy(), mp.numpy()
+    assert (mc != mp).sum() <= 0.001 * nvalid[pairs[:, 0]].sum()
+    matches = []
+    for j, (a, b) in enumerate(pairs):
+        i1 = np.nonzero(mp[j] >= 0)[0]
+        matches.append((a, b, np.stack([i1, mp[j][i1]], -1)))
+    xy1, xy2, vm = pack_matches(
+        [f.keypoints[f.mask].double().numpy() for f in feats], matches)
+    w, h = 320, 240
+    cam = np.tile([[1.2 * w, 1.2 * w, w / 2, h / 2]], (len(pairs), 1))
+    sizes = [(w, h)] * len(pairs)
+    rc, rp = [estimate_two_view_geometry_batch(
+        xy1, xy2, vm, cam, cam, sizes, sizes, dtype=torch.float32,
+        device=dev, draw_fn=_same_draws) for dev in (cuda, "cpu")]
+    for a, b in zip(rc, rp):
+        assert a.config == b.config
+        assert abs(a.num_inliers - b.num_inliers) <= 0.01 * b.num_inliers
+        assert b.num_inliers >= 15
+
+
+def test_frontend_commands_on_card_match_cpu(cuda, tmp_path, monkeypatch):
+    """feature_extractor and exhaustive_matcher on the card against
+    --device cpu on four 320x240 views (the matchers on copies of one
+    database, with the same draws)."""
+    import shutil
+
+    from sba_tpu_torch import cli
+    from sba_tpu_torch.estimators import two_view_geometry as tvg
+    from sba_tpu_torch.io.database import Database
+    from sba_tpu_torch.utils.render import write_scene_images
+
+    write_scene_images(_views(), str(tmp_path / "imgs"))
+    for dev in ("cuda", "cpu"):
+        assert cli.main(["feature_extractor", "--database_path",
+                         str(tmp_path / f"{dev}.db"), "--image_path",
+                         str(tmp_path / "imgs"), "--device", dev]) == 0
+    a, b = Database(str(tmp_path / "cuda.db")), Database(str(tmp_path
+                                                            / "cpu.db"))
+    for iid in a.read_images():
+        kc, kp = T_(a.read_keypoints(iid)), T_(b.read_keypoints(iid))
+        share, _ = _rows_share(kc, torch.ones(len(kc), dtype=torch.bool),
+                               kp, torch.ones(len(kp), dtype=torch.bool))
+        assert share >= 0.98
+    own = tvg.estimate_two_view_geometry_batch
+    monkeypatch.setattr(tvg, "estimate_two_view_geometry_batch",
+                        lambda *x, **kw: own(*x, **dict(
+                            kw, draw_fn=_same_draws)))
+    for dev in ("cuda", "cpu"):
+        shutil.copy(tmp_path / "cpu.db", tmp_path / f"m_{dev}.db")
+        assert cli.main(["exhaustive_matcher", "--database_path",
+                         str(tmp_path / f"m_{dev}.db"), "--device",
+                         dev]) == 0
+    a, b = Database(str(tmp_path / "m_cuda.db")), Database(
+        str(tmp_path / "m_cpu.db"))
+    ma, mb = a.read_all_matches(), b.read_all_matches()
+    assert ma.keys() == mb.keys() and len(ma) == 6
+    rows = sum(len(m) for m in mb.values())
+    diff = sum(len(set(map(tuple, ma[k])) ^ set(map(tuple, mb[k])))
+               for k in ma)
+    assert diff <= 0.002 * max(rows, 1) + 2
+    ga, gb = a.read_all_two_view_geometries(), \
+        b.read_all_two_view_geometries()
+    for k in ga:
+        assert ga[k]["config"] == gb[k]["config"]
+
+
+def T_(a):
+    return torch.as_tensor(np.asarray(a, np.float32))

@@ -46,8 +46,26 @@ def test_port_and_chip_smoke_import_without_jax():
                  "sba_tpu_torch.optim.gsba",
                  "sba_tpu_torch.controllers.geometric_semantic_ba",
                  "sba_tpu_torch.io.database",
+                 "sba_tpu_torch.geometry.projection",
+                 "sba_tpu_torch.geometry.triangulation",
+                 "sba_tpu_torch.ops.polynomial",
+                 "sba_tpu_torch.ops.topk",
+                 "sba_tpu_torch.estimators.fundamental_matrix",
+                 "sba_tpu_torch.estimators.essential_matrix",
+                 "sba_tpu_torch.estimators.homography_matrix",
+                 "sba_tpu_torch.estimators.two_view_geometry",
+                 "sba_tpu_torch.optim.ransac",
+                 "sba_tpu_torch.features.pairing",
+                 "sba_tpu_torch.features.matching",
+                 "sba_tpu_torch.features.sift",
+                 "sba_tpu_torch.io.image_reader",
                  "sba_tpu_torch.cli"):
         assert name in modules, name
+    from sba_tpu_torch import cli
+
+    for cmd in ("feature_extractor", "exhaustive_matcher",
+                "sequential_matcher"):
+        assert cmd in cli.COMMANDS, cmd
     res = subprocess.run(
         [sys.executable, "-c", _PROBE.format(root=str(ROOT),
                                              modules=modules)],
