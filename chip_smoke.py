@@ -131,7 +131,24 @@ Needs one CUDA card and nvcc (found through torch's CUDA_HOME, else
                      (8192 features, batches of 8 images and 32 pairs,
                      4096 trials); map_gather launches counted during
                      extraction; FRONTEND_GATES against the true poses;
-19. timing        -- per-kernel CUDA-event times (the stream sleeps
+19. mapper        -- `python -m sba_tpu_torch.cli mapper` at its defaults
+                     on the frontend phase's exhaustive database (24 x
+                     1600x1200, 8192 features, SIMPLE_RADIAL): one model
+                     of all 24 views within MAPPER_GATES of the true
+                     poses (reprojection error, ATE after a similarity,
+                     consecutive rotations, points); wall seconds and
+                     registrations per second, local and global BAs and
+                     their LM iterations, the wall's split into BA,
+                     RANSAC and host, peak memory, the busy share;
+20. twins-mapper  -- the mapper's initial pair, first registration,
+                     triangulation and local BA on the card and the CPU
+                     with the same draws: inlier sets equal, poses within
+                     1e-8 of the baseline, local BA costs at rtol 1e-9;
+21. point_triangulator -- the command on the true poses over the
+                     database's keypoints: the points on the heightfield;
+22. automatic_reconstructor -- `--dense 0` on 8 of the views (its own
+                     extraction, matching and mapping) within MAPPER_GATES;
+23. timing        -- per-kernel CUDA-event times (the stream sleeps
                      while the host enqueues the timed calls, so they are
                      the device's) against the twins, the
                      memory/compute bound and, for B1-B4, the PyTorch
@@ -141,7 +158,8 @@ Needs one CUDA card and nvcc (found through torch's CUDA_HOME, else
                      random du, also at the 1024-image bucket; B1-B4
                      also beside the least time over the 32-byte
                      sectors their samples touch (B3's sector floor);
-20. profile       -- device time by kernel over one warm solve of the
+                     `map_gather` also at SIFT's index law;
+24. profile       -- device time by kernel over one warm solve of the
                      headline (with K1's split between its linearize-and-
                      reduce kernel and its three Schur kernels, and its
                      share of its bound), of the
@@ -174,7 +192,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-DEADLINE_S = 600
+DEADLINE_S = 1000
 T0 = time.perf_counter()
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
@@ -1709,6 +1727,33 @@ def phase_timing_implicit(ctx, launches, errs, k3_per_it):
     return rows
 
 
+class _DevTotal:
+    """One device-side event name's launches and summed time (us)."""
+
+    def __init__(self, key):
+        self.key = key
+        self.count = 0
+        self.self_device_time_total = 0.0
+
+
+def _device_totals(prof):
+    """The device-side events (kernels, copies, sets) of a finished
+    profile, summed by name from its raw trace: the profiler's own
+    per-operation tables take tens of seconds at these event counts."""
+    from torch.autograd import DeviceType
+
+    tot = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        t = tot.get(e.name())
+        if t is None:
+            t = tot[e.name()] = _DevTotal(e.name())
+        t.count += 1
+        t.self_device_time_total += e.duration_ns() / 1e3
+    return list(tot.values())
+
+
 def _profile(label, solve, unit, parts=None, bounds=None):
     """Device time by kernel over one warm call of `solve` (which returns
     its count of `unit`s) under torch.profiler. Busy time sums the
@@ -1719,7 +1764,6 @@ def _profile(label, solve, unit, parts=None, bounds=None):
     Returns busy us per unit, or None when the profiler saw no device
     time."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1729,8 +1773,7 @@ def _profile(label, solve, unit, parts=None, bounds=None):
         n = solve()
         torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    kernels = _device_totals(prof)
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
@@ -2760,7 +2803,9 @@ def phase_frontend():
     """feature_extractor, exhaustive_matcher and sequential_matcher of
     `python -m sba_tpu_torch.cli` at their defaults on the card (24 views
     of 1600x1200, 8192 features, batches of 8 images and 32 pairs,
-    4096 trials), gated on the scene's true poses."""
+    4096 trials), gated on the scene's true poses. Returns the scene and
+    the work directory (images, the exhaustive database), which the
+    mapper phases use and remove."""
     import numpy as np
 
     from sba_tpu_torch.ops import cuda_build, map_gather
@@ -2818,9 +2863,15 @@ def phase_frontend():
         _frontend_gates(db, scene, ring + [(0, n - 1)], "exhaustive",
                         ROOT / "chiprun_out" / "frontend_planar.npz")
         _frontend_gates(work / "seq.db", scene, ring, "sequential")
-    finally:
+    except BaseException:
         shutil.rmtree(work, ignore_errors=True)
-    return scene
+        raise
+    return scene, work
+
+
+# The first SIFT gather of phase twins-frontend's full-width batch (its
+# table, indices and form), timed in phase timing.
+SIFT_GATHER = {}
 
 
 def _gather_checked(extract):
@@ -2838,6 +2889,8 @@ def _gather_checked(extract):
         out = mg.map_gather(table, idx, *args)
         same.append(torch.equal(out, mg.map_gather_plain(table, idx, *args)))
         calls.append((idx.numel(), table.numel()))
+        if not SIFT_GATHER:
+            SIFT_GATHER.update(table=table, idx=idx, args=args)
         return out
 
     sift.map_gather = checked
@@ -2939,7 +2992,6 @@ def phase_profile_frontend(full):
     the batch of phase_twins_frontend_full (already warm)."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from sba_tpu_torch.estimators.two_view_geometry import (
@@ -2965,8 +3017,7 @@ def phase_profile_frontend(full):
             out = fn()
             torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        ev = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
+        ev = _device_totals(prof)
         busy = sum(dev_us(e) for e in ev)
         gat = [e for e in ev if "b_map_gather" in e.key]
         sol = [e for e in ev if re.search(CUSOLVER, e.key, re.I)]
@@ -3028,6 +3079,355 @@ def phase_profile_frontend(full):
         len(pairs), "pair")
 
 
+# ---------------------------------------------------------------------------
+# The incremental mapper: mapper, point_triangulator, image registration
+# step twins and automatic_reconstructor on the frontend phase's database
+# ---------------------------------------------------------------------------
+
+# Gates on a mapped model against the rendered truth (sba_tpu's own ATE
+# bound, tests/test_e2e_reconstruction.py:74-77: 5% of the ring radius),
+# set from probes on the card (PERF.md section 6, the mapper).
+MAPPER_GATES = dict(max_reproj_px=1.0, max_ate_frac=0.05,
+                    max_rel_rot_deg=1.0, min_points=1000)
+RING_RADIUS = 1.6         # utils/render.py::render_scene's default
+AUTO_VIEWS = 8            # views of the automatic_reconstructor phase
+TRI_MAX_ERR_FRAC = 0.01   # point_triangulator: median height error / depth
+
+
+def _scene_index(name):
+    return int(re.search(r"view(\d+)\.png", name).group(1))
+
+
+def _model_gates(model_dir, scene, expect, tag):
+    """The mapped model in `model_dir` against the scene's truth: all
+    `expect` views registered, mean reprojection error, mean ATE of the
+    camera centres after a similarity (umeyama) onto the true ones, the
+    rotation between consecutive views against the truth, the points."""
+    import numpy as np
+    import torch
+
+    from sba_tpu_torch.geometry.quaternions import np_quat_to_rotmat
+    from sba_tpu_torch.geometry.similarity import umeyama
+    from sba_tpu_torch.models.reconstruction import Reconstruction
+
+    g = MAPPER_GATES
+    rec = Reconstruction.read(str(model_dir))
+    ids = sorted(rec.images, key=lambda i: _scene_index(rec.images[i].name))
+    ks = [_scene_index(rec.images[i].name) for i in ids]
+    R = {k: np_quat_to_rotmat(rec.images[i].qvec) for k, i in zip(ks, ids)}
+    c_est = np.stack([-R[k].T @ rec.images[i].tvec for k, i in zip(ks, ids)])
+    Rg = {k: np_quat_to_rotmat(scene["qvecs"][k]) for k in ks}
+    c_gt = np.stack([-Rg[k].T @ scene["tvecs"][k] for k in ks])
+    s, Rs, t = umeyama(torch.as_tensor(c_est), torch.as_tensor(c_gt))
+    aligned = (float(s) * c_est @ Rs.numpy().T) + t.numpy()
+    ate = float(np.mean(np.linalg.norm(aligned - c_gt, axis=1)))
+    rel = [_rot_deg(R[b] @ R[a].T, Rg[b] @ Rg[a].T)
+           for a, b in zip(ks[:-1], ks[1:]) if b == a + 1]
+    reproj = rec.compute_mean_reprojection_error()
+    out = dict(views=len(ids), reproj=reproj, ate=ate,
+               ate_frac=ate / RING_RADIUS, rel_rot=max(rel),
+               points=rec.num_points3d())
+    log(tag, f"model: {len(ids)} views (expected {expect}), "
+        f"{out['points']} points, mean reprojection error {reproj:.4f} px, "
+        f"mean ATE {ate:.5f} ({100 * out['ate_frac']:.3f}% of the ring "
+        f"radius), max rotation error between consecutive views "
+        f"{out['rel_rot']:.4f} deg")
+    require(len(ids) == expect and reproj < g["max_reproj_px"]
+            and out["ate_frac"] < g["max_ate_frac"]
+            and out["rel_rot"] < g["max_rel_rot_deg"]
+            and out["points"] >= g["min_points"],
+            f"{tag}: model outside MAPPER_GATES: {out}")
+    return out
+
+
+_MAPPER_STATS = (r"mapper: (\S+) s, (\d+) registrations \((\S+) "
+                 r"registrations/s\); BA (\S+) s \(local (\d+) BAs, (\d+) "
+                 r"LM it; global (\d+) BAs, (\d+) LM it\), RANSAC (\S+) s, "
+                 r"host (\S+) s")
+
+
+def _mapper_stats(out, tag):
+    m = re.search(_MAPPER_STATS, out)
+    require(m is not None, f"{tag} output:\n{out[-2000:]}")
+    v = [float(x) for x in m.groups()]
+    wall, ba, ransac, host = v[0], v[3], v[8], v[9]
+    log(tag, f"{v[1]:.0f} registrations in {wall:.1f} s "
+        f"({v[2]:.4f} registrations/s); {v[4]:.0f} local BAs ({v[5]:.0f} "
+        f"LM it), {v[6]:.0f} global BAs ({v[7]:.0f} LM it); wall in BA "
+        f"{100 * ba / wall:.1f}%, RANSAC {100 * ransac / wall:.1f}%, host "
+        f"{100 * host / wall:.1f}%")
+    return dict(wall=wall, ba=ba, ransac=ransac, host=host)
+
+
+class _Utilization:
+    """The card's busy share over a stretch of wall time: NVML's
+    utilization.gpu (the share of each sample period in which a kernel
+    ran), read by `nvidia-smi` every 100 ms in a child process that the
+    context stops. (torch.profiler over a whole mapper run records ~1M
+    device events; reading them back took ~67 s of the smoke.)"""
+
+    def __enter__(self):
+        try:
+            self.proc = subprocess.Popen(
+                ["nvidia-smi", "--query-gpu=utilization.gpu",
+                 "--format=csv,noheader,nounits", "-lms", "100", "-i", "0"],
+                stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        except OSError:
+            self.proc = None
+        return self
+
+    def __exit__(self, *exc):
+        self.samples, self.share = 0, None
+        if self.proc is None:
+            return False
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=30)
+        vals = [float(v) for v in out.split() if v.strip().isdigit()]
+        self.samples = len(vals)
+        self.share = sum(vals) / len(vals) / 100.0 if vals else None
+        return False
+
+
+def phase_mapper(scene, work):
+    """`python -m sba_tpu_torch.cli mapper` at its defaults on the card on
+    the frontend phase's exhaustive database (24 x 1600x1200, 8192
+    features, SIMPLE_RADIAL), in this process; the device's busy share
+    over the run (`_Utilization`); MAPPER_GATES on model 0. Returns the
+    initial pair and its two-view seed."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _Utilization() as util:
+        out, wall = _run_frontend_cli(
+            ["mapper", "--database_path", str(work / "db.db"),
+             "--output_path", str(work / "sparse")], "mapper")
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    busy = ("not measured (nvidia-smi read no utilization)"
+            if util.share is None else
+            f"{100 * util.share:.2f}% ({util.samples} NVML samples)")
+    log("mapper", f"command wall {wall:.1f} s; peak device memory "
+        f"{peak:.1f} MiB; device busy over the run {busy}")
+    _mapper_stats(out, "mapper")
+    n = FRONTEND_SCENE["num_images"]
+    _model_gates(work / "sparse" / "0", scene, n, "mapper")
+    require(not (work / "sparse" / "1").exists(),
+            "mapper: more than one model")
+    m = re.search(r"mapper 0: initial pair \((\d+), (\d+)\), two-view "
+                  r"seed (\d+)", out)
+    require(m is not None, f"mapper output:\n{out[-2000:]}")
+    return tuple(int(x) for x in m.groups())
+
+
+def _mapper_draws(kind, seed, n, trials, sample_size, mask):
+    """Deterministic CPU draws per (RANSAC, seed), so that the card and the
+    CPU register with the same samples."""
+    import torch
+
+    from sba_tpu_torch.optim.ransac import draw_samples
+
+    g = torch.Generator().manual_seed(7919 * seed + ord(kind[0]))
+    return draw_samples(n, trials, sample_size,
+                        mask=torch.as_tensor(mask > 0), generator=g).numpy()
+
+
+def phase_twins_mapper(work, init):
+    """One registration step at full width on the card and on the CPU
+    with the same sample tensors: the mapper phase's initial pair (its
+    two-view RANSAC at the same seed), the first `register_next_image`,
+    its `triangulate_image` and `adjust_local_bundle`. Inlier sets equal,
+    poses within 1e-8 of the scene's scale, local BA costs at rtol 1e-9.
+    The card's step is also profiled (its busy share by torch.profiler
+    beside NVML's, a check of `_Utilization`)."""
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from sba_tpu_torch.io.database import Database
+    from sba_tpu_torch.io.database_cache import DatabaseCache
+
+    d = Database(str(work / "db.db"))
+    cache = DatabaseCache.create(d)
+    d.close()
+    res = {}
+    for dev in ("cuda", "cpu"):
+        card = dev == "cuda"
+        prof = profile(activities=[ProfilerActivity.CUDA]) if card \
+            else contextlib.nullcontext()
+        util = _Utilization() if card else contextlib.nullcontext()
+        t = time.perf_counter()
+        with prof, util:
+            res[dev] = _twin_step(cache, dev, init)
+        res[dev]["s"] = time.perf_counter() - t
+        if card:
+            busy = sum(e.self_device_time_total
+                       for e in _device_totals(prof)) / 1e6
+            log("twins-mapper", f"the card's step: device busy {busy:.3f} s"
+                f" = {100 * busy / res[dev]['s']:.2f}% of its "
+                f"{res[dev]['s']:.2f} s by torch.profiler; NVML over the "
+                "same stretch " + ("not measured" if util.share is None
+                                   else f"{100 * util.share:.2f}%"))
+    _twins_mapper_gates(res["cuda"], res["cpu"], *init[:2])
+
+
+def _twin_step(cache, dev, init):
+    """phase_twins_mapper's step on one device."""
+    from sba_tpu_torch.models.reconstruction import Reconstruction
+    from sba_tpu_torch.optim.ba import BAOptions
+    from sba_tpu_torch.sfm.controllers import MapperControllerOptions
+    from sba_tpu_torch.sfm.incremental_mapper import IncrementalMapper
+
+    i1, i2, seed = init
+    opt = MapperControllerOptions()
+    matches = cache.correspondence_graph.image_pairs[(i1, i2)]
+    m = IncrementalMapper(cache, device=dev, draw_fn=_mapper_draws)
+    m.begin_reconstruction(Reconstruction())
+    m._seed_counter = seed - 1
+    info = m._estimate_initial_two_view(i1, i2, matches, opt.mapper)
+    require(info is not None, f"twins-mapper [{dev}]: the initial pair "
+            f"({i1}, {i2}) failed its gates")
+    require(m.register_initial_image_pair(i1, i2, info, opt.mapper),
+            f"twins-mapper [{dev}]: too few points from the pair")
+    nxt = m.find_next_images(opt.mapper)
+    require(bool(nxt) and m.register_next_image(nxt[0], opt.mapper),
+            f"twins-mapper [{dev}]: the first registration failed")
+    ntri = m.triangulate_image(nxt[0], opt.triangulator)
+    out = m.adjust_local_bundle(nxt[0], opt.mapper, BAOptions(
+        max_iterations=opt.ba_local_max_num_iterations, loss="cauchy",
+        loss_scale=1.0))
+    im = m.rec.images[nxt[0]]
+    return dict(info=info, next=nxt[0], tri=ntri, q=im.qvec.copy(),
+                t=im.tvec.copy(), pids=im.point3D_ids.copy(),
+                cost=float(out["summary"].final_cost),
+                cost0=float(out["summary"].initial_cost),
+                it=int(out["summary"].num_iterations))
+
+
+def _twins_mapper_gates(a, b, i1, i2):
+    """The twins' inlier sets, poses and local BA costs."""
+    import numpy as np
+
+    same_pair = np.array_equal(a["info"]["inlier_matches"],
+                               b["info"]["inlier_matches"])
+    scale = float(np.linalg.norm(b["info"]["tvec"]))   # the pair's baseline
+    dq = float(np.abs(a["q"] - b["q"]).max())
+    dt = float(np.abs(a["t"] - b["t"]).max()) / scale
+    rc = abs(a["cost"] - b["cost"]) / abs(b["cost"])
+    log("twins-mapper", f"initial pair ({i1}, {i2}): "
+        f"{len(b['info']['inlier_matches'])} inliers, equal {same_pair}; "
+        f"next image {a['next']}/{b['next']}; its tracks after the P3P "
+        f"inliers and triangulation equal "
+        f"{np.array_equal(a['pids'], b['pids'])} "
+        f"({a['tri']}/{b['tri']} observations triangulated); pose after the "
+        f"local BA: |dq| {dq:.3g}, |dt|/baseline {dt:.3g}; local BA cost "
+        f"{b['cost0']:.10g} -> card {a['cost']:.12g}, CPU {b['cost']:.12g} "
+        f"(rel {rc:.3g}), {a['it']}/{b['it']} LM it; card {a['s']:.1f} s, "
+        f"CPU {b['s']:.1f} s")
+    require(same_pair and a["next"] == b["next"] and a["tri"] == b["tri"]
+            and np.array_equal(a["pids"], b["pids"]),
+            "twins-mapper: the card's and the CPU's inlier sets differ")
+    require(dq <= 1e-8 and dt <= 1e-8 and rc <= 1e-9,
+            f"twins-mapper: pose {dq:.3g}/{dt:.3g}, cost {rc:.3g}")
+
+
+def phase_point_triangulator(scene, work):
+    """`point_triangulator` on the scene's true poses, written as a model
+    without points over the database's keypoints: its points must lie on
+    the rendered heightfield (median vertical error under
+    TRI_MAX_ERR_FRAC of the median depth)."""
+    import numpy as np
+
+    from sba_tpu_torch.io.colmap_models import Camera, Image
+    from sba_tpu_torch.io.database import Database
+    from sba_tpu_torch.models.reconstruction import Reconstruction
+    from sba_tpu_torch.utils import mvs_accuracy
+    from sba_tpu_torch.utils.render import _Heightfield
+
+    d = Database(str(work / "db.db"))
+    rec = Reconstruction()
+    try:
+        for cid, c in d.read_cameras().items():
+            rec.add_camera(Camera(cid, c["model_id"], c["width"],
+                                  c["height"], np.asarray(c["params"])))
+        for iid, im in d.read_images().items():
+            k = _scene_index(im["name"])
+            kp = d.read_keypoints(iid)
+            rec.add_image(Image(
+                iid, scene["qvecs"][k].copy(), scene["tvecs"][k].copy(),
+                im["camera_id"], im["name"],
+                np.asarray(kp[:, :2], np.float64),
+                np.full(len(kp), -1, np.int64)), registered=True)
+    finally:
+        d.close()
+    gt = work / "gt_model"
+    gt.mkdir()
+    rec.write(str(gt))
+    out, wall = _run_frontend_cli(
+        ["point_triangulator", "--database_path", str(work / "db.db"),
+         "--input_path", str(gt), "--output_path", str(work / "tri")],
+        "point_triangulator")
+    tri = Reconstruction.read(str(work / "tri"))
+    xyz = np.stack([p.xyz for p in tri.points3D.values()])
+    c = mvs_accuracy.cloud_accuracy(xyz, _Heightfield(
+        5.0, 0.55, FRONTEND_SCENE["seed"]))
+    md = float(np.median(scene["depths"]))
+    log("point_triangulator", f"{out.strip().splitlines()[-1]}; {wall:.1f} s"
+        f"; vertical distance to the heightfield: median {c['median']:.6f}, "
+        f"p80 {c['p80']:.6f} ({100 * c['median'] / md:.4f}% and "
+        f"{100 * c['p80'] / md:.4f}% of the median depth {md:.4f})")
+    require(len(xyz) >= MAPPER_GATES["min_points"] and np.isfinite(xyz).all()
+            and c["median"] < TRI_MAX_ERR_FRAC * md,
+            f"point_triangulator: {len(xyz)} points, median error "
+            f"{c['median']}")
+
+
+def phase_automatic(scene, work):
+    """`automatic_reconstructor --dense 0` on AUTO_VIEWS consecutive views
+    (its own extraction, matching and mapping): all of them registered,
+    under MAPPER_GATES."""
+    imgs = work / "auto_imgs"
+    imgs.mkdir()
+    for k in range(AUTO_VIEWS):
+        shutil.copy(work / "imgs" / f"view{k:03d}.png", imgs)
+    out, wall = _run_frontend_cli(
+        ["automatic_reconstructor", "--workspace_path", str(work / "auto"),
+         "--image_path", str(imgs), "--dense", "0"],
+        "automatic_reconstructor")
+    log("automatic_reconstructor", f"{AUTO_VIEWS} views: {wall:.1f} s wall")
+    _mapper_stats(out, "automatic_reconstructor")
+    _model_gates(work / "auto" / "sparse" / "0", scene, AUTO_VIEWS,
+                 "automatic_reconstructor")
+
+
+def phase_timing_sift():
+    """map_gather at SIFT's index law (the first launch of one 1600x1200
+    batch of 8, phase twins-frontend) against its plain version and
+    torch.take on the same table; the bound counts the table words the
+    samples touch, the indices and the output."""
+    import torch
+
+    from sba_tpu_torch.ops import map_gather as mg
+    from sba_tpu_torch.utils.kernel_timing import time_ms
+
+    table, idx, args = (SIFT_GATHER[k] for k in ("table", "idx", "args"))
+    per, hw = (tuple(args) + (0, 0))[:2]
+    gi = mg._flat_index(idx, per, hw)
+    touched = int(torch.unique(gi).numel())
+    word = table.element_size()
+    bound = (touched * word + idx.numel() * (4 + word)) / HBM_BYTES_PER_S * 1e3
+    ms = time_ms(lambda: mg.map_gather(table, idx, *args), 50)
+    plain_ms = time_ms(lambda: mg.map_gather_plain(table, idx, *args), 5)
+    lib_ms = time_ms(lambda: torch.take(table, gi), 50)
+    log("timing", f"map_gather at SIFT's index law ({idx.numel()} samples "
+        f"over a {table.numel()}-word table of {word}-byte words, "
+        f"{touched} words touched): {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"torch.take {lib_ms:.4f} ms; bound {bound:.4f} ms (bytes: the "
+        f"touched words, the indices and the output), {100 * bound / ms:.1f}"
+        f"% of it")
+    SIFT_GATHER.clear()
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(DEADLINE_S, exit=True)
     import torch
@@ -3067,8 +3467,16 @@ def main() -> int:
     gsba_ctx, gsba_ms = run("gsba", phase_gsba)
     run("cli-gsba", phase_cli_gsba)
     run("twins-frontend", phase_twins_frontend)
-    fe_scene = run("frontend", phase_frontend)
+    fe_scene, fe_work = run("frontend", phase_frontend)
     fe_full = run("twins-frontend", phase_twins_frontend_full, fe_scene)
+    try:
+        init = run("mapper", phase_mapper, fe_scene, fe_work)
+        run("twins-mapper", phase_twins_mapper, fe_work, init)
+        run("point_triangulator", phase_point_triangulator, fe_scene,
+            fe_work)
+        run("automatic_reconstructor", phase_automatic, fe_scene, fe_work)
+    finally:
+        shutil.rmtree(fe_work, ignore_errors=True)
     del fe_scene
     rows = run("timing", phase_timing, ctx, launches, errs)
     rows.update(run("timing", phase_timing_implicit, ctx_i, launches_i,
@@ -3079,6 +3487,7 @@ def main() -> int:
     del ncc_inputs
     rows.update(run("timing", phase_timing_sba, probe_in, gather_launches,
                     gather_errs))
+    run("timing", phase_timing_sift)
     del probe_in
     k1_bound = {"K1": rows["fused_schur"]["bound_ms"]}
     for label, c, ms, parts in (

@@ -1,5 +1,6 @@
 """`colmap`-style command line of the port: the database commands,
-the front end (features, matching, verification), global BA, semantic
+the front end (features, matching, verification), the incremental
+mapper and its commands, global BA, semantic
 and geometric-semantic BA, and the dense chain.
 
     python -m sba_tpu_torch.cli database_creator --database_path db.db
@@ -11,6 +12,14 @@ and geometric-semantic BA, and the dense chain.
         --image_path imgs/ [--SiftExtraction.use_gpu 0]
     python -m sba_tpu_torch.cli exhaustive_matcher --database_path db.db
     python -m sba_tpu_torch.cli sequential_matcher --database_path db.db
+    python -m sba_tpu_torch.cli mapper --database_path db.db \
+        --output_path sparse/ [--input_path sparse/0] [--Mapper.* v]
+    python -m sba_tpu_torch.cli point_triangulator --database_path db.db \
+        --input_path model/ --output_path tri/
+    python -m sba_tpu_torch.cli image_registrator --database_path db.db \
+        --input_path sparse/0 --output_path reg/
+    python -m sba_tpu_torch.cli automatic_reconstructor \
+        --workspace_path ws/ --image_path imgs/ [--dense 0]
     python -m sba_tpu_torch.cli bundle_adjuster --input_path sparse/0 \
         --output_path ba/ [--device cuda] [--BundleAdjustment.dtype float32]
     python -m sba_tpu_torch.cli semantic_bundle_adjuster \
@@ -36,7 +45,11 @@ commands print the launch counts of their kernels; feature_extractor
 samples SIFT's gradients through the map_gather kernel and prints its
 launches, and the matchers print their match / verify / host seconds.
 ``--SiftExtraction.use_gpu 0`` and ``--SiftMatching.use_gpu 0`` ask for
-the CPU, as ``--device cpu`` does.
+the CPU, as ``--device cpu`` does. The mapper commands run their RANSACs
+and bundle adjustments (float64) on the device and print, besides
+sba_tpu's lines, their seconds in BA, in RANSAC and on the host.
+``automatic_reconstructor --dense 1`` raises: its chain ends in the
+meshers, which are not ported yet.
 """
 
 from __future__ import annotations
@@ -394,6 +407,174 @@ def run_sequential_matcher(flags):
     n = _match_and_verify(db, pairs, image_ids, flags)
     db.close()
     print(f"verified {n}/{len(pairs)} pairs")
+
+
+# ---------------------------------------------------------------------------
+# sfm commands (ref: exe/sfm.cc)
+# ---------------------------------------------------------------------------
+
+
+def _load_cache(db_path, min_num_matches=15):
+    from sba_tpu_torch.io.database import Database
+    from sba_tpu_torch.io.database_cache import DatabaseCache
+
+    db = Database(db_path)
+    cache = DatabaseCache.create(db, min_num_matches=min_num_matches)
+    db.close()
+    return cache
+
+
+def _print_mapper_stats(mappers, wall, device):
+    st = {k: sum(m.stats[k] for m in mappers)
+          for k in ("ba_s", "ransac_s", "local_ba", "global_ba",
+                    "local_lm_it", "global_lm_it")}
+    nreg = sum(m.rec.num_registered_images() for m in mappers)
+    host = wall - st["ba_s"] - st["ransac_s"]
+    for k, m in enumerate(mappers):
+        if m.init_pair is not None:
+            print(f"mapper {k}: initial pair {m.init_pair[:2]}, two-view "
+                  f"seed {m.init_pair[2]}")
+    print(f"mapper: {wall:.3f} s, {nreg} registrations "
+          f"({nreg / max(wall, 1e-9):.4f} registrations/s); BA "
+          f"{st['ba_s']:.3f} s (local {st['local_ba']} BAs, "
+          f"{st['local_lm_it']} LM it; global {st['global_ba']} BAs, "
+          f"{st['global_lm_it']} LM it), RANSAC {st['ransac_s']:.3f} s, "
+          f"host {host:.3f} s [{device}]")
+
+
+def run_mapper(flags):
+    """Ref: exe/sfm.cc:249 RunMapper."""
+    from sba_tpu_torch.sfm.controllers import (MapperControllerOptions,
+                                               reconstruct_incremental)
+
+    db_path, output_path = _require(flags, "database_path", "output_path")
+    device = _device(flags)
+    opt = MapperControllerOptions()
+    opt.mapper = apply_flags(opt.mapper, "Mapper", flags)
+    opt.min_num_matches = int(flags.get("Mapper.min_num_matches", "15"))
+    opt.snapshot_path = flags.get("Mapper.snapshot_path") or None
+    opt.snapshot_images_freq = int(
+        flags.get("Mapper.snapshot_images_freq", "0"))
+    opt.live_viewer_path = flags.get("Mapper.live_viewer_path") or None
+
+    t0 = time.perf_counter()
+    cache = _load_cache(db_path, opt.min_num_matches)
+    print(f"loaded {cache.num_images()} images, "
+          f"{len(cache.correspondence_graph.image_pairs)} pairs")
+
+    # Resume from an existing model (ref: exe/sfm.cc RunMapper
+    # input_path, controllers/incremental_mapper.cc:394-399).
+    initial = None
+    input_path = flags.get("input_path", "")
+    if input_path:
+        from sba_tpu_torch.models.reconstruction import Reconstruction
+
+        initial = Reconstruction.read(input_path)
+        print(f"resuming from {input_path}: "
+              f"{initial.num_registered_images()} registered images")
+
+    mappers = []
+    models = reconstruct_incremental(
+        cache, opt, initial_reconstruction=initial,
+        callback=lambda ev, info: (print(f"  [{ev}] {info}"), True)[1],
+        device=device, mappers=mappers)
+    wall = time.perf_counter() - t0
+    os.makedirs(output_path, exist_ok=True)
+    for k, rec in enumerate(models):
+        out = os.path.join(output_path, str(k))
+        os.makedirs(out, exist_ok=True)
+        rec.write(out)
+        print(f"model {k}: {rec.num_registered_images()} images, "
+              f"{rec.num_points3d()} points -> {out}")
+    _print_mapper_stats(mappers, wall, device)
+    if not models:
+        print("reconstruction failed: no model")
+        raise SystemExit(1)
+
+
+def run_point_triangulator(flags):
+    """Triangulate points against FIXED known poses
+    (ref: exe/sfm.cc:403 RunPointTriangulator)."""
+    from sba_tpu_torch.models.reconstruction import Reconstruction
+    from sba_tpu_torch.sfm.incremental_mapper import IncrementalMapper
+    from sba_tpu_torch.sfm.incremental_triangulator import \
+        TriangulatorOptions
+
+    db_path, input_path, output_path = _require(
+        flags, "database_path", "input_path", "output_path")
+    device = _device(flags)
+    rec = Reconstruction.read(input_path)
+    mapper = IncrementalMapper(_load_cache(db_path), device=device)
+    mapper.begin_reconstruction(rec)
+    topt = apply_flags(TriangulatorOptions(), "Mapper", flags)
+    total = 0
+    for iid in list(rec.images):
+        if rec.is_registered(iid):
+            total += mapper.triangulate_image(iid, topt)
+    mapper.triangulator.complete_tracks(list(rec.points3D), topt)
+    mapper.triangulator.merge_tracks(list(rec.points3D), topt)
+    os.makedirs(output_path, exist_ok=True)
+    rec.write(output_path)
+    print(f"triangulated {total} observations, "
+          f"{rec.num_points3d()} points -> {output_path}")
+
+
+def run_image_registrator(flags):
+    """Register NEW images into an existing model without modifying it
+    (ref: exe/sfm.cc RunImageRegistrator)."""
+    from sba_tpu_torch.models.reconstruction import Reconstruction
+    from sba_tpu_torch.sfm.incremental_mapper import (
+        IncrementalMapper, IncrementalMapperOptions)
+
+    db_path, input_path, output_path = _require(
+        flags, "database_path", "input_path", "output_path")
+    device = _device(flags)
+    rec = Reconstruction.read(input_path)
+    mapper = IncrementalMapper(_load_cache(db_path), device=device)
+    mapper.begin_reconstruction(rec)
+    opt = apply_flags(IncrementalMapperOptions(), "Mapper", flags)
+    n = 0
+    for iid in mapper.find_next_images(opt):
+        if mapper.register_next_image(iid, opt):
+            n += 1
+    os.makedirs(output_path, exist_ok=True)
+    rec.write(output_path)
+    print(f"registered {n} additional images -> {output_path}")
+
+
+def run_automatic_reconstructor(flags):
+    """One command from images to a sparse model: database_creator,
+    feature_extractor, exhaustive_matcher, mapper (ref: exe/sfm.cc:50
+    RunAutomaticReconstructor). `--dense 1` would go on through the
+    dense chain to the Poisson or Delaunay mesher, which are not ported
+    yet: it raises before any work."""
+    workspace, image_path = _require(flags, "workspace_path", "image_path")
+    if flags.get("dense", "0") in ("1", "true", "True"):
+        raise SystemExit(
+            "--dense 1 ends in the Poisson and Delaunay meshers, which are "
+            "not ported yet (ROADMAP Queue 1, item 4); run --dense 0, "
+            "then image_undistorter, patch_match_stereo and stereo_fuser")
+    _device(flags)
+    quality = flags.get("quality", "high")
+    db_path = os.path.join(workspace, "database.db")
+    sparse = os.path.join(workspace, "sparse")
+    os.makedirs(workspace, exist_ok=True)
+
+    base = dict(flags)
+    base.pop("dense", None)
+    base.pop("quality", None)
+    base["database_path"] = db_path
+    run_database_creator({"database_path": db_path})
+    fe = dict(base)
+    fe["image_path"] = image_path
+    if quality == "low":
+        fe.setdefault("SiftExtraction.max_num_features", "2048")
+    run_feature_extractor(fe)
+    run_exhaustive_matcher(base)
+    mp = dict(base)
+    mp["output_path"] = sparse
+    run_mapper(mp)
+    print(f"automatic reconstruction complete -> {workspace}")
 
 
 def run_bundle_adjuster(flags):
@@ -771,6 +952,10 @@ COMMANDS = {"database_creator": run_database_creator,
             "feature_extractor": run_feature_extractor,
             "exhaustive_matcher": run_exhaustive_matcher,
             "sequential_matcher": run_sequential_matcher,
+            "mapper": run_mapper,
+            "point_triangulator": run_point_triangulator,
+            "image_registrator": run_image_registrator,
+            "automatic_reconstructor": run_automatic_reconstructor,
             "bundle_adjuster": run_bundle_adjuster,
             "semantic_bundle_adjuster": run_semantic_bundle_adjuster,
             "geometric_semantic_bundle_adjuster":

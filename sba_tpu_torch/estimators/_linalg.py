@@ -43,6 +43,11 @@ def eigh_vectors(a):
     return _chunked(lambda m: (torch.linalg.eigh(m).eigenvectors,), a)[0]
 
 
+def eigh(a):
+    """(eigenvalues [..., n] ascending, eigenvectors [..., n, n])."""
+    return _chunked(lambda m: tuple(torch.linalg.eigh(m)), a)
+
+
 class _Svd(NamedTuple):
     U: torch.Tensor
     S: torch.Tensor

@@ -141,50 +141,91 @@ def estimate_two_view_geometry(
     CALIBRATED path; mask: optional [N] validity. `samples` maps "E",
     "F", "H" to [T, s] index tensors that replace the draws (T =
     `num_required_trials` for each family)."""
+    return estimate_two_view_geometries([dict(
+        xy1=xy1, xy2=xy2, cam1=cam1_fxycxy, cam2=cam2_fxycxy,
+        size1=image_size1, size2=image_size2, seed=seed, mask=mask,
+        samples=samples)], options, dtype=dtype, device=device)[0]
+
+
+def estimate_two_view_geometries(pairs, options=None, dtype=torch.float64,
+                                 device="cuda"):
+    """`estimate_two_view_geometry` of several pairs in one set of device
+    calls: `pairs` holds dicts of its arguments (xy1, xy2, cam1, cam2,
+    size1, size2, seed, mask, samples), all of one correspondence count
+    (a bucket) and all calibrated or none. Each pair draws from its own
+    seed's generator (F, H, then E, as one call does) unless `samples`
+    gives its draws; the results are one call's per pair (on the CPU bit
+    for bit; batched device reductions may round otherwise)."""
     opt = options or TwoViewGeometryOptions()
-    n = int(xy1.shape[0])
-    n_true = n if mask is None else int(np.asarray(mask).sum())
-    if n_true < opt.min_num_inliers:
-        return _degenerate(n)
-    xy1_np = np.asarray(xy1, np.float64)
-    xy2_np = np.asarray(xy2, np.float64)
-    t1 = torch.as_tensor(xy1_np, dtype=dtype, device=device)[None]
-    t2 = torch.as_tensor(xy2_np, dtype=dtype, device=device)[None]
-    mt = None if mask is None else torch.as_tensor(
-        np.asarray(mask, bool), device=device)[None]
-    calibrated = cam1_fxycxy is not None and cam2_fxycxy is not None
+    out = [None] * len(pairs)
+    live = []
+    for k, p in enumerate(pairs):
+        n = int(p["xy1"].shape[0])
+        m = p.get("mask")
+        if (n if m is None else int(np.asarray(m).sum())) \
+                < opt.min_num_inliers:
+            out[k] = _degenerate(n)
+        else:
+            live.append(k)
+    if not live:
+        return out
+    ps = [pairs[k] for k in live]
+    n = int(ps[0]["xy1"].shape[0])
+    xy1_np = [np.asarray(p["xy1"], np.float64) for p in ps]
+    xy2_np = [np.asarray(p["xy2"], np.float64) for p in ps]
+    t1 = torch.as_tensor(np.stack(xy1_np), dtype=dtype, device=device)
+    t2 = torch.as_tensor(np.stack(xy2_np), dtype=dtype, device=device)
+    has_mask = ps[0].get("mask") is not None
+    mt = torch.as_tensor(np.stack([np.asarray(p["mask"], bool) for p in ps]),
+                         device=device) if has_mask else None
+    calibrated = ps[0]["cam1"] is not None and ps[0]["cam2"] is not None
     ropt = RANSACOptions(
         max_error=opt.max_error, min_inlier_ratio=opt.min_inlier_ratio,
         confidence=opt.confidence, max_num_trials=opt.max_num_trials)
-    gen = torch.Generator(device=device).manual_seed(seed)
 
-    def draws(kind):
-        if samples is not None and kind in samples:
-            return torch.as_tensor(np.asarray(samples[kind]),
-                                   device=device).to(torch.int64)[None]
-        ssz = _KINDS[kind][0]
-        return draw_samples(n, num_required_trials(ssz, ropt), ssz,
-                            mask=mt, generator=gen, batch=(1,))
+    kinds = ("F", "H", "E") if calibrated else ("F", "H")
+    smp = {kind: [] for kind in kinds}
+    for b, p in enumerate(ps):
+        gen = torch.Generator(device=device).manual_seed(p["seed"])
+        for kind in kinds:
+            given = p.get("samples")
+            if given is not None and kind in given:
+                smp[kind].append(torch.as_tensor(np.asarray(
+                    given[kind]), device=device).to(torch.int64)[None])
+                continue
+            ssz = _KINDS[kind][0]
+            smp[kind].append(draw_samples(
+                n, num_required_trials(ssz, ropt), ssz,
+                mask=None if mt is None else mt[b:b + 1], generator=gen,
+                batch=(1,)))
+    smp = {kind: torch.cat(v) for kind, v in smp.items()}
 
-    repF = _run_kind("F", t1, t2, mt, None, None, opt, draws("F"))
-    repH = _run_kind("H", t1, t2, mt, None, None, opt, draws("H"))
-    host = lambda rep: (rep[0][0].cpu().numpy(), rep[1][0].cpu().numpy(),
-                        int(rep[2][0]))
+    def host(rep, b):
+        return (rep[0][b].cpu().numpy(), rep[1][b].cpu().numpy(),
+                int(rep[2][b]))
+
+    repF = [a.cpu() for a in _run_kind("F", t1, t2, mt, None, None, opt,
+                                        smp["F"])]
+    repH = [a.cpu() for a in _run_kind("H", t1, t2, mt, None, None, opt,
+                                        smp["H"])]
     repE = None
-    n1 = n2 = None
     if calibrated:
-        cams = torch.as_tensor(np.asarray([cam1_fxycxy, cam2_fxycxy],
-                                          np.float64),
-                               dtype=dtype, device=device)
-        out = _run_kind("E", t1, t2, mt, cams[0:1], cams[1:2], opt,
-                        draws("E"))
-        repE = host(out)
-        n1, n2 = out[3][0].cpu().numpy(), out[4][0].cpu().numpy()
-    return _finalize(
-        opt, calibrated, repE, host(repF), host(repH), xy1_np, xy2_np, n1, n2,
-        tuple(float(v) for v in cam1_fxycxy) if calibrated else None,
-        tuple(float(v) for v in cam2_fxycxy) if calibrated else None,
-        image_size1, image_size2)
+        c1 = torch.as_tensor(np.asarray([p["cam1"] for p in ps], np.float64),
+                             dtype=dtype, device=device)
+        c2 = torch.as_tensor(np.asarray([p["cam2"] for p in ps], np.float64),
+                             dtype=dtype, device=device)
+        repE = [a.cpu() for a in _run_kind("E", t1, t2, mt, c1, c2, opt,
+                                            smp["E"])]
+    for b, (k, p) in enumerate(zip(live, ps)):
+        out[k] = _finalize(
+            opt, calibrated, None if repE is None else host(repE, b),
+            host(repF, b), host(repH, b), xy1_np[b], xy2_np[b],
+            None if repE is None else repE[3][b].numpy(),
+            None if repE is None else repE[4][b].numpy(),
+            tuple(float(v) for v in p["cam1"]) if calibrated else None,
+            tuple(float(v) for v in p["cam2"]) if calibrated else None,
+            p["size1"], p["size2"])
+    return out
 
 
 def _finalize(opt, calibrated, repE, repF, repH, xy1, xy2, n1, n2,

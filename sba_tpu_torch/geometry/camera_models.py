@@ -183,17 +183,20 @@ def _newton_undistort(distortion_fn, extra, uv_distorted):
     """Solve uv + D(uv) = uv_distorted by Newton iteration (fixed trip
     count, closed-form 2x2 solves)."""
     x = uv_distorted
-    basis0 = torch.zeros_like(x)
-    basis0[..., 0] = 1.0
-    basis1 = torch.zeros_like(x)
-    basis1[..., 1] = 1.0
+    basis = torch.zeros((2,) + x.shape, dtype=x.dtype, device=x.device)
+    basis[0, ..., 0] = 1.0
+    basis[1, ..., 1] = 1.0
 
     def dist(p):
         return distortion_fn(extra, p)
 
+    # Both Jacobian columns from one jvp vmapped over the two tangents
+    # (each column's bits are those of its own jvp).
+    cols = torch.func.vmap(lambda p, t: torch.func.jvp(dist, (p,), (t,)),
+                           in_dims=(None, 0))
     for _ in range(_UNDISTORT_ITERS):
-        d, jcol0 = torch.func.jvp(dist, (x,), (basis0,))
-        _, jcol1 = torch.func.jvp(dist, (x,), (basis1,))
+        d, jac = cols(x, basis)
+        d, jcol0, jcol1 = d[0], jac[0], jac[1]
         f = x + d - uv_distorted
         j00 = 1.0 + jcol0[..., 0]
         j10 = jcol0[..., 1]

@@ -33,6 +33,10 @@ class Camera:
     def model_name(self) -> str:
         return camera_models.model_by_id(self.model_id).name
 
+    def mean_focal_length(self) -> float:
+        idxs = camera_models.model_by_id(self.model_id).focal_idxs
+        return float(np.mean([self.params[i] for i in idxs]))
+
 
 @dataclass
 class Image:

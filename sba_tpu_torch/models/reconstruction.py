@@ -1,9 +1,10 @@
 """Scene model: host `Reconstruction` container + dense `SceneArrays` view.
 
-Port of the part of ``sba_tpu/models/reconstruction.py`` that global
-bundle adjustment needs: construction and registration, reprojection
-errors, COLMAP IO and the dense view; and the observation deletion and
-negative-depth filter that semantic bundle adjustment runs first.
+Port of the part of ``sba_tpu/models/reconstruction.py`` that bundle
+adjustment and the incremental mapper need: construction, registration
+and deregistration, the observation and track edits (add, delete,
+merge), the statistics, reprojection errors, the point and image
+filters, COLMAP IO and the dense view.
 `Reconstruction` is a host-side dict container; `SceneArrays` is the
 dense struct-of-arrays numpy view the solvers consume.
 """
@@ -89,6 +90,17 @@ class Reconstruction:
         if image_id not in self.registered_image_ids:
             self.registered_image_ids.append(image_id)
 
+    def deregister_image(self, image_id: int):
+        """Remove all observations of an image and unregister it
+        (ref: reconstruction.cc DeRegisterImage)."""
+        im = self.images[image_id]
+        for idx, pid in enumerate(im.point3D_ids):
+            if pid != -1:
+                self._remove_observation(int(pid), image_id, idx)
+        im.point3D_ids = np.full_like(im.point3D_ids, -1)
+        if image_id in self.registered_image_ids:
+            self.registered_image_ids.remove(image_id)
+
     def is_registered(self, image_id: int) -> bool:
         return image_id in self.registered_image_ids
 
@@ -106,6 +118,13 @@ class Reconstruction:
         return pid
 
     # -- observation edits ------------------------------------------------
+
+    def add_observation(self, point3D_id: int, image_id: int,
+                        point2D_idx: int):
+        p = self.points3D[point3D_id]
+        p.image_ids = np.append(p.image_ids, np.int32(image_id))
+        p.point2D_idxs = np.append(p.point2D_idxs, np.int32(point2D_idx))
+        self.images[image_id].point3D_ids[point2D_idx] = point3D_id
 
     def _remove_observation(self, point3D_id: int, image_id: int,
                             point2D_idx: int):
@@ -136,6 +155,115 @@ class Reconstruction:
         for image_id, idx in zip(p.image_ids, p.point2D_idxs):
             self.images[int(image_id)].point3D_ids[int(idx)] = -1
 
+    def merge_points(self, pid1: int, pid2: int) -> Optional[int]:
+        """Merge two 3D points at their track-length-weighted mean
+        position into a new point (ref: reconstruction.cc MergePoints3D)."""
+        p1 = self.points3D.get(pid1)
+        p2 = self.points3D.get(pid2)
+        if p1 is None or p2 is None:
+            return None
+        n1, n2 = len(p1.image_ids), len(p2.image_ids)
+        xyz = (n1 * p1.xyz + n2 * p2.xyz) / (n1 + n2)
+        rgb = ((n1 * p1.rgb + n2 * p2.rgb) / (n1 + n2)).astype(np.uint8)
+        track = [(int(i), int(j))
+                 for i, j in zip(p1.image_ids, p1.point2D_idxs)]
+        track += [(int(i), int(j))
+                  for i, j in zip(p2.image_ids, p2.point2D_idxs)]
+        self.delete_point3d(pid1)
+        self.delete_point3d(pid2)
+        return self.add_point3d(xyz, track, rgb=rgb)
+
+    # -- statistics (ref: reconstruction.cc ComputeMean*) -----------------
+
+    def num_points3d(self) -> int:
+        return len(self.points3D)
+
+    def num_registered_images(self) -> int:
+        return len(self.registered_image_ids)
+
+    def compute_num_observations(self) -> int:
+        return sum(len(p.image_ids) for p in self.points3D.values())
+
+    def compute_mean_track_length(self) -> float:
+        if not self.points3D:
+            return 0.0
+        return self.compute_num_observations() / len(self.points3D)
+
+    def compute_mean_observations_per_reg_image(self) -> float:
+        n = self.num_registered_images()
+        return self.compute_num_observations() / n if n else 0.0
+
+    # -- filters (ref: reconstruction.cc FilterPoints3D*, FilterImages) ---
+
+    def filter_points_large_reprojection_error(self,
+                                               max_error_px: float) -> int:
+        """Delete observations with reprojection error above the threshold
+        or behind the camera; short tracks go with them (ref:
+        reconstruction.cc FilterPoints3DWithLargeReprojectionError)."""
+        max_sq = max_error_px * max_error_px
+        _pids, iids, idxs, err_sq, z = self._all_observation_errors()
+        bad = (z <= 0) | (err_sq > max_sq)
+        for image_id, idx in zip(iids[bad], idxs[bad]):
+            self.delete_observation(int(image_id), int(idx))
+        return int(bad.sum())
+
+    def filter_points_min_tri_angle(self, min_tri_angle_deg: float) -> int:
+        """Delete points whose largest pairwise triangulation angle over
+        the track is below the threshold; returns the observations
+        removed (ref: reconstruction.cc
+        FilterPoints3DWithSmallTriangulationAngle)."""
+        centers = {}
+        for iid in self.registered_image_ids:
+            im = self.images[iid]
+            q_inv = np.array([im.qvec[0], -im.qvec[1], -im.qvec[2],
+                              -im.qvec[3]])
+            centers[iid] = -np_quat_rotate(q_inv, im.tvec)
+        min_cos = np.cos(np.deg2rad(min_tri_angle_deg))
+        num_filtered = 0
+        for pid in list(self.points3D.keys()):
+            p = self.points3D.get(pid)
+            if p is None:
+                continue
+            rays = []
+            for image_id in p.image_ids:
+                c = centers.get(int(image_id))
+                if c is None:
+                    continue
+                r = p.xyz - c
+                n = np.linalg.norm(r)
+                if n > 1e-12:
+                    rays.append(r / n)
+            ok = any(abs(float(rays[i] @ rays[j])) < min_cos
+                     for i in range(len(rays))
+                     for j in range(i + 1, len(rays)))
+            if not ok:
+                num_filtered += len(p.image_ids)
+                self.delete_point3d(pid)
+        return num_filtered
+
+    def filter_images(self, min_focal_length_ratio: float = 0.1,
+                      max_focal_length_ratio: float = 10.0,
+                      max_extra_param: float = 100.0) -> list:
+        """Deregister images with degenerate intrinsics
+        (ref: reconstruction.cc FilterImages / camera HasBogusParams)."""
+        filtered = []
+        for iid in list(self.registered_image_ids):
+            im = self.images[iid]
+            cam = self.cameras[im.camera_id]
+            spec = camera_models.model_by_id(cam.model_id)
+            ratio_ok = True
+            for fi in spec.focal_idxs:
+                ratio = cam.params[fi] / max(cam.width, cam.height)
+                if not (min_focal_length_ratio < ratio
+                        < max_focal_length_ratio):
+                    ratio_ok = False
+            extra_ok = all(abs(cam.params[i]) <= max_extra_param
+                           for i in spec.extra_idxs)
+            if not (ratio_ok and extra_ok):
+                self.deregister_image(iid)
+                filtered.append(iid)
+        return filtered
+
     def filter_observations_with_negative_depth(self) -> int:
         """Delete observations whose point lies behind its camera; returns
         how many (ref: src/controllers/semantic_bundle_adjustment.cc:
@@ -163,27 +291,28 @@ class Reconstruction:
         numpy arrays; projection runs through the port's camera models
         on the CPU, one call per camera model.
         """
-        pids, iids, idxs, xyzs, xys = [], [], [], [], []
-        for pid, p in self.points3D.items():
-            for image_id, idx in zip(p.image_ids, p.point2D_idxs):
-                pids.append(pid)
-                iids.append(int(image_id))
-                idxs.append(int(idx))
-                xyzs.append(p.xyz)
-                xys.append(self.images[int(image_id)].xys[int(idx)])
-        if not pids:
+        pts = list(self.points3D.values())
+        lens = np.fromiter((len(p.image_ids) for p in pts), np.int64,
+                           len(pts))
+        if not lens.sum():
             z = np.zeros(0)
             return (np.zeros(0, np.int64), np.zeros(0, np.int64),
                     np.zeros(0, np.int64), z, z)
-        pids = np.asarray(pids, np.int64)
-        iids = np.asarray(iids, np.int64)
-        idxs = np.asarray(idxs, np.int64)
-        xyzs = np.stack(xyzs)
-        xys = np.stack(xys)
+        # Every observation in the order of the points, then of each
+        # track (sba_tpu's loop), gathered in bulk.
+        pids = np.repeat(np.fromiter(self.points3D.keys(), np.int64,
+                                     len(pts)), lens)
+        iids = np.concatenate([p.image_ids for p in pts]).astype(np.int64)
+        idxs = np.concatenate([p.point2D_idxs for p in pts]).astype(np.int64)
+        xyzs = np.repeat(np.stack([p.xyz for p in pts]), lens, axis=0)
+        xys = np.empty((len(iids), 2))
+        for i in np.unique(iids):
+            sel = iids == i
+            xys[sel] = self.images[int(i)].xys[idxs[sel]]
 
-        img_list = sorted({int(i) for i in iids})
-        row_of = {iid: k for k, iid in enumerate(img_list)}
-        rows = np.asarray([row_of[int(i)] for i in iids])
+        img_arr = np.unique(iids)
+        img_list = [int(i) for i in img_arr]
+        rows = np.searchsorted(img_arr, iids)
         Rts = np.stack([np_quat_to_rotmat(self.images[i].qvec)
                         for i in img_list])
         ts = np.stack([self.images[i].tvec for i in img_list])
@@ -193,13 +322,14 @@ class Reconstruction:
         uv = p_cam[:, :2] / safe_z[:, None]
 
         xy = np.empty_like(uv)
-        cam_of_img = {i: self.images[i].camera_id for i in img_list}
-        model_of = np.asarray(
-            [self.cameras[cam_of_img[int(i)]].model_id for i in iids])
+        cams = [self.cameras[self.images[i].camera_id] for i in img_list]
+        img_model = np.asarray([c.model_id for c in cams])
+        model_of = img_model[rows]
         for mid in np.unique(model_of):
             sel = model_of == mid
-            prm = np.stack([self.cameras[cam_of_img[int(i)]].params
-                            for i in iids[sel]])
+            grp = np.nonzero(img_model == mid)[0]
+            table = np.stack([np.asarray(cams[g].params) for g in grp])
+            prm = table[np.searchsorted(grp, rows[sel])]
             xy[sel] = camera_models.world_to_image(
                 int(mid), torch.from_numpy(prm),
                 torch.from_numpy(uv[sel])).numpy()
@@ -254,7 +384,6 @@ class Reconstruction:
         if image_ids is None:
             image_ids = list(self.registered_image_ids)
         image_ids = list(image_ids)
-        image_row = {iid: i for i, iid in enumerate(image_ids)}
 
         cam_ids = sorted({self.images[i].camera_id for i in image_ids})
         cam_row = {cid: i for i, cid in enumerate(cam_ids)}
@@ -273,25 +402,23 @@ class Reconstruction:
             p = self.cameras[c].params
             cam_params[cam_row[c], : len(p)] = p
 
-        pid_set = set()
-        for iid in image_ids:
-            for pid in self.images[iid].point3D_ids:
-                if pid != -1:
-                    pid_set.add(int(pid))
-        point_ids = sorted(pid_set)
-        point_row = {pid: i for i, pid in enumerate(point_ids)}
-        points = (np.stack([self.points3D[p].xyz for p in point_ids])
-                  if point_ids else np.zeros((0, 3)))
-
-        obs_image, obs_point, obs_xy = [], [], []
-        for iid in image_ids:
-            im = self.images[iid]
-            for idx in np.nonzero(im.point3D_ids != -1)[0]:
-                pid = int(im.point3D_ids[idx])
-                if pid in point_row:
-                    obs_image.append(image_row[iid])
-                    obs_point.append(point_row[pid])
-                    obs_xy.append(im.xys[idx])
+        # Every observed point, then every observation image by image in
+        # keypoint order (sba_tpu's loops), gathered in bulk.
+        tri = [np.nonzero(self.images[iid].point3D_ids != -1)[0]
+               for iid in image_ids]
+        obs_pid = (np.concatenate([self.images[iid].point3D_ids[t]
+                                   for iid, t in zip(image_ids, tri)])
+                   .astype(np.int64) if image_ids else np.zeros(0, np.int64))
+        point_ids = np.unique(obs_pid)
+        points = (np.stack([self.points3D[int(p)].xyz for p in point_ids])
+                  if len(point_ids) else np.zeros((0, 3)))
+        obs_image = np.repeat(np.arange(len(image_ids)),
+                              [len(t) for t in tri])
+        obs_point = np.searchsorted(point_ids, obs_pid)
+        obs_xy = (np.concatenate([np.asarray(self.images[iid].xys,
+                                             np.float64)[t]
+                                  for iid, t in zip(image_ids, tri)])
+                  if len(obs_pid) else np.zeros((0, 2)))
 
         return SceneArrays(
             image_ids=np.array(image_ids, dtype=np.int64),
@@ -301,12 +428,11 @@ class Reconstruction:
             camera_ids=np.array(cam_ids, dtype=np.int64),
             camera_model_ids=cam_model_ids,
             camera_params=cam_params,
-            point_ids=np.array(point_ids, dtype=np.int64),
+            point_ids=point_ids,
             points=np.asarray(points, dtype=np.float64),
             obs_image=np.array(obs_image, dtype=np.int32),
             obs_point=np.array(obs_point, dtype=np.int32),
-            obs_xy=(np.stack(obs_xy) if obs_xy
-                    else np.zeros((0, 2))).astype(np.float64),
+            obs_xy=obs_xy,
             image_names=[self.images[i].name for i in image_ids],
         )
 

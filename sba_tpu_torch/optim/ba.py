@@ -23,7 +23,9 @@ Port of the single-device part of ``sba_tpu/optim/ba.py``:
 path (optim/ba_fused.py: dense Schur up to 128 images, implicit PCG
 above), and everything else as sba_tpu does: the explicit step while its
 couplings fit EXPLICIT_SCHUR_MAX_BYTES, else the dense or the PCG step.
-The COO explicit step and the SPMD path are not ported yet.
+`pad_problem_pow2` pads the incremental mapper's problems to sba_tpu's
+power-of-two buckets, so that the solver route (judged on sizes) is
+sba_tpu's. The COO explicit step and the SPMD path are not ported yet.
 """
 
 from __future__ import annotations
@@ -36,7 +38,8 @@ import numpy as np
 import torch
 
 from sba_tpu_torch.geometry import camera_models
-from sba_tpu_torch.geometry.quaternions import quat_retract, quat_rotate
+from sba_tpu_torch.geometry.quaternions import (quat_normalize,
+                                                quat_retract, quat_rotate)
 from sba_tpu_torch.ops.ba_kernels import intrinsic_refine_mask
 from sba_tpu_torch.optim.losses import loss_value, loss_weight
 
@@ -96,6 +99,55 @@ def problem_to_numpy(problem: BAProblem) -> dict:
     """Inverse of `problem_from_numpy`: {field: numpy array or None}."""
     return {f: (None if v is None else v.detach().cpu().numpy())
             for f, v in problem._asdict().items()}
+
+
+def pad_problem_pow2(problem: BAProblem, min_images: int = 8,
+                     min_points: int = 64, min_obs: int = 256) -> BAProblem:
+    """Pad images, points and observations to power-of-two buckets, as
+    sba_tpu's incremental mapper does. The port compiles nothing per
+    shape; the padding keeps sba_tpu's solver route, since the explicit
+    step's byte limit and `dense_threshold` are judged on these sizes.
+    Padding rows are fully masked (obs_mask 0, free_* 0, identity poses);
+    padding observations are spread round-robin over all padded points,
+    and `image_cam` is recomputed over the padded table as sba_tpu's
+    `attach_gather_layouts` does."""
+
+    def pow2(n, lo):
+        return 1 << int(np.ceil(np.log2(max(n, lo))))
+
+    N = problem.qvecs.shape[0]
+    P = problem.points.shape[0]
+    O = problem.obs_image.shape[0]
+    Np, Pp, Op = pow2(N, min_images), pow2(P, min_points), pow2(O, min_obs)
+    if (Np, Pp, Op) == (N, P, O):
+        return problem
+    arr = problem_to_numpy(problem)
+
+    def padv(a, n, fill=0.0):
+        if a.shape[0] == n:
+            return a
+        return np.concatenate(
+            [a, np.full((n - a.shape[0],) + a.shape[1:], fill, a.dtype)])
+
+    qpad = np.tile(np.asarray([1.0, 0, 0, 0], arr["qvecs"].dtype),
+                   (Np - N, 1))
+    pad_op = (np.arange(Op - O) % Pp).astype(arr["obs_point"].dtype)
+    obs_image = padv(arr["obs_image"], Op)
+    obs_cam = padv(arr["obs_cam"], Op)
+    image_cam = np.zeros(Np, np.int32)
+    image_cam[obs_image] = obs_cam
+    out = dict(
+        qvecs=np.concatenate([arr["qvecs"], qpad]),
+        tvecs=padv(arr["tvecs"], Np), points=padv(arr["points"], Pp),
+        cam_params=arr["cam_params"], obs_image=obs_image,
+        obs_point=np.concatenate([arr["obs_point"], pad_op]),
+        obs_cam=obs_cam, obs_xy=padv(arr["obs_xy"], Op),
+        obs_mask=padv(arr["obs_mask"], Op),
+        free_rot=padv(arr["free_rot"], Np),
+        free_trans=padv(arr["free_trans"], Np),
+        free_points=padv(arr["free_points"], Pp),
+        free_cam=arr["free_cam"], image_cam=image_cam)
+    return problem_from_numpy(out, device=problem.points.device)
 
 
 @dataclass(frozen=True)
@@ -234,7 +286,8 @@ def _linearize(problem: BAProblem, opt: BAOptions):
     Returns r [O,2], (Jq, Jt, Jx, Jk) of shapes [O,2,3/3/3/12], already
     multiplied by the free-parameter masks and the sqrt IRLS weights.
     Each Jacobian column is one forward-mode derivative (jvp) of the
-    residual of the retracted local parametrization, at delta = 0.
+    residual of the retracted local parametrization, at delta = 0; the
+    columns come from one jvp vmapped over the one-hot tangents.
     """
     oi = problem.obs_image.long()
     q0 = problem.qvecs[oi]
@@ -244,20 +297,38 @@ def _linearize(problem: BAProblem, opt: BAOptions):
     xy = problem.obs_xy
     nparams = camera_models.model_by_id(opt.model_id).num_params
 
+    # q0 * exp(dq / 2) through q0's left-multiplication matrix and the
+    # first-order exp [1, dq / 2]: the same value and derivative at
+    # dq = 0 as `quat_retract` (whose Taylor branch it is there), in a
+    # few operations instead of ~40 under the forward-mode transform.
+    w, x, y, z = q0.unbind(-1)
+    L0 = torch.stack([torch.stack(r_, -1) for r_ in (
+        (w, -x, -y, -z), (x, w, -z, y), (y, z, w, -x), (z, -y, x, w))], -2)
+
     def residual(dq, dt, dx, dk):
-        return _project(quat_retract(q0, dq), t0 + dt, x0 + dx, k0 + dk,
-                        opt.model_id) - xy
+        qe = torch.cat([torch.ones_like(dq[..., :1]), 0.5 * dq], -1)
+        q = quat_normalize((L0 @ qe[..., None])[..., 0])
+        return _project(q, t0 + dt, x0 + dx, k0 + dk, opt.model_id) - xy
 
     primals = (torch.zeros_like(t0), torch.zeros_like(t0),
                torch.zeros_like(t0), torch.zeros_like(k0))
     r = residual(*primals)
-    cols = []
+    # All 9 + nparams columns in one forward-mode pass, vmapped over the
+    # one-hot tangents (each column's bits are those of its own jvp; one
+    # pass keeps the per-operation host cost of the transform once).
+    D = 9 + nparams
+    tangents = []
+    col = 0
     for arg, width in ((0, 3), (1, 3), (2, 3), (3, nparams)):
+        tg = torch.zeros((D,) + primals[arg].shape, dtype=r.dtype,
+                         device=r.device)
         for j in range(width):
-            tangents = [torch.zeros_like(p) for p in primals]
-            tangents[arg][:, j] = 1.0
-            cols.append(torch.func.jvp(residual, primals, tuple(tangents))[1])
-    J = torch.stack(cols, dim=-1)                          # [O, 2, 9+np]
+            tg[col + j, :, j] = 1.0
+        col += width
+        tangents.append(tg)
+    J = torch.func.vmap(
+        lambda *t: torch.func.jvp(residual, primals, t)[1])(*tangents)
+    J = J.permute(1, 2, 0)                                  # [O, 2, 9+np]
     Jq, Jt, Jx = J[..., 0:3], J[..., 3:6], J[..., 6:9]
     Jk = torch.zeros(J.shape[:2] + (MAXP,), dtype=J.dtype, device=J.device)
     Jk[..., :nparams] = J[..., 9:]

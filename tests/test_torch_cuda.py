@@ -1064,3 +1064,92 @@ def test_frontend_commands_on_card_match_cpu(cuda, tmp_path, monkeypatch):
 
 def T_(a):
     return torch.as_tensor(np.asarray(a, np.float32))
+
+
+def _ring_database(path):
+    """tests/test_incremental_mapper.py's 8-image scene (8 views on an
+    arc, 300 points, 0.3 px noise) written with the port's own modules."""
+    from sba_tpu_torch.geometry.quaternions import (np_quat_to_rotmat,
+                                                    np_rotmat_to_quat)
+    from sba_tpu_torch.io.database import Database
+
+    rng = np.random.default_rng(42)
+    f, w, h = 500.0, 640, 480
+    pts = rng.uniform(-2, 2, (300, 3))
+    pts[:, 2] *= 0.5
+    db = Database(str(path))
+    cid = db.write_camera(model_id=0, width=w, height=h,
+                          params=[f, w / 2, h / 2])
+    ids, vis = [], []
+    for k in range(8):
+        ang = 2 * np.pi * k / 8
+        c = np.array([4 * np.cos(ang), 4 * np.sin(ang), 2.0])
+        z = -c / np.linalg.norm(c)
+        x = np.cross(z, [0.0, 0.0, 1.0])
+        x /= np.linalg.norm(x)
+        R = np_quat_to_rotmat(np_rotmat_to_quat(np.stack(
+            [x, np.cross(z, x), z])))
+        pc = pts @ R.T - R @ c
+        xy = pc[:, :2] / pc[:, 2:] * f + [w / 2, h / 2]
+        xy += rng.normal(0, 0.3, xy.shape)
+        vis.append((pc[:, 2] > 0.5) & (xy[:, 0] > 0) & (xy[:, 0] < w)
+                   & (xy[:, 1] > 0) & (xy[:, 1] < h))
+        ids.append(db.write_image(f"img{k}.png", cid))
+        db.write_keypoints(ids[-1], np.concatenate(
+            [xy, np.ones_like(xy)], -1).astype(np.float32))
+    for a in range(8):
+        for b in range(a + 1, 8):
+            common = np.nonzero(vis[a] & vis[b])[0]
+            if len(common) >= 20:
+                db.write_two_view_geometry(
+                    ids[a], ids[b], np.stack([common, common], -1)
+                    .astype(np.uint32), config=2)
+    db.close()
+
+
+def _fixed_mapper_draws(kind, seed, n, trials, sample_size, mask):
+    from sba_tpu_torch.optim.ransac import draw_samples
+
+    g = torch.Generator().manual_seed(7919 * seed + ord(kind[0]))
+    return draw_samples(n, trials, sample_size,
+                        mask=torch.as_tensor(mask > 0), generator=g).numpy()
+
+
+def test_mapper_on_card_matches_cpu(cuda, tmp_path):
+    """The whole incremental mapper on the 8-image scene on the card and
+    on the CPU with the same draws: the same registrations and tracks,
+    poses and points within 1e-6 of the scene's scale."""
+    from sba_tpu_torch.io.database import Database
+    from sba_tpu_torch.io.database_cache import DatabaseCache
+    from sba_tpu_torch.sfm.controllers import (MapperControllerOptions,
+                                               reconstruct_incremental)
+
+    _ring_database(tmp_path / "db.db")
+    db = Database(str(tmp_path / "db.db"))
+    cache = DatabaseCache.create(db)
+    db.close()
+    opt = MapperControllerOptions()
+    opt.mapper.init_min_num_inliers = 50
+    opt.mapper.abs_pose_min_num_inliers = 15
+    recs = {}
+    for dev in ("cuda", "cpu"):
+        models = reconstruct_incremental(cache, opt, device=dev,
+                                         draw_fn=_fixed_mapper_draws)
+        assert len(models) == 1
+        recs[dev] = models[0]
+    a, b = recs["cuda"], recs["cpu"]
+    assert a.registered_image_ids == b.registered_image_ids
+    assert a.num_registered_images() == 8
+    assert list(a.points3D) == list(b.points3D)
+    c = np.stack([im.tvec for im in b.images.values()])
+    tol = 1e-6 * float(np.abs(c).max())
+    for iid in b.registered_image_ids:
+        np.testing.assert_allclose(a.images[iid].qvec, b.images[iid].qvec,
+                                   rtol=0, atol=tol)
+        np.testing.assert_allclose(a.images[iid].tvec, b.images[iid].tvec,
+                                   rtol=0, atol=tol)
+    for pid, p in b.points3D.items():
+        np.testing.assert_array_equal(a.points3D[pid].image_ids, p.image_ids)
+        np.testing.assert_allclose(a.points3D[pid].xyz, p.xyz, rtol=0,
+                                   atol=tol)
+    assert b.compute_mean_reprojection_error() < 1.0

@@ -59,12 +59,21 @@ def test_port_and_chip_smoke_import_without_jax():
                  "sba_tpu_torch.features.matching",
                  "sba_tpu_torch.features.sift",
                  "sba_tpu_torch.io.image_reader",
+                 "sba_tpu_torch.geometry.similarity",
+                 "sba_tpu_torch.estimators.absolute_pose",
+                 "sba_tpu_torch.estimators.pose",
+                 "sba_tpu_torch.io.database_cache",
+                 "sba_tpu_torch.sfm.visibility_pyramid",
+                 "sba_tpu_torch.sfm.incremental_triangulator",
+                 "sba_tpu_torch.sfm.incremental_mapper",
+                 "sba_tpu_torch.sfm.controllers",
                  "sba_tpu_torch.cli"):
         assert name in modules, name
     from sba_tpu_torch import cli
 
     for cmd in ("feature_extractor", "exhaustive_matcher",
-                "sequential_matcher"):
+                "sequential_matcher", "mapper", "point_triangulator",
+                "image_registrator", "automatic_reconstructor"):
         assert cmd in cli.COMMANDS, cmd
     res = subprocess.run(
         [sys.executable, "-c", _PROBE.format(root=str(ROOT),
