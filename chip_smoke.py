@@ -141,13 +141,45 @@ Needs one CUDA card and nvcc (found through torch's CUDA_HOME, else
                      their LM iterations, the wall's split into BA,
                      RANSAC and host, peak memory, the busy share;
 20. twins-mapper  -- the mapper's initial pair, first registration,
-                     triangulation and local BA on the card and the CPU
-                     with the same draws: inlier sets equal, poses within
-                     1e-8 of the baseline, local BA costs at rtol 1e-9;
+                     triangulation and local BA (TWIN_LOCAL_BA_IT LM
+                     iterations) on the card and the CPU with the same
+                     draws: inlier sets equal, poses within 1e-8 of the
+                     baseline, local BA costs at rtol 1e-9;
+20a. pose_graph_optimizer -- the command at its defaults (float32) on
+                     the mapper phase's model: its printed line, the
+                     poses within PG_GATES of the input's, MAPPER_GATES;
+20b. hierarchical -- `hierarchical_mapper` at its defaults but two
+                     leaves (HIER_FLAGS: 12 images a leaf, overlap 4) on
+                     the same database: the leaves, one merge and the
+                     seam relaxation; one model of all 24 views within
+                     MAPPER_GATES' pose gates (its reprojection error
+                     under the merge's 8 px bound), and within all of
+                     MAPPER_GATES after `bundle_adjuster`; the wall split
+                     into the leaves' mappers, merging and relaxing;
+                     then `model_merger` on the run's two leaf models
+                     (every common image merged);
 21. point_triangulator -- the command on the true poses over the
                      database's keypoints: the points on the heightfield;
 22. automatic_reconstructor -- `--dense 0` on 8 of the views (its own
                      extraction, matching and mapping) within MAPPER_GATES;
+22a. pose-graph   -- `pose_graph_from_reconstruction` on the 1024-image
+                     sequential scene's true model (noisy measurements),
+                     `optimize_pose_graph` from a drifted start in
+                     float32 on the card, SE3 with Huber then Sim3 with
+                     scale drift, at sba_tpu's defaults: the cost and the
+                     relative drift fall (PG_GATES), the final cost
+                     equals the float64 CPU solve's at rtol 1e-3; edges,
+                     LM and CG iterations, wall seconds;
+22b. rig          -- a 4-camera rig over 64 snapshots (256 x 1600x1200
+                     SIMPLE_RADIAL, 40,000 points) written as a COLMAP
+                     model with a JSON rig config, every image pose
+                     perturbed off the rig: `rig_bundle_adjuster` at its
+                     defaults on the card (model_id 2); the cost falls,
+                     the composed poses beat the perturbed ones by
+                     RIG_GATES' 0.2; GR6P between two snapshots (30%
+                     outliers) and the generalized absolute pose of one
+                     snapshot (10% outliers) on the card, against the
+                     truth;
 23. timing        -- per-kernel CUDA-event times (the stream sleeps
                      while the host enqueues the timed calls, so they are
                      the device's) against the twins, the
@@ -3091,6 +3123,7 @@ MAPPER_GATES = dict(max_reproj_px=1.0, max_ate_frac=0.05,
                     max_rel_rot_deg=1.0, min_points=1000)
 RING_RADIUS = 1.6         # utils/render.py::render_scene's default
 AUTO_VIEWS = 8            # views of the automatic_reconstructor phase
+TWIN_LOCAL_BA_IT = 10     # LM iterations of twins-mapper's local BA
 TRI_MAX_ERR_FRAC = 0.01   # point_triangulator: median height error / depth
 
 
@@ -3098,7 +3131,7 @@ def _scene_index(name):
     return int(re.search(r"view(\d+)\.png", name).group(1))
 
 
-def _model_gates(model_dir, scene, expect, tag):
+def _model_gates(model_dir, scene, expect, tag, gates=None):
     """The mapped model in `model_dir` against the scene's truth: all
     `expect` views registered, mean reprojection error, mean ATE of the
     camera centres after a similarity (umeyama) onto the true ones, the
@@ -3110,7 +3143,7 @@ def _model_gates(model_dir, scene, expect, tag):
     from sba_tpu_torch.geometry.similarity import umeyama
     from sba_tpu_torch.models.reconstruction import Reconstruction
 
-    g = MAPPER_GATES
+    g = MAPPER_GATES if gates is None else gates
     rec = Reconstruction.read(str(model_dir))
     ids = sorted(rec.images, key=lambda i: _scene_index(rec.images[i].name))
     ks = [_scene_index(rec.images[i].name) for i in ids]
@@ -3294,8 +3327,7 @@ def _twin_step(cache, dev, init):
             f"twins-mapper [{dev}]: the first registration failed")
     ntri = m.triangulate_image(nxt[0], opt.triangulator)
     out = m.adjust_local_bundle(nxt[0], opt.mapper, BAOptions(
-        max_iterations=opt.ba_local_max_num_iterations, loss="cauchy",
-        loss_scale=1.0))
+        max_iterations=TWIN_LOCAL_BA_IT, loss="cauchy", loss_scale=1.0))
     im = m.rec.images[nxt[0]]
     return dict(info=info, next=nxt[0], tri=ntri, q=im.qvec.copy(),
                 t=im.tvec.copy(), pids=im.point3D_ids.copy(),
@@ -3400,6 +3432,585 @@ def phase_automatic(scene, work):
                  "automatic_reconstructor")
 
 
+# ---------------------------------------------------------------------------
+# The mapper's second half: pose graph, hierarchical mapper, camera rigs
+# ---------------------------------------------------------------------------
+
+# The pose-graph scene: bench.py:195's 1024-image sequential scene (LARGE),
+# its covisibility graph at the truth (max_edges_per_image 10); each
+# measurement then perturbed by PG_MEAS_NOISE (rad, scene units, log
+# scale), so that the optimum's cost is not zero and the float32 solve
+# can be held against the float64 one at a relative tolerance. The start
+# drifts along the sequence: random walks of PG_DRIFT per image of the
+# rotation, the camera centre and (Sim3) the log scale; image 0 is the
+# gauge. The graph has no loop closure, so its low-frequency (bending)
+# modes are barely observed: 50 PCG iterations of the block-Jacobi
+# preconditioner (sba_tpu's default) do not carry a correction along
+# 1024 poses. The gates hold the relative drift (the consecutive relative
+# translations against the truth's) to a fall of min_rel_drift_drop; the
+# absolute drift (mean centre error) is printed, not gated. CPU probes at
+# 1024 images (float32 against float64, the same solves): the relative
+# drift fell 19x (SE3) and 20x (Sim3), the absolute drift rose 3.3x, the
+# final costs agreed at 1.5e-5 and 2.6e-4 relative; at 1e-4 noise the
+# unconverged remainder dominated the cost and Sim3's agreed at only
+# 2.5e-3. At 128 images with 300 PCG iterations the same solve reached
+# the truth (centres at 3e-13).
+PG_MEAS_NOISE = 3e-3
+PG_DRIFT = dict(rot=2e-3, center=0.02, log_scale=2e-3)
+PG_GATES = dict(min_rel_drift_drop=10.0, cost_rtol=1e-3,
+                cli_max_center_frac=1e-4, cli_max_rot_deg=1e-3)
+
+
+def _rec_from_observations(cameras, img_cam, qvecs, tvecs, names, points,
+                           obs_image, obs_point, obs_xy):
+    """A registered Reconstruction of images (rows) and points whose
+    tracks are the observations (rows of obs_*); points seen fewer than
+    twice are left out."""
+    import numpy as np
+
+    from sba_tpu_torch.io.colmap_models import Image
+    from sba_tpu_torch.models.reconstruction import Reconstruction
+
+    count = np.bincount(obs_point, minlength=len(points))
+    keep = count[obs_point] >= 2
+    oi, op, xy = obs_image[keep], obs_point[keep], obs_xy[keep]
+    order = np.lexsort((op, oi))
+    oi, op, xy = oi[order], op[order], xy[order]
+    starts = np.searchsorted(oi, np.arange(len(names) + 1))
+    kp = np.arange(len(oi)) - starts[oi]
+    rec = Reconstruction()
+    for cam in cameras:
+        rec.add_camera(cam)
+    for i, name in enumerate(names):
+        rows = slice(starts[i], starts[i + 1])
+        rec.add_image(Image(i + 1, qvecs[i].copy(), tvecs[i].copy(),
+                            int(img_cam[i]), name, xy[rows].copy(),
+                            np.full(starts[i + 1] - starts[i], -1,
+                                    np.int64)), registered=True)
+    by_point = np.argsort(op, kind="stable")
+    bounds = np.searchsorted(op[by_point], np.arange(len(points) + 1))
+    for p in np.nonzero(count >= 2)[0]:
+        rows = by_point[bounds[p]:bounds[p + 1]]
+        rec.add_point3d(points[p], list(zip((oi[rows] + 1).tolist(),
+                                            kp[rows].tolist())))
+    return rec
+
+
+def _drifts(q, t, log_s, truth):
+    """(relative, absolute) drift of Sim3 poses against the truth: the
+    mean error of the consecutive relative translations t_{i,i+1}, and
+    the mean camera centre error."""
+    import numpy as np
+    import torch
+
+    from sba_tpu_torch.optim.pose_graph import relative_pose
+
+    def rel(q_, t_, s_):
+        q_, t_, s_ = (torch.as_tensor(v) for v in (q_, t_, np.exp(s_)))
+        return relative_pose(q_[:-1], t_[:-1], q_[1:], t_[1:], s_[:-1],
+                             s_[1:])[1].numpy()
+
+    r = np.linalg.norm(rel(q, t, log_s) - rel(truth["qvecs"],
+                                              truth["tvecs"],
+                                              np.zeros(len(q))), axis=1)
+    a = np.linalg.norm(_centers(q, t, log_s)
+                       - _centers(truth["qvecs"], truth["tvecs"]), axis=1)
+    return float(np.mean(r)), float(np.mean(a))
+
+
+def _centers(q, t, log_s=None):
+    """Camera centres of world->camera poses (Sim3: x_cam = s R x + t)."""
+    import numpy as np
+
+    from sba_tpu_torch.geometry.quaternions import np_quat_rotate
+
+    qi = q * np.array([1.0, -1.0, -1.0, -1.0])
+    c = -np_quat_rotate(qi, t)
+    return c if log_s is None else c / np.exp(log_s)[:, None]
+
+
+def phase_pose_graph():
+    """`pose_graph_from_reconstruction` on the 1024-image sequential
+    scene's true model, then `optimize_pose_graph` in float32 on the card
+    from a drifted start: SE3 with Huber, then Sim3 with scale drift, at
+    sba_tpu's defaults (50 LM, 50 CG iterations). PG_GATES: the cost
+    falls, the relative drift against the truth falls by
+    min_rel_drift_drop, and the final cost equals the float64 CPU
+    solve's at cost_rtol."""
+    import numpy as np
+    import torch
+
+    from sba_tpu_torch.geometry.quaternions import (angle_axis_to_quat,
+                                                    np_quat_rotate,
+                                                    quat_multiply,
+                                                    quat_normalize)
+    from sba_tpu_torch.io.colmap_models import Camera
+    from sba_tpu_torch.optim.pose_graph import (PoseGraphOptions,
+                                                optimize_pose_graph,
+                                                pose_graph_from_reconstruction)
+    from sba_tpu_torch.utils.synthetic import make_sequential_ba_problem_numpy
+
+    def left_rotate(aa, q):
+        """exp(aa) * q, normalized (float64 on the host)."""
+        return quat_normalize(quat_multiply(
+            angle_axis_to_quat(torch.as_tensor(aa)),
+            torch.as_tensor(q))).numpy()
+
+    t = time.perf_counter()
+    fields, truth = make_sequential_ba_problem_numpy(**LARGE)
+    n = LARGE["num_images"]
+    valid = fields["obs_mask"] > 0
+    rec = _rec_from_observations(
+        [Camera(1, 0, 640, 480, np.array([500.0, 320.0, 240.0]))],
+        np.ones(n, np.int64), truth["qvecs"], truth["tvecs"],
+        [f"image{i:04d}.png" for i in range(n)], truth["points"],
+        fields["obs_image"][valid].astype(np.int64),
+        fields["obs_point"][valid].astype(np.int64),
+        fields["obs_xy"][valid])
+    t_rec = time.perf_counter() - t
+    c_true = _centers(truth["qvecs"], truth["tvecs"])
+    rng = np.random.default_rng(11)
+    for sim3 in (False, True):
+        tag = "Sim3" if sim3 else "SE3"
+        t = time.perf_counter()
+        prob64, _ = pose_graph_from_reconstruction(
+            rec, max_edges_per_image=10, sim3=sim3, dtype=torch.float64,
+            device="cpu")
+        t_graph = time.perf_counter() - t
+        e = prob64.edge_i.shape[0]
+        rel_q = left_rotate(rng.normal(0, PG_MEAS_NOISE, (e, 3)),
+                            prob64.rel_q)
+        rel_t = prob64.rel_t.numpy() + rng.normal(0, PG_MEAS_NOISE, (e, 3))
+        drift_q = np.cumsum(rng.normal(0, PG_DRIFT["rot"], (n, 3)), 0)
+        drift_c = np.cumsum(rng.normal(0, PG_DRIFT["center"], (n, 3)), 0)
+        drift_q[0] = drift_c[0] = 0.0
+        q0 = left_rotate(drift_q, truth["qvecs"])
+        ls0 = np.zeros(n)
+        if sim3:
+            ls0 = np.cumsum(rng.normal(0, PG_DRIFT["log_scale"], n))
+            ls0[0] = 0.0
+        t0 = -np.exp(ls0)[:, None] * np_quat_rotate(q0, c_true + drift_c)
+        rel_ls = (rng.normal(0, PG_MEAS_NOISE, e) if sim3
+                  else np.zeros(e))
+        drift0 = _drifts(q0, t0, ls0, truth)
+        opt = PoseGraphOptions(sim3=sim3, loss="huber")
+        costs, drift = {}, {}
+        for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+            start = dict(qvecs=q0, tvecs=t0, log_scales=ls0, rel_q=rel_q,
+                         rel_t=rel_t, rel_log_s=rel_ls)
+            prob = prob64._replace(**{k: torch.as_tensor(v) for k, v
+                                      in start.items()})
+            prob = prob._replace(**{
+                f: (v.to(dtype) if v.is_floating_point() else v).to(dev)
+                for f, v in prob._asdict().items()})
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            out, s = optimize_pose_graph(prob, opt)
+            c1 = float(s.final_cost)
+            wall = time.perf_counter() - t
+            costs[dev] = (float(s.initial_cost), c1)
+            drift[dev] = _drifts(*(v.double().cpu().numpy() for v in (
+                out.qvecs, out.tvecs, out.log_scales)), truth)
+            its = s.cg_iterations[:s.num_iterations].tolist()
+            log("pose-graph", f"{tag} [{dev}, {dtype}]: {n} poses, {e} edges "
+                f"(graph built in {t_graph:.2f} s), cost {costs[dev][0]:.6g}"
+                f" -> {c1:.6g} in {s.num_iterations} LM iterations, CG "
+                f"iterations per LM iteration {its}; drift (relative, "
+                f"absolute) {drift0[0]:.6f}, {drift0[1]:.5f} -> "
+                f"{drift[dev][0]:.6f}, {drift[dev][1]:.5f}; {wall:.2f} s wall")
+        rc = abs(costs["cuda"][1] - costs["cpu"][1]) / costs["cpu"][1]
+        drop = [drift0[k] / drift["cuda"][k] for k in (0, 1)]
+        log("pose-graph", f"{tag}: final cost card (float32) vs CPU "
+            f"(float64) rel {rc:.3g}; relative drift fell {drop[0]:.1f}x, "
+            f"absolute drift {drop[1]:.3f}x")
+        require(costs["cuda"][1] < costs["cuda"][0]
+                and drop[0] >= PG_GATES["min_rel_drift_drop"]
+                and rc <= PG_GATES["cost_rtol"],
+                f"pose-graph {tag}: outside PG_GATES: costs {costs}, drift "
+                f"{drift0} -> {drift}")
+    log("pose-graph", f"scene model built in {t_rec:.1f} s "
+        f"({rec.num_points3d()} points)")
+
+
+def phase_cli_pose_graph(scene, work):
+    """`pose_graph_optimizer` at its defaults on the mapper phase's model:
+    its printed line, the poses within PG_GATES (cli_*) of the input's
+    (a bundle-adjusted model is at its graph's optimum), MAPPER_GATES."""
+    import numpy as np
+
+    from sba_tpu_torch.geometry.quaternions import np_quat_to_rotmat
+    from sba_tpu_torch.models.reconstruction import Reconstruction
+
+    src = work / "sparse" / "0"
+    out, wall = _run_frontend_cli(
+        ["pose_graph_optimizer", "--input_path", str(src), "--output_path",
+         str(work / "pg")], "pose_graph_optimizer")
+    m = re.search(r"pose graph: (\d+) nodes, (\d+) edges, cost (\S+) -> "
+                  r"(\S+) in (\d+) iters", out)
+    require(m is not None, f"pose_graph_optimizer output:\n{out[-2000:]}")
+    a, b = Reconstruction.read(str(src)), Reconstruction.read(str(work / "pg"))
+    dc = max(float(np.linalg.norm(
+        _centers(a.images[i].qvec[None], a.images[i].tvec[None])
+        - _centers(b.images[i].qvec[None], b.images[i].tvec[None])))
+        for i in a.registered_image_ids)
+    dr = max(_rot_deg(np_quat_to_rotmat(a.images[i].qvec),
+                      np_quat_to_rotmat(b.images[i].qvec))
+             for i in a.registered_image_ids)
+    log("pose_graph_optimizer", f"{m.group(0)}; "
+        f"{out.strip().splitlines()[-1]}; {wall:.1f} s wall; poses moved "
+        f"by at most {dc:.3g} (centre) and {dr:.3g} deg")
+    require(dc <= PG_GATES["cli_max_center_frac"] * RING_RADIUS
+            and dr <= PG_GATES["cli_max_rot_deg"],
+            f"pose_graph_optimizer: poses moved {dc}, {dr} deg")
+    _model_gates(work / "pg", scene, FRONTEND_SCENE["num_images"],
+                 "pose_graph_optimizer")
+
+
+HIER_FLAGS = ("--SceneClustering.leaf_max_num_images", "12",
+              "--SceneClustering.image_overlap", "4")
+# sba_tpu's merge keeps points of up to 8 px (merge_reconstructions'
+# max_reproj_error) and its seam relaxation moves poses, not points: the
+# merged model is held to MAPPER_GATES' pose gates and this bound, and to
+# all of MAPPER_GATES after a global BA.
+HIER_MAX_REPROJ_PX = 8.0
+
+
+def phase_hierarchical(scene, work):
+    """`hierarchical_mapper` at its defaults (but HIER_FLAGS: two leaves
+    of 16 views) on the frontend phase's exhaustive database: its leaves,
+    one merge and the seam relaxation printed; one merged model of all 24
+    views within MAPPER_GATES' pose gates and HIER_MAX_REPROJ_PX, and
+    within all of MAPPER_GATES after `bundle_adjuster` (float64, the
+    SIMPLE_RADIAL model). Then `model_merger` on the two leaf models of
+    the same run: every image common to the leaves registered."""
+    from sba_tpu_torch.models.reconstruction import Reconstruction
+
+    out, wall = _run_frontend_cli(
+        ["hierarchical_mapper", "--database_path", str(work / "db.db"),
+         "--output_path", str(work / "hier"), "--leaf_output_path",
+         str(work / "leaves"), *HIER_FLAGS], "hierarchical_mapper")
+    leaves = re.findall(r"leaf (\d+): (\d+) images -> (\d+) models in (\S+) s",
+                        out)
+    m = re.search(r"hierarchical mapper: (\S+) s; leaves' mappers (\S+) s, "
+                  r"merging (\S+) s \((\d+) merges\), relaxing (\S+) s "
+                  r"\(relaxed: (\w+)\)", out)
+    require(m is not None and len(leaves) == 2,
+            f"hierarchical_mapper output:\n{out[-2000:]}")
+    log("hierarchical", f"{wall:.1f} s wall: leaves' mappers {m.group(2)} s "
+        f"({', '.join(f'{n} views -> {k} models in {s} s' for _, n, k, s in leaves)}), "
+        f"merging {m.group(3)} s ({m.group(4)} merges), relaxing "
+        f"{m.group(5)} s (relaxed: {m.group(6)})")
+    _mapper_stats(out, "hierarchical")
+    require(int(m.group(4)) >= 1 and m.group(6) == "True"
+            and not (work / "hier" / "1").exists(),
+            f"hierarchical: merges {m.group(4)}, relaxed {m.group(6)}")
+    n = FRONTEND_SCENE["num_images"]
+    _model_gates(work / "hier" / "0", scene, n, "hierarchical",
+                 dict(MAPPER_GATES, max_reproj_px=HIER_MAX_REPROJ_PX))
+    out, wall = _run_frontend_cli(
+        ["bundle_adjuster", "--input_path", str(work / "hier" / "0"),
+         "--output_path", str(work / "hier_ba"),
+         "--BundleAdjustment.model_id", "2"], "bundle_adjuster")
+    m = re.search(r"BA: cost \S+ -> \S+ in \d+ iters", out)
+    require(m is not None, f"bundle_adjuster output:\n{out[-2000:]}")
+    log("hierarchical", f"bundle_adjuster on the merged model: "
+        f"{m.group(0)}; {wall:.1f} s")
+    _model_gates(work / "hier_ba", scene, n, "hierarchical+BA")
+    paths = [work / "leaves" / str(k) for k in (0, 1)]
+    recs = [Reconstruction.read(str(p)) for p in paths]
+    names = [{r.images[i].name for i in r.registered_image_ids}
+             for r in recs]
+    out, wall = _run_frontend_cli(
+        ["model_merger", "--input_path1", str(paths[0]), "--input_path2",
+         str(paths[1]), "--output_path", str(work / "merged")],
+        "model_merger")
+    merged = Reconstruction.read(str(work / "merged"))
+    got = {merged.images[i].name for i in merged.registered_image_ids}
+    common = names[0] & names[1]
+    log("model_merger", f"{out.strip().splitlines()[-1]}; {wall:.2f} s; "
+        f"leaves of {len(names[0])} and {len(names[1])} views, "
+        f"{len(common)} common, merged {len(got)}")
+    require(len(common) >= 3 and common <= got
+            and got == names[0] | names[1],
+            f"model_merger: {sorted(got)} from {sorted(names[0])} and "
+            f"{sorted(names[1])}")
+
+
+# A 4-camera rig (a car's side cameras, two per side) over 64 snapshots
+# 0.5 apart along a 32-long street centred on the origin, 1600x1200
+# SIMPLE_RADIAL, 40,000 points on its two walls 6 away; every image pose
+# perturbed off the rig by a rotation of rot_noise rad and a camera
+# centre shift of trans_noise (a tvec perturbation, as
+# tests/test_camera_rig.py's scene near the origin takes, would move
+# the far cameras' centres by metres here), held to that test's 0.2
+# recovery factor in its measure (max quaternion + max tvec error).
+# GR6P's gates are the rotation and the translation's direction: its
+# scale rests on the few cross-camera correspondences of a 1-long move
+# past walls 6 away, and read 10-12% off in CPU probes at 16 snapshots
+# (rotation 0.14-0.16 deg); it is printed. The generalized absolute pose
+# read 0.0002-0.0003 deg and 3e-5 there.
+RIG_SCENE = dict(num_snapshots=64, num_points=40_000, image_size=(1600, 1200),
+                 focal=1200.0, k=-0.05, spacing=0.5, wall=6.0,
+                 pixel_noise=0.5, rot_noise=0.01, trans_noise=0.05, seed=7)
+RIG_GATES = dict(max_err_ratio=0.2, gr6p_max_rot_deg=0.5,
+                 gr6p_max_t_dir_deg=5.0, gr6p_outliers=0.3, gr6p_pairs=60,
+                 gp_max_rot_deg=0.05, gp_max_center=0.01, gp_outliers=0.1)
+
+
+def _look(d):
+    import numpy as np
+
+    z = np.asarray(d, np.float64) / np.linalg.norm(d)
+    x = np.cross(z, [0.0, 0.0, 1.0])
+    x /= np.linalg.norm(x)
+    return np.stack([x, np.cross(z, x), z])
+
+
+def _rig_scene():
+    """The rig scene's truth: per snapshot the rig (camera 1) pose, the
+    cameras' fixed poses relative to it, every camera's pose, the points,
+    and each camera's observations (pixels through SIMPLE_RADIAL with
+    noise, and the undistorted pixels of the same noise)."""
+    import numpy as np
+    import torch
+
+    from sba_tpu_torch.geometry import camera_models
+    from sba_tpu_torch.geometry.quaternions import (np_angle_axis_to_quat,
+                                                    np_quat_to_rotmat,
+                                                    np_rotmat_to_quat)
+
+    c = RIG_SCENE
+    rng = np.random.default_rng(c["seed"])
+    S, P = c["num_snapshots"], c["num_points"]
+    W, H = c["image_size"]
+    f = c["focal"]
+    dirs = [(0, 1, 0), (np.sin(0.6), np.cos(0.6), 0), (0, -1, 0),
+            (np.sin(0.6), -np.cos(0.6), 0)]
+    offsets = [np.zeros(3), np.array([0.8, 0.0, 0.0]),
+               np.array([0.0, 0.0, -1.6]), np.array([0.8, 0.0, -1.6])]
+    R_base = [_look(d) for d in dirs]
+    rel = []   # camera k from camera 0: (R, t)
+    for k in range(4):
+        Rr = R_base[k] @ R_base[0].T
+        rel.append((Rr, -Rr @ offsets[k]))
+    half = S * c["spacing"] / 2
+    pts = np.stack([rng.uniform(-half - 6, half + 6, P),
+                    np.where(rng.uniform(size=P) < 0.5, 1, -1)
+                    * (c["wall"] + rng.uniform(-0.5, 0.5, P)),
+                    rng.uniform(-1.5, 2.5, P)], 1)
+    poses = np.zeros((S, 4, 7))
+    rig = np.zeros((S, 7))
+    params = np.array([f, W / 2, H / 2, c["k"]])
+    obs = {k: [] for k in ("snap", "cam", "point", "dist", "pin")}
+    for s in range(S):
+        center = np.array([(s - S / 2) * c["spacing"], 0.1 * rng.normal(),
+                           0.05 * rng.normal()])
+        R0 = R_base[0] @ np_quat_to_rotmat(np_angle_axis_to_quat(
+            rng.normal(0, 0.01, 3)))
+        t0 = -R0 @ center
+        rig[s] = np.concatenate([np_rotmat_to_quat(R0), t0])
+        for k, (Rr, tr) in enumerate(rel):
+            R, t = Rr @ R0, Rr @ t0 + tr
+            poses[s, k] = np.concatenate([np_rotmat_to_quat(R), t])
+            pc = pts @ R.T + t
+            z = pc[:, 2]
+            uv = pc[:, :2] / np.maximum(z, 1e-9)[:, None]
+            noise = rng.normal(0, c["pixel_noise"], uv.shape)
+            dist = camera_models.world_to_image(
+                2, torch.as_tensor(params), torch.as_tensor(uv)).numpy() \
+                + noise
+            ok = np.nonzero((z > 0.5) & (dist[:, 0] >= 0) & (dist[:, 0] < W)
+                            & (dist[:, 1] >= 0) & (dist[:, 1] < H))[0]
+            for key, val in (("snap", np.full(len(ok), s)),
+                             ("cam", np.full(len(ok), k)), ("point", ok),
+                             ("dist", dist[ok]),
+                             ("pin", uv[ok] * f + [W / 2, H / 2]
+                              + noise[ok])):
+                obs[key].append(val)
+    obs = {k: np.concatenate(v) for k, v in obs.items()}
+    return dict(rig=rig, rel=rel, poses=poses, points=pts, obs=obs,
+                params=params)
+
+
+def _rig_pose_err(q, t, q_gt, t_gt):
+    """tests/test_camera_rig.py's measure: max quaternion difference (up
+    to sign) + max translation difference."""
+    import numpy as np
+
+    qe = np.minimum(np.abs(q - q_gt), np.abs(q + q_gt)).max()
+    return float(qe + np.abs(t - t_gt).max())
+
+
+def phase_rig():
+    """The rig scene written as a COLMAP model (every image pose perturbed
+    off the rig) with a JSON rig config, `rig_bundle_adjuster` at its
+    defaults on the card (the SIMPLE_RADIAL model named by
+    `--BundleAdjustment.model_id 2`): the cost falls and the composed
+    poses beat the perturbed ones by RIG_GATES' ratio. Then GR6P
+    (`estimate_snapshot_relative_pose`) on two snapshots 2 apart with 30%
+    outliers and `estimate_generalized_absolute_pose` on one snapshot
+    (10% outliers), both on the card, against the truth."""
+    import numpy as np
+    import torch
+
+    from sba_tpu_torch.estimators.generalized_pose import (
+        estimate_generalized_absolute_pose, refine_generalized_absolute_pose)
+    from sba_tpu_torch.geometry.quaternions import (np_angle_axis_to_quat,
+                                                    np_quat_rotate,
+                                                    np_quat_to_rotmat,
+                                                    np_rotmat_to_quat)
+    from sba_tpu_torch.io.colmap_models import Camera
+    from sba_tpu_torch.models.camera_rig import (
+        CameraRig, estimate_snapshot_relative_pose)
+    from sba_tpu_torch.models.reconstruction import Reconstruction
+    from sba_tpu_torch.ops import cuda_build
+
+    t = time.perf_counter()
+    sc = _rig_scene()
+    c = RIG_SCENE
+    S = c["num_snapshots"]
+    W, H = c["image_size"]
+    rng = np.random.default_rng(c["seed"] + 1)
+    gt = sc["poses"].reshape(S * 4, 7)          # row = 4 s + k
+    q_n = np.stack([np_rotmat_to_quat(np_quat_to_rotmat(q) @ np_quat_to_rotmat(
+        np_angle_axis_to_quat(a))) for q, a in zip(
+            gt[:, :4], rng.normal(0, c["rot_noise"], (S * 4, 3)))])
+    c_n = _centers(gt[:, :4], gt[:, 4:]) + rng.normal(
+        0, c["trans_noise"], (S * 4, 3))
+    t_n = -np_quat_rotate(q_n, c_n)
+    o = sc["obs"]
+    rec = _rec_from_observations(
+        [Camera(k + 1, 2, W, H, sc["params"]) for k in range(4)],
+        np.tile(np.arange(1, 5), S), q_n, t_n,
+        [f"cam{k}/snap{s:03d}.png" for s in range(S) for k in range(4)],
+        sc["points"], 4 * o["snap"] + o["cam"], o["point"], o["dist"])
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="rig_", dir=cuda_build.BUILD_DIR))
+    try:
+        rec.write(str(work / "model"))
+        with open(work / "rig.json", "w") as fh:
+            json.dump([{"ref_camera_id": 1, "cameras": [
+                {"camera_id": k + 1, "image_prefix": f"cam{k}/"}
+                for k in range(4)]}], fh)
+        n_obs = rec.compute_num_observations()
+        log("rig", f"scene: {S} snapshots x 4 cameras of {W}x{H} "
+            f"SIMPLE_RADIAL, {rec.num_points3d()} points, {n_obs} "
+            f"observations; built and written in "
+            f"{time.perf_counter() - t:.1f} s")
+        out, wall = _run_frontend_cli(
+            ["rig_bundle_adjuster", "--input_path", str(work / "model"),
+             "--output_path", str(work / "out"), "--rig_config_path",
+             str(work / "rig.json"), "--BundleAdjustment.model_id", "2"],
+            "rig_bundle_adjuster")
+        m = re.search(r"rig BA: (\d+) snapshots, cost (\S+) -> (\S+) in (\d+) "
+                      r"iterations \((\d+) accepted\), (\S+) s", out)
+        require(m is not None and f"Camera Rig: 4 cameras, {S} snapshots" in out,
+                f"rig_bundle_adjuster output:\n{out[-2000:]}")
+        res = Reconstruction.read(str(work / "out"))
+        ids = sorted(res.images)
+        q = np.stack([res.images[i].qvec for i in ids])
+        tt = np.stack([res.images[i].tvec for i in ids])
+        before = _rig_pose_err(q_n, t_n, gt[:, :4], gt[:, 4:])
+        after = _rig_pose_err(q, tt, gt[:, :4], gt[:, 4:])
+        log("rig", f"rig_bundle_adjuster: {m.group(1)} snapshots, cost "
+            f"{m.group(2)} -> {m.group(3)} in {m.group(4)} iterations "
+            f"({m.group(5)} accepted), {m.group(6)} s of solve, {wall:.1f} s "
+            f"wall; pose error {before:.5f} -> {after:.5f} "
+            f"({after / before:.3f} of it)")
+        require(float(m.group(3)) < float(m.group(2))
+                and after < RIG_GATES["max_err_ratio"] * before,
+                f"rig: cost {m.group(2)} -> {m.group(3)}, pose error "
+                f"{before} -> {after}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # GR6P between snapshots a and b = a + 2 (pinhole pixels), each
+    # point through a camera drawn among those that see it in a, and in b
+    # through another camera where one sees it (the rig's cross-camera
+    # tracks, which observe the scale of its motion).
+    f = c["focal"]
+    a, b = S // 2, S // 2 + 2
+    rig = CameraRig(ref_camera_id=1)
+    for k, (Rr, tr) in enumerate(sc["rel"]):
+        rig.add_camera(k + 1, np_rotmat_to_quat(Rr), tr)
+    cams = {k + 1: (f, f, W / 2, H / 2) for k in range(4)}
+    seen = {a: {}, b: {}}
+    for j in np.nonzero((o["snap"] == a) | (o["snap"] == b))[0]:
+        seen[o["snap"][j]].setdefault(o["point"][j], []).append(
+            (o["cam"][j] + 1, o["pin"][j]))
+    both = sorted(set(seen[a]) & set(seen[b]))
+    pick = rng.choice(len(both), RIG_GATES["gr6p_pairs"], replace=False)
+    obs1 = [seen[a][both[i]][rng.integers(len(seen[a][both[i]]))]
+            for i in pick]
+    obs2 = []
+    for i, x in zip(pick, obs1):
+        other = [v for v in seen[b][both[i]] if v[0] != x[0]]
+        v = other or seen[b][both[i]]
+        obs2.append(v[rng.integers(len(v))])
+    cross = sum(x[0] != y[0] for x, y in zip(obs1, obs2))
+    n_out = int(RIG_GATES["gr6p_outliers"] * len(pick))
+    for j in range(n_out):
+        obs2[j] = (obs2[j][0], rng.uniform([0, 0], [W, H]))
+    Ra, ta = np_quat_to_rotmat(sc["rig"][a, :4]), sc["rig"][a, 4:]
+    Rb, tb = np_quat_to_rotmat(sc["rig"][b, :4]), sc["rig"][b, 4:]
+    R_true = Rb @ Ra.T
+    t_true = tb - R_true @ ta
+    t0 = time.perf_counter()
+    rep = estimate_snapshot_relative_pose(
+        rig, cams, obs1, obs2, device="cuda",
+        generator=torch.Generator().manual_seed(0))
+    g_wall = time.perf_counter() - t0
+    rot = _rot_deg(rep.R, R_true)
+    tdir = float(np.degrees(np.arccos(np.clip(
+        rep.t @ t_true / max(np.linalg.norm(rep.t) * np.linalg.norm(t_true),
+                             1e-30), -1.0, 1.0))))
+    scale = float(np.linalg.norm(rep.t) / np.linalg.norm(t_true))
+    log("rig", f"GR6P on snapshots {a}, {b}: {len(pick)} "
+        f"correspondences ({cross} across cameras, {n_out} outliers): "
+        f"{rep.num_inliers} inliers "
+        f"({int(rep.inlier_mask[:n_out].sum())} of the outliers), rotation "
+        f"error {rot:.4f} deg, translation direction error {tdir:.4f} deg, "
+        f"|t| / |t_true| {scale:.4f}; {g_wall:.2f} s")
+    require(rep.success and rot < RIG_GATES["gr6p_max_rot_deg"]
+            and tdir < RIG_GATES["gr6p_max_t_dir_deg"],
+            f"rig: GR6P rotation {rot} deg, translation direction {tdir} deg")
+
+    # The generalized absolute pose of snapshot b (normalized coordinates).
+    b = S // 4
+    sel = np.nonzero(o["snap"] == b)[0]
+    p3 = sc["points"][o["point"][sel]]
+    p2 = (o["pin"][sel] - [W / 2, H / 2]) / f
+    bad = rng.choice(len(sel), int(RIG_GATES["gp_outliers"] * len(sel)),
+                     replace=False)
+    p2[bad] += rng.uniform(0.05, 0.2, (len(bad), 2))
+    cc = o["cam"][sel]
+    rq = np.stack([np_rotmat_to_quat(Rr) for Rr, _ in sc["rel"]])
+    rt = np.stack([tr for _, tr in sc["rel"]])
+    dev = [torch.as_tensor(x, device="cuda") for x in (p3, p2, cc, rq, rt)]
+    t0 = time.perf_counter()
+    gp = estimate_generalized_absolute_pose(
+        *dev, generator=torch.Generator("cuda").manual_seed(0))
+    qr, tr_ = refine_generalized_absolute_pose(
+        gp.qvec, gp.tvec, *dev, weights=gp.inlier_mask.double())
+    torch.cuda.synchronize()
+    p_wall = time.perf_counter() - t0
+    q_est, t_est = qr.cpu().numpy(), tr_.cpu().numpy()
+    rot = _rot_deg(np_quat_to_rotmat(q_est), np_quat_to_rotmat(sc["rig"][b, :4]))
+    cerr = float(np.linalg.norm(
+        _centers(q_est[None], t_est[None])
+        - _centers(sc["rig"][b, None, :4], sc["rig"][b, None, 4:])))
+    inl = gp.inlier_mask.cpu().numpy()
+    log("rig", f"generalized absolute pose of snapshot {b}: {len(sel)} "
+        f"correspondences over 4 cameras ({len(bad)} outliers), "
+        f"{int(inl.sum())} inliers ({int(inl[bad].sum())} of the outliers); "
+        f"rotation error {rot:.5f} deg, centre error {cerr:.5f}; "
+        f"{p_wall:.2f} s")
+    require(rot < RIG_GATES["gp_max_rot_deg"]
+            and cerr < RIG_GATES["gp_max_center"] and not inl[bad].any(),
+            f"rig: generalized pose rotation {rot} deg, centre {cerr}")
+
+
 def phase_timing_sift():
     """map_gather at SIFT's index law (the first launch of one 1600x1200
     batch of 8, phase twins-frontend) against its plain version and
@@ -3472,12 +4083,16 @@ def main() -> int:
     try:
         init = run("mapper", phase_mapper, fe_scene, fe_work)
         run("twins-mapper", phase_twins_mapper, fe_work, init)
+        run("pose-graph", phase_cli_pose_graph, fe_scene, fe_work)
+        run("hierarchical", phase_hierarchical, fe_scene, fe_work)
         run("point_triangulator", phase_point_triangulator, fe_scene,
             fe_work)
         run("automatic_reconstructor", phase_automatic, fe_scene, fe_work)
     finally:
         shutil.rmtree(fe_work, ignore_errors=True)
     del fe_scene
+    run("pose-graph", phase_pose_graph)
+    run("rig", phase_rig)
     rows = run("timing", phase_timing, ctx, launches, errs)
     rows.update(run("timing", phase_timing_implicit, ctx_i, launches_i,
                     errs, k3_per_it))

@@ -1,7 +1,8 @@
 """`colmap`-style command line of the port: the database commands,
-the front end (features, matching, verification), the incremental
-mapper and its commands, global BA, semantic
-and geometric-semantic BA, and the dense chain.
+the front end (features, matching, verification), the incremental and
+hierarchical mappers and their commands, the pose graph, model merging,
+global and rig BA, semantic and geometric-semantic BA, and the dense
+chain.
 
     python -m sba_tpu_torch.cli database_creator --database_path db.db
     python -m sba_tpu_torch.cli database_cleaner --database_path db.db \
@@ -20,6 +21,16 @@ and geometric-semantic BA, and the dense chain.
         --input_path sparse/0 --output_path reg/
     python -m sba_tpu_torch.cli automatic_reconstructor \
         --workspace_path ws/ --image_path imgs/ [--dense 0]
+    python -m sba_tpu_torch.cli hierarchical_mapper --database_path db.db \
+        --output_path sparse/ [--SceneClustering.leaf_max_num_images 500] \
+        [--SceneClustering.image_overlap 50] [--leaf_output_path leaves/]
+    python -m sba_tpu_torch.cli model_merger --input_path1 sparse/0 \
+        --input_path2 other/0 --output_path merged/
+    python -m sba_tpu_torch.cli pose_graph_optimizer --input_path sparse/0 \
+        --output_path relaxed/ [--PoseGraph.sim3 0] [--PoseGraph.loss huber]
+    python -m sba_tpu_torch.cli rig_bundle_adjuster --input_path sparse/0 \
+        --output_path rig/ --rig_config_path rig.json \
+        [--BundleAdjustment.model_id 2]
     python -m sba_tpu_torch.cli bundle_adjuster --input_path sparse/0 \
         --output_path ba/ [--device cuda] [--BundleAdjustment.dtype float32]
     python -m sba_tpu_torch.cli semantic_bundle_adjuster \
@@ -47,7 +58,11 @@ launches, and the matchers print their match / verify / host seconds.
 ``--SiftExtraction.use_gpu 0`` and ``--SiftMatching.use_gpu 0`` ask for
 the CPU, as ``--device cpu`` does. The mapper commands run their RANSACs
 and bundle adjustments (float64) on the device and print, besides
-sba_tpu's lines, their seconds in BA, in RANSAC and on the host.
+sba_tpu's lines, their seconds in BA, in RANSAC and on the host;
+hierarchical_mapper also splits its wall into the leaves' mappers,
+merging and the seam relaxation (a float64 pose graph on the device).
+pose_graph_optimizer solves in float32 and rig_bundle_adjuster in
+float64 on the device; model_merger is host work.
 ``automatic_reconstructor --dense 1`` raises: its chain ends in the
 meshers, which are not ported yet.
 """
@@ -479,6 +494,14 @@ def run_mapper(flags):
         callback=lambda ev, info: (print(f"  [{ev}] {info}"), True)[1],
         device=device, mappers=mappers)
     wall = time.perf_counter() - t0
+    _write_models(models, output_path)
+    _print_mapper_stats(mappers, wall, device)
+    if not models:
+        print("reconstruction failed: no model")
+        raise SystemExit(1)
+
+
+def _write_models(models, output_path):
     os.makedirs(output_path, exist_ok=True)
     for k, rec in enumerate(models):
         out = os.path.join(output_path, str(k))
@@ -486,10 +509,191 @@ def run_mapper(flags):
         rec.write(out)
         print(f"model {k}: {rec.num_registered_images()} images, "
               f"{rec.num_points3d()} points -> {out}")
-    _print_mapper_stats(mappers, wall, device)
+
+
+def run_hierarchical_mapper(flags):
+    """Cluster -> per-leaf mapping -> merge -> seam relaxation
+    (ref: exe/sfm.cc:326 RunHierarchicalMapper). Prints sba_tpu's model
+    lines, then the leaves, the mappers' account (as `mapper`) and the
+    wall split into the leaves' mappers, merging and relaxing.
+    `--leaf_output_path DIR` also writes each leaf's models, as its
+    mapper left them, to DIR/0, DIR/1, ..."""
+    from sba_tpu_torch.sfm.hierarchical_mapper import (
+        HierarchicalMapperOptions, reconstruct_hierarchical)
+
+    db_path, output_path = _require(flags, "database_path", "output_path")
+    device = _device(flags)
+    opt = HierarchicalMapperOptions()
+    opt.clustering = apply_flags(opt.clustering, "SceneClustering", flags)
+    opt.mapper.mapper = apply_flags(opt.mapper.mapper, "Mapper", flags)
+    leaf_path = flags.get("leaf_output_path") or None
+    t0 = time.perf_counter()
+    cache = _load_cache(db_path)
+    stats = {}
+    leaf_models = [] if leaf_path else None
+    models = reconstruct_hierarchical(cache, opt, device=device, stats=stats,
+                                      leaf_models=leaf_models)
+    wall = time.perf_counter() - t0
+    _write_models(models, output_path)
+    if leaf_path:
+        for k, rec in enumerate(leaf_models):
+            out = os.path.join(leaf_path, str(k))
+            os.makedirs(out, exist_ok=True)
+            rec.write(out)
+    for k, (n_img, n_models, sec) in enumerate(stats["leaves"]):
+        print(f"leaf {k}: {n_img} images -> {n_models} models in "
+              f"{sec:.3f} s")
+    _print_mapper_stats(stats["mappers"], stats["map_s"], device)
+    print(f"hierarchical mapper: {wall:.3f} s; leaves' mappers "
+          f"{stats['map_s']:.3f} s, merging {stats['merge_s']:.3f} s "
+          f"({stats['merges']} merges), relaxing {stats['relax_s']:.3f} s "
+          f"(relaxed: {stats['relaxed']}) [{device}]")
     if not models:
-        print("reconstruction failed: no model")
         raise SystemExit(1)
+
+
+def run_pose_graph_optimizer(flags):
+    """SE(3)/Sim(3) pose-graph relaxation over the covisibility graph of
+    a model (sba_tpu's extension; COLMAP has no pose-graph command).
+    Flags: --input_path --output_path [--PoseGraph.min_common_points 15]
+    [--PoseGraph.max_iterations 50] [--PoseGraph.sim3 0]
+    [--PoseGraph.loss huber] [--PoseGraph.loss_scale 1.0]. The problem
+    is float32 (sba_tpu's `make_problem` default), solved on the device;
+    besides sba_tpu's line the command prints its wall seconds and the
+    PCG iterations of each LM iteration."""
+    from sba_tpu_torch.models.reconstruction import Reconstruction
+    from sba_tpu_torch.optim.pose_graph import (
+        PoseGraphOptions, apply_pose_graph_result, optimize_pose_graph,
+        pose_graph_from_reconstruction)
+
+    input_path, output_path = _require(flags, "input_path", "output_path")
+    device = _device(flags)
+    rec = Reconstruction.read(input_path)
+    min_common = int(flags.get("PoseGraph.min_common_points", "15"))
+    sim3 = flags.get("PoseGraph.sim3", "0") in ("1", "true", "True")
+    opt = PoseGraphOptions(
+        max_iterations=int(flags.get("PoseGraph.max_iterations", "50")),
+        sim3=sim3,
+        loss=flags.get("PoseGraph.loss", "huber"),
+        loss_scale=float(flags.get("PoseGraph.loss_scale", "1.0")))
+    t0 = time.perf_counter()
+    problem, img_ids = pose_graph_from_reconstruction(
+        rec, min_common_points=min_common, sim3=sim3, device=device)
+    out, s = optimize_pose_graph(problem, opt)
+    apply_pose_graph_result(rec, out, img_ids)
+    wall = time.perf_counter() - t0
+    os.makedirs(output_path, exist_ok=True)
+    rec.write(output_path)
+    print(f"pose graph: {len(img_ids)} nodes, "
+          f"{int(s.num_residuals)} edges, cost "
+          f"{float(s.initial_cost):.6g} -> {float(s.final_cost):.6g} "
+          f"in {int(s.num_iterations)} iters")
+    print(f"pose graph: {wall:.3f} s, CG iterations per LM iteration "
+          f"{s.cg_iterations[:s.num_iterations].tolist()} [{device}]")
+
+
+def run_model_merger(flags):
+    """Merge two models sharing common images (ref: exe/model.cc
+    RunModelMerger). The alignment and the merge are host work; the
+    command takes --device as the others do."""
+    from sba_tpu_torch.models.reconstruction import Reconstruction
+    from sba_tpu_torch.sfm.hierarchical_mapper import merge_reconstructions
+
+    input_path1, input_path2, output_path = _require(
+        flags, "input_path1", "input_path2", "output_path")
+    _device(flags)
+    rec1 = Reconstruction.read(input_path1)
+    rec2 = Reconstruction.read(input_path2)
+    if not merge_reconstructions(rec1, rec2):
+        raise SystemExit("merge failed: < 3 common registered images")
+    os.makedirs(output_path, exist_ok=True)
+    rec1.write(output_path)
+    print(f"merged: {rec1.num_registered_images()} images, "
+          f"{rec1.num_points3d()} points -> {output_path}")
+
+
+def run_rig_bundle_adjuster(flags):
+    """Rig-constrained bundle adjustment (ref: exe/sfm.cc:728
+    RunRigBundleAdjuster; --rig_config_path a JSON list of rigs, each
+    with ref_camera_id and cameras of camera_id and image_prefix; images
+    are grouped into snapshots by their names with the prefix
+    stripped). The solve runs in float64 on the device; besides
+    sba_tpu's lines the command prints its cost, iterations and wall
+    seconds."""
+    from sba_tpu_torch.models.camera_rig import (CameraRig,
+                                                 rig_bundle_adjust)
+    from sba_tpu_torch.models.reconstruction import Reconstruction
+    from sba_tpu_torch.optim.ba import BAOptions, build_problem
+
+    input_path, output_path, rig_config_path = _require(
+        flags, "input_path", "output_path", "rig_config_path")
+    device = _device(flags)
+    rec = Reconstruction.read(input_path)
+    with open(rig_config_path) as f:
+        config = json.load(f)
+
+    arrays = rec.to_arrays()
+    row_of = {int(iid): r for r, iid in enumerate(arrays.image_ids)}
+    n_img = arrays.num_images
+    snap_ids = np.full(n_img, -1, np.int64)
+    cam_qs = np.tile(np.array([1.0, 0, 0, 0]), (n_img, 1))
+    cam_ts = np.zeros((n_img, 3))
+    n_snaps = 0
+    for rig_cfg in config:
+        rig = CameraRig(ref_camera_id=int(rig_cfg["ref_camera_id"]))
+        prefix_of = {}
+        for cam_cfg in rig_cfg["cameras"]:
+            rig.add_camera(int(cam_cfg["camera_id"]))
+            prefix_of[int(cam_cfg["camera_id"])] = \
+                cam_cfg.get("image_prefix", "")
+        groups = {}
+        for iid, im in rec.images.items():
+            if not rec.is_registered(iid) or \
+                    im.camera_id not in prefix_of:
+                continue
+            suffix = im.name[len(prefix_of[im.camera_id]):]
+            groups.setdefault(suffix, []).append(iid)
+        for suffix in sorted(groups):
+            rig.add_snapshot(groups[suffix])
+        rig.compute_rig_from_reconstruction(rec)
+        for snap in rig.snapshots:
+            for iid in snap:
+                row = row_of.get(int(iid))
+                if row is None:
+                    continue
+                snap_ids[row] = n_snaps
+                q, t = rig.cams_from_rig[rec.images[iid].camera_id]
+                cam_qs[row] = q
+                cam_ts[row] = t
+            n_snaps += 1
+        print(f"Camera Rig: {rig.num_cameras()} cameras, "
+              f"{len(rig.snapshots)} snapshots")
+    # Images outside every rig get a snapshot of their own.
+    for row in range(n_img):
+        if snap_ids[row] < 0:
+            snap_ids[row] = n_snaps
+            n_snaps += 1
+
+    t0 = time.perf_counter()
+    problem = build_problem(arrays, constant_pose_rows=(0,), device=device)
+    opt = apply_flags(BAOptions(), "BundleAdjustment", flags)
+    refine_rel = flags.get("RigBundleAdjustment.refine_relative_poses",
+                           "0") in ("1", "true", "True")
+    out = rig_bundle_adjust(problem, snap_ids, cam_qs, cam_ts, options=opt,
+                            refine_relative_poses=refine_rel)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    rec.update_from_arrays(arrays,
+                           qvecs=out["image_qvecs"].cpu().numpy(),
+                           tvecs=out["image_tvecs"].cpu().numpy())
+    os.makedirs(output_path, exist_ok=True)
+    rec.write(output_path)
+    print(f"rig BA final cost: {float(out['final_cost']):.6g}")
+    print(f"rig BA: {n_snaps} snapshots, cost "
+          f"{float(out['initial_cost']):.6g} -> "
+          f"{float(out['final_cost']):.6g} in {out['num_iterations']} "
+          f"iterations ({int(out['num_accepted'])} accepted), "
+          f"{wall:.3f} s [{device}]")
 
 
 def run_point_triangulator(flags):
@@ -552,7 +756,7 @@ def run_automatic_reconstructor(flags):
     if flags.get("dense", "0") in ("1", "true", "True"):
         raise SystemExit(
             "--dense 1 ends in the Poisson and Delaunay meshers, which are "
-            "not ported yet (ROADMAP Queue 1, item 4); run --dense 0, "
+            "not ported yet (ROADMAP Queue 1, item 2); run --dense 0, "
             "then image_undistorter, patch_match_stereo and stereo_fuser")
     _device(flags)
     quality = flags.get("quality", "high")
@@ -956,6 +1160,10 @@ COMMANDS = {"database_creator": run_database_creator,
             "point_triangulator": run_point_triangulator,
             "image_registrator": run_image_registrator,
             "automatic_reconstructor": run_automatic_reconstructor,
+            "hierarchical_mapper": run_hierarchical_mapper,
+            "pose_graph_optimizer": run_pose_graph_optimizer,
+            "model_merger": run_model_merger,
+            "rig_bundle_adjuster": run_rig_bundle_adjuster,
             "bundle_adjuster": run_bundle_adjuster,
             "semantic_bundle_adjuster": run_semantic_bundle_adjuster,
             "geometric_semantic_bundle_adjuster":

@@ -380,12 +380,19 @@ def _sym3_inverse(A, eps=1e-12):
 # Cost
 # ---------------------------------------------------------------------------
 
-def _cost(qvecs, tvecs, points, cam_params, problem: BAProblem,
-          opt: BAOptions):
+def _residuals_only(qvecs, tvecs, points, cam_params, problem: BAProblem,
+                    opt: BAOptions):
+    """Pixel residuals [O, 2] of the observations at the given values
+    (no loss, no mask)."""
     oi = problem.obs_image.long()
     proj = _project(qvecs[oi], tvecs[oi], points[problem.obs_point.long()],
                     cam_params[problem.obs_cam.long()], opt.model_id)
-    r = proj - problem.obs_xy
+    return proj - problem.obs_xy
+
+
+def _cost(qvecs, tvecs, points, cam_params, problem: BAProblem,
+          opt: BAOptions):
+    r = _residuals_only(qvecs, tvecs, points, cam_params, problem, opt)
     s = torch.sum(r * r, dim=-1)
     return 0.5 * torch.sum(problem.obs_mask
                            * loss_value(opt.loss, s, opt.loss_scale))

@@ -86,7 +86,7 @@ def reconstruct_incremental(
     if opt.live_viewer_path:
         raise NotImplementedError(
             "live_viewer_path needs the model viewer (sba_tpu/viewer.py), "
-            "which is not ported yet (ROADMAP Queue 1, item 7)")
+            "which is not ported yet (ROADMAP Queue 1, item 5)")
     models: List[Reconstruction] = []
 
     def notify(event, **info):

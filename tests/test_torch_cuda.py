@@ -1153,3 +1153,198 @@ def test_mapper_on_card_matches_cpu(cuda, tmp_path):
         np.testing.assert_allclose(a.points3D[pid].xyz, p.xyz, rtol=0,
                                    atol=tol)
     assert b.compute_mean_reprojection_error() < 1.0
+
+
+def _pose_graph_ring(device, dtype, sim3=False, n=24, noise=0.08, seed=3):
+    """A noisy odometry ring with two loop closures (tests/test_pose_graph.py's
+    construction with the port's own modules): exact relative measurements,
+    perturbed initial poses, pose 0 the gauge."""
+    from sba_tpu_torch.geometry.quaternions import (angle_axis_to_quat,
+                                                    quat_multiply,
+                                                    quat_normalize)
+    from sba_tpu_torch.optim.pose_graph import make_problem, relative_pose
+
+    rng = np.random.default_rng(seed)
+    q = quat_normalize(angle_axis_to_quat(torch.as_tensor(
+        rng.normal(size=(n, 3)) * 0.5)))
+    t = torch.as_tensor(rng.normal(size=(n, 3)))
+    s = torch.as_tensor(np.exp(rng.normal(size=n) * (0.1 if sim3 else 0.0)))
+    edges = [(i, i + 1) for i in range(n - 1)] + [(0, n - 1), (0, n // 2)]
+    ei = np.array([e[0] for e in edges])
+    ej = np.array([e[1] for e in edges])
+    rel = relative_pose(q[ei], t[ei], q[ej], t[ej],
+                        *((s[ei], s[ej]) if sim3 else ()))
+    q0 = quat_normalize(quat_multiply(angle_axis_to_quat(torch.as_tensor(
+        rng.normal(size=(n, 3)) * noise)), q))
+    t0 = t + torch.as_tensor(rng.normal(size=(n, 3)) * noise)
+    ls0 = torch.log(s) + torch.as_tensor(rng.normal(size=n)
+                                         * (noise if sim3 else 0.0))
+    q0[0], t0[0], ls0[0] = q[0], t[0], torch.log(s[0])
+    return make_problem(q0, t0, ei, ej, rel[0], rel[1],
+                        rel_log_s=torch.log(rel[2]) if sim3 else None,
+                        log_scales=ls0, sim3=sim3, dtype=dtype,
+                        device=device)
+
+
+@pytest.mark.parametrize("sim3,loss", [(False, "trivial"), (True, "huber")])
+def test_pose_graph_on_card_matches_cpu(cuda, sim3, loss):
+    """float64 on the card and the CPU: the same LM and PCG iteration
+    counts, poses within 1e-9 of the scene's scale; float32 on the card:
+    its final cost within 1e-3 of the float64 one (relative to the
+    initial cost)."""
+    from sba_tpu_torch.optim.pose_graph import (PoseGraphOptions,
+                                                optimize_pose_graph)
+
+    opt = PoseGraphOptions(max_iterations=30, sim3=sim3, loss=loss,
+                           cg_tolerance=1e-4)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        out[dev] = optimize_pose_graph(
+            _pose_graph_ring(dev, torch.float64, sim3), opt)
+    (a, sa), (b, sb) = out["cuda"], out["cpu"]
+    assert sa.num_iterations == sb.num_iterations
+    assert torch.equal(sa.cg_iterations.cpu(), sb.cg_iterations)
+    tol = 1e-9 * float(b.tvecs.abs().max())
+    for f in ("qvecs", "tvecs", "log_scales"):
+        np.testing.assert_allclose(getattr(a, f).cpu().numpy(),
+                                   getattr(b, f).numpy(), rtol=0, atol=tol)
+    _, s32 = optimize_pose_graph(
+        _pose_graph_ring("cuda", torch.float32, sim3), opt)
+    assert float(sb.final_cost) < float(sb.initial_cost)
+    assert abs(float(s32.final_cost) - float(sb.final_cost)) <= \
+        1e-3 * float(sb.initial_cost)
+
+
+def _rig_pair_port(n=60, outlier_frac=0.1, seed=3):
+    """tests/test_generalized_relative_pose.py's two rig frames (3
+    cameras) with the port's modules."""
+    rng = np.random.default_rng(seed)
+
+    def roty(a):
+        c, s = np.cos(a), np.sin(a)
+        return np.array([[c, 0, s], [0, 1.0, 0], [-s, 0, c]])
+
+    cams = [(roty(a), -roty(a) @ np.array([dx, 0.0, 0.0]))
+            for dx, a in ((-0.3, -0.25), (0.0, 0.0), (0.3, 0.25))]
+    c, s = np.cos(0.15), np.sin(0.15)
+    R_true = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1.0]]) @ roty(-0.1)
+    t_true = np.array([0.5, 0.2, 0.1])
+    pts = np.stack([rng.uniform(-3, 3, n), rng.uniform(-2, 2, n),
+                    rng.uniform(4, 10, n)], axis=1)
+    out = []
+    for X in (pts, pts @ R_true.T + t_true):
+        ci = rng.integers(0, 3, n)
+        cR = np.stack([cams[i][0] for i in ci])
+        ct = np.stack([cams[i][1] for i in ci])
+        pc = np.einsum("kij,kj->ki", cR, X) + ct
+        out += [cR, ct, pc[:, :2] / pc[:, 2:] + rng.normal(0, 5e-4, (n, 2))]
+    k = int(outlier_frac * n)
+    out[5][:k] = rng.uniform(-0.5, 0.5, (k, 2))
+    return out, R_true, t_true
+
+
+def test_gr6p_on_card_matches_cpu(cuda):
+    """GR6P's scoring on the card against the CPU (float64, 1e-12 of
+    scale), and its RANSAC with the same generator's draws: the same
+    model and inliers."""
+    from sba_tpu_torch.estimators import generalized_relative_pose as gr
+
+    data, R_true, t_true = _rig_pair_port()
+    Rs = torch.as_tensor(np.stack([R_true, R_true.T]))
+    ts = torch.as_tensor(np.stack([t_true, -t_true]))
+    e = {dev: gr.generalized_sampson_errors(
+        Rs.to(dev), ts.to(dev), *(torch.as_tensor(a, device=dev)
+                                  for a in data)).cpu().numpy()
+         for dev in ("cuda", "cpu")}
+    np.testing.assert_allclose(e["cuda"], e["cpu"], rtol=0,
+                               atol=1e-12 * np.abs(e["cpu"]).max())
+    reps = {dev: gr.estimate_generalized_relative_pose(
+        *data, gr.GeneralizedRelativePoseOptions(max_error=5e-3),
+        device=dev, generator=torch.Generator().manual_seed(1))
+        for dev in ("cuda", "cpu")}
+    a, b = reps["cuda"], reps["cpu"]
+    assert a.success and b.success
+    np.testing.assert_array_equal(a.inlier_mask, b.inlier_mask)
+    np.testing.assert_allclose(a.R, b.R, rtol=0, atol=1e-12)
+    assert np.abs(a.R - R_true).max() < 0.01
+
+
+def _rig_ba_problem(device, S=8, P=200, seed=1):
+    """A two-camera rig over S snapshots observing P points (normalized
+    coordinates, identity pinhole), image poses perturbed off the rig."""
+    from sba_tpu_torch.geometry.quaternions import (np_angle_axis_to_quat,
+                                                    np_quat_to_rotmat,
+                                                    pose_product)
+    from sba_tpu_torch.optim.ba import problem_from_numpy
+
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-1, 1, (P, 3)) + [0, 0, 6.0]
+    rel = (np_angle_axis_to_quat([0.0, 0.3, 0.0]), np.array([0.5, 0, 0]))
+    ident = (np.array([1.0, 0, 0, 0]), np.zeros(3))
+    q, t, sid, cq, ct = [], [], [], [], []
+    for s in range(S):
+        qs = torch.as_tensor(np_angle_axis_to_quat(
+            [0.02 * s, -0.03 * s, 0.01]))
+        ts = torch.as_tensor([0.4 * s - 0.8, 0.05 * s, 0.0],
+                             dtype=torch.float64)
+        for c in (ident, rel):
+            qi, ti = pose_product(torch.as_tensor(c[0]),
+                                  torch.as_tensor(c[1], dtype=torch.float64),
+                                  qs, ts)
+            q.append(qi.numpy())
+            t.append(ti.numpy())
+            sid.append(s)
+            cq.append(c[0])
+            ct.append(c[1])
+    q, t = np.stack(q), np.stack(t)
+    N = len(q)
+    pc = np.einsum("nij,pj->npi", np.stack([np_quat_to_rotmat(x) for x in q]),
+                   pts) + t[:, None]
+    qn = q + rng.normal(0, 0.01, q.shape)
+    qn /= np.linalg.norm(qn, axis=1, keepdims=True)
+    O = N * P
+    cam = np.zeros((1, 12))
+    cam[0, 0] = 1.0
+    problem = problem_from_numpy(dict(
+        qvecs=qn, tvecs=t + rng.normal(0, 0.05, t.shape), points=pts,
+        cam_params=cam, obs_image=np.repeat(np.arange(N), P),
+        obs_point=np.tile(np.arange(P), N), obs_cam=np.zeros(O),
+        obs_xy=(pc[..., :2] / pc[..., 2:]).reshape(-1, 2),
+        obs_mask=np.ones(O), free_rot=np.ones(N), free_trans=np.ones((N, 3)),
+        free_points=np.zeros(P), free_cam=np.zeros((1, 12))), device=device)
+    return problem, np.array(sid), np.stack(cq), np.stack(ct)
+
+
+def test_rig_bundle_adjust_on_card_matches_cpu(cuda):
+    """The rig BA's gradient, Hessian blocks and damped step on the card
+    against the CPU (1e-10 of scale), and 10 iterations of the whole loop
+    (snapshot poses at 1e-9, the same accepted steps)."""
+    from sba_tpu_torch.models import camera_rig as cr
+    from sba_tpu_torch.optim.ba import BAOptions
+
+    out, blocks = {}, {}
+    for dev in ("cuda", "cpu"):
+        problem, sid, cq, ct = _rig_ba_problem(dev)
+        S = int(sid.max()) + 1
+        rng = np.random.default_rng(2)
+        cost_of = cr.rig_cost_fn(
+            problem, BAOptions(), cr.quat_normalize(torch.as_tensor(
+                rng.normal(0, 0.02, (S, 4)) + [1.0, 0, 0, 0], device=dev)),
+            torch.as_tensor(rng.normal(0, 0.5, (S, 3)), device=dev),
+            torch.as_tensor(sid, device=dev),
+            torch.as_tensor(cq, device=dev), torch.as_tensor(ct, device=dev))
+        g, H = cr.newton_blocks(cost_of, torch.zeros(
+            (S, 6), dtype=torch.float64, device=dev))
+        step = cr.damped_step(g, H, torch.tensor(1e-4, dtype=torch.float64,
+                                                 device=dev))
+        blocks[dev] = [x.cpu().numpy() for x in (g, H, step)]
+        out[dev] = cr.rig_bundle_adjust(problem, sid, cq, ct,
+                                        BAOptions(max_iterations=10))
+    for a, b in zip(blocks["cuda"], blocks["cpu"]):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-10 * np.abs(b).max())
+    a, b = out["cuda"], out["cpu"]
+    assert int(a["num_accepted"]) == int(b["num_accepted"]) > 0
+    for k in ("snapshot_qvecs", "snapshot_tvecs"):
+        np.testing.assert_allclose(a[k].cpu().numpy(), b[k].numpy(), rtol=0,
+                                   atol=1e-9)
+    assert float(b["final_cost"]) < float(b["initial_cost"])

@@ -67,13 +67,22 @@ def test_port_and_chip_smoke_import_without_jax():
                  "sba_tpu_torch.sfm.incremental_triangulator",
                  "sba_tpu_torch.sfm.incremental_mapper",
                  "sba_tpu_torch.sfm.controllers",
+                 "sba_tpu_torch.sfm.scene_clustering",
+                 "sba_tpu_torch.sfm.hierarchical_mapper",
+                 "sba_tpu_torch.optim.pose_graph",
+                 "sba_tpu_torch.optim.least_absolute_deviations",
+                 "sba_tpu_torch.estimators.generalized_relative_pose",
+                 "sba_tpu_torch.estimators.generalized_pose",
+                 "sba_tpu_torch.models.camera_rig",
                  "sba_tpu_torch.cli"):
         assert name in modules, name
     from sba_tpu_torch import cli
 
     for cmd in ("feature_extractor", "exhaustive_matcher",
                 "sequential_matcher", "mapper", "point_triangulator",
-                "image_registrator", "automatic_reconstructor"):
+                "image_registrator", "automatic_reconstructor",
+                "hierarchical_mapper", "model_merger",
+                "pose_graph_optimizer", "rig_bundle_adjuster"):
         assert cmd in cli.COMMANDS, cmd
     res = subprocess.run(
         [sys.executable, "-c", _PROBE.format(root=str(ROOT),
