@@ -47,7 +47,8 @@ Needs one CUDA card and nvcc (found through torch's CUDA_HOME, else
                      K2-K5 against their twins at these shapes, K5 also
                      over all buckets (its parameter table read in
                      place, past shared memory; two calls, same bits);
-9. cli            -- `python -m sba_tpu_torch.cli bundle_adjuster` in
+9. cli            -- `sba_tpu_torch.cli bundle_adjuster` (its `main`, in
+                     this process) in
                      float32 on a 20-image (dense), a 160-image
                      (implicit) and a 20-image OPENCV model
                      (`--BundleAdjustment.model_id 4`), then at its
@@ -65,7 +66,8 @@ Needs one CUDA card and nvcc (found through torch's CUDA_HOME, else
                      SIMPLE_RADIAL scene rendered on the card, written as
                      images + a sparse model, then `image_undistorter`,
                      `patch_match_stereo` and `stereo_fuser` of
-                     `python -m sba_tpu_torch.cli` with `--device cuda`;
+                     `sba_tpu_torch.cli` (its `main`, in this process)
+                     with `--device cuda`;
                      K6 must launch, each pass's depth maps must meet
                      MAP_LIMITS against the analytic heightfield, the
                      cloud must hold MIN_FUSED_POINTS and lie on the
@@ -73,6 +75,19 @@ Needs one CUDA card and nvcc (found through torch's CUDA_HOME, else
                      percentile under 3% of the median depth); then one
                      warm photometric solve in process
                      (Mpix*iterations/s, peak device memory);
+11a. meshing      -- `poisson_mesher` and `delaunay_mesher` (in this
+                     process, `--device cuda`) on the mvs phase's
+                     workspace at TSDFOptions' defaults (voxel grid,
+                     TSDF fusion ms, surface nets s and peak memory
+                     printed; the meshes' heightfield errors printed),
+                     then `poisson_mesher` on the same workspace with the
+                     true depth maps: MESH_GATES against the heightfield;
+11b. dense-writers -- `image_undistorter --output_type PMVS` and
+                     `CMP-MVS` on the mvs scene (files, and projection
+                     matrices against the COLMAP workspace's keypoints),
+                     `image_rectifier` on two neighbouring views
+                     (RECT_GATES: Q, rows through H1/H2 and of matched
+                     image patches, the depth Q gives back);
 12. twins-sba     -- the map-gather kernels against their twins on the
                      same CUDA tensors, bit for bit: B1-B4's probe entries
                      at the probes' shapes (50 maps of 640x480 u32 words,
@@ -90,7 +105,8 @@ Needs one CUDA card and nvcc (found through torch's CUDA_HOME, else
                      same scene at 12 labels (the two-map path:
                      map_gather_pair must launch), and a small solve
                      through the kernels against the CPU twins';
-14. cli-sba       -- `python -m sba_tpu_torch.cli semantic_bundle_adjuster`
+14. cli-sba       -- `sba_tpu_torch.cli semantic_bundle_adjuster` (its
+                     `main`, in this process, as every command below)
                      on an 8-image 640x480 model with TIFF maps, at its
                      defaults (float64, forward mode) and in hard_numeric
                      mode;
@@ -110,7 +126,7 @@ Needs one CUDA card and nvcc (found through torch's CUDA_HOME, else
                      float64 solve's on the card at rtol 1e-3; warm LM
                      it/s, chunks, peak memory, and the trunks whose
                      own-view IoU fell in either solve);
-16. cli-gsba      -- `python -m sba_tpu_torch.cli
+16. cli-gsba      -- `sba_tpu_torch.cli
                      geometric_semantic_bundle_adjuster` at its defaults
                      (cuda, float64) on an 8-image 640x480 model with
                      semantic TIFFs and a perturbed cylinders.txt: the
@@ -131,6 +147,18 @@ Needs one CUDA card and nvcc (found through torch's CUDA_HOME, else
                      (8192 features, batches of 8 images and 32 pairs,
                      4096 trials); map_gather launches counted during
                      extraction; FRONTEND_GATES against the true poses;
+18a. retrieval    -- on the frontend phase's database (~3760 features an
+                     image): `vocab_tree_builder` (16^2 words),
+                     `vocab_tree_matcher` (10 images each) on a copy with
+                     its matches cleared, `vocab_tree_retriever`, and
+                     `sequential_matcher` with loop detection
+                     (LOOP_FLAGS); every retrieved pair verifies, loop
+                     detection adds pairs beyond the overlap window;
+                     card = CPU (RETRIEVAL_TWIN): the words through the
+                     card's tree, the k-means objective of the trees
+                     built on both, the retriever's rankings, the
+                     matcher's and loop detection's pairs; each
+                     command's seconds;
 19. mapper        -- `python -m sba_tpu_torch.cli mapper` at its defaults
                      on the frontend phase's exhaustive database (24 x
                      1600x1200, 8192 features, SIMPLE_RADIAL): one model
@@ -160,16 +188,23 @@ Needs one CUDA card and nvcc (found through torch's CUDA_HOME, else
                      (every common image merged);
 21. point_triangulator -- the command on the true poses over the
                      database's keypoints: the points on the heightfield;
-22. automatic_reconstructor -- `--dense 0` on 8 of the views (its own
-                     extraction, matching and mapping) within MAPPER_GATES;
+22. automatic_reconstructor -- `--dense 1` on 8 of the views with one
+                     shared camera (its own extraction, matching and
+                     mapping within MAPPER_GATES, then undistortion,
+                     PatchMatch, fusion and `poisson_mesher`): K6
+                     launched, the cloud and mesh written, the mesh's
+                     heightfield errors (after the model's similarity
+                     onto the truth) printed;
 22a. pose-graph   -- `pose_graph_from_reconstruction` on the 1024-image
                      sequential scene's true model (noisy measurements),
                      `optimize_pose_graph` from a drifted start in
                      float32 on the card, SE3 with Huber then Sim3 with
                      scale drift, at sba_tpu's defaults: the cost and the
                      relative drift fall (PG_GATES), the final cost
-                     equals the float64 CPU solve's at rtol 1e-3; edges,
-                     LM and CG iterations, wall seconds;
+                     equals the float64 solve's on the card at rtol
+                     1e-3 with the edges in their order and in
+                     PG_EDGE_ORDERS permutations; edges, LM and CG
+                     iterations, wall seconds;
 22b. rig          -- a 4-camera rig over 64 snapshots (256 x 1600x1200
                      SIMPLE_RADIAL, 40,000 points) written as a COLMAP
                      model with a JSON rig config, every image pose
@@ -214,7 +249,6 @@ from __future__ import annotations
 
 import faulthandler
 import json
-import os
 import re
 import shutil
 import subprocess
@@ -1210,13 +1244,14 @@ def phase_timing_heads():
 
 
 def _run_cli(rec, tag, flags, kernels, other):
-    """bundle_adjuster with `flags` in a subprocess on `rec`; checks the
-    cost, the mean reprojection error and that the path's kernels (and
-    no other) launched."""
+    """bundle_adjuster with `flags` on `rec` (`sba_tpu_torch.cli`'s
+    `main` in this process, the launch counts set to 0 first); checks
+    the cost, the mean reprojection error and that the path's kernels
+    (and no other) launched."""
     import numpy as np
 
     from sba_tpu_torch.models.reconstruction import Reconstruction
-    from sba_tpu_torch.ops import cuda_build
+    from sba_tpu_torch.ops import ba_kernels, cuda_build
 
     err0 = rec.compute_mean_reprojection_error()
     cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -1224,19 +1259,14 @@ def _run_cli(rec, tag, flags, kernels, other):
                                  dir=cuda_build.BUILD_DIR))
     try:
         rec.write(str(work / "in"))
-        cmd = [sys.executable, "-m", "sba_tpu_torch.cli", "bundle_adjuster",
-               "--input_path", str(work / "in"),
-               "--output_path", str(work / "out"), *flags]
-        env = dict(os.environ, PYTHONPATH=str(ROOT))
-        budget = max(30.0, DEADLINE_S - (time.perf_counter() - T0) - 60.0)
-        res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                             text=True, timeout=budget)
-        require(res.returncode == 0,
-                f"CLI exit {res.returncode}:\n{res.stdout}\n{res.stderr}")
-        m = re.search(r"BA: cost (\S+) -> (\S+) in (\d+) iters", res.stdout)
-        k = re.search(r"kernel launches: (\{.*\})", res.stdout)
+        ba_kernels.reset_launches()
+        stdout, _ = _run_frontend_cli(
+            ["bundle_adjuster", "--input_path", str(work / "in"),
+             "--output_path", str(work / "out"), *flags], "bundle_adjuster")
+        m = re.search(r"BA: cost (\S+) -> (\S+) in (\d+) iters", stdout)
+        k = re.search(r"kernel launches: (\{.*\})", stdout)
         require(m is not None and k is not None,
-                f"unexpected CLI output:\n{res.stdout}")
+                f"unexpected CLI output:\n{stdout}")
         c0, c1 = float(m.group(1)), float(m.group(2))
         launches = json.loads(k.group(1))
         require(c1 < c0, f"CLI cost did not decrease: {c0} -> {c1}")
@@ -1400,7 +1430,9 @@ def phase_mvs(scene):
     """The dense chain through the CLI on the rendered scene, checked
     against the analytic heightfield; then one warm photometric solve in
     process. Returns (K6 launches of patch_match_stereo, the in-process
-    solve as a callable, its warm wall ms)."""
+    solve as a callable, its warm wall ms, the work directory: images/,
+    sparse/ and the dense workspace dense/, which the meshing and
+    dense-writers phases use and main removes)."""
     import numpy as np
     import torch
 
@@ -1423,7 +1455,6 @@ def phase_mvs(scene):
         log("mvs", f"wrote {len(names)} images and a sparse model of "
             f"{len(rec.points3D)} points in {time.perf_counter() - t:.1f} s")
         ws = work / "dense"
-        env = dict(os.environ, PYTHONPATH=str(ROOT))
         out = {}
         for args in (
                 ["image_undistorter", "--image_path", work / "images",
@@ -1431,17 +1462,10 @@ def phase_mvs(scene):
                 ["patch_match_stereo", "--workspace_path", ws],
                 ["stereo_fuser", "--workspace_path", ws, "--output_path",
                  ws / "fused.ply", *FUSION_FLAGS]):
-            budget = max(30.0, DEADLINE_S - (time.perf_counter() - T0) - 60)
-            t = time.perf_counter()
-            res = subprocess.run(
-                [sys.executable, "-m", "sba_tpu_torch.cli",
-                 *map(str, args), "--device", "cuda"], cwd=ROOT, env=env,
-                capture_output=True, text=True, timeout=budget)
-            dt = time.perf_counter() - t
-            require(res.returncode == 0, f"{args[0]} exit {res.returncode}:"
-                    f"\n{res.stdout}\n{res.stderr}")
-            out[args[0]] = res.stdout
-            lines = [l for l in res.stdout.splitlines()
+            pk.reset_launches()
+            out[args[0]], dt = _run_frontend_cli(
+                [*map(str, args), "--device", "cuda"], args[0])
+            lines = [l for l in out[args[0]].splitlines()
                      if not l.startswith("wall seconds")]
             log("mvs", f"{args[0]} in {dt:.1f} s: " + " | ".join(
                 l.strip() for l in lines[-4:]))
@@ -1494,8 +1518,9 @@ def phase_mvs(scene):
                 f"fused cloud: {c['points']} points")
         require(c["median"] < 0.01 * md and c["p80"] < 0.03 * md,
                 "fused cloud off the heightfield")
-    finally:
+    except BaseException:
         shutil.rmtree(work, ignore_errors=True)
+        raise
 
     # One warm photometric solve in process at the full shape (view 0
     # against views 1-4, the pinhole part of the lens, the true depths'
@@ -1523,7 +1548,7 @@ def phase_mvs(scene):
         f"= {H * W * opt.num_iterations / ms / 1e3:.2f} Mpix*iterations/s, "
         f"{pk.LAUNCHES['ncc_cost']} K6 launches; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-    return launches, solve, ms
+    return launches, solve, ms, work
 
 
 def _ncc_bound(S, H, W, r, step):
@@ -2167,7 +2192,7 @@ def _write_sba_workspace(work, scene):
 def phase_cli_sba():
     """semantic_bundle_adjuster on the card: defaults (float64, forward
     mode) cut to 10 LM iterations, and hard_numeric."""
-    from sba_tpu_torch.ops import cuda_build
+    from sba_tpu_torch.ops import cuda_build, map_gather
     from sba_tpu_torch.utils.synthetic import make_sba_scene
 
     cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -2183,24 +2208,17 @@ def phase_cli_sba():
                                "hard_numeric",
                                "--SemanticBundleAdjustment.max_iterations",
                                "5"))):
-            cmd = [sys.executable, "-m", "sba_tpu_torch.cli",
-                   "semantic_bundle_adjuster", "--device", "cuda",
-                   "--input_path", str(work / "in"),
-                   "--output_path", str(work / f"out_{tag}"),
-                   "--data_path", str(work / "maps"), *extra]
-            env = dict(os.environ, PYTHONPATH=str(ROOT))
-            budget = max(30.0, DEADLINE_S - (time.perf_counter() - T0) - 60)
-            t = time.perf_counter()
-            res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                                 text=True, timeout=budget)
-            wall = time.perf_counter() - t
-            require(res.returncode == 0, f"CLI exit {res.returncode}:\n"
-                    f"{res.stdout}\n{res.stderr}")
-            m = re.search(r"SBA: cost (\S+) -> (\S+) in (\d+) iters",
-                          res.stdout)
-            k = re.search(r"kernel launches: (\{.*\})", res.stdout)
+            map_gather.reset_launches()
+            stdout, wall = _run_frontend_cli(
+                ["semantic_bundle_adjuster", "--device", "cuda",
+                 "--input_path", str(work / "in"),
+                 "--output_path", str(work / f"out_{tag}"),
+                 "--data_path", str(work / "maps"), *extra],
+                "semantic_bundle_adjuster")
+            m = re.search(r"SBA: cost (\S+) -> (\S+) in (\d+) iters", stdout)
+            k = re.search(r"kernel launches: (\{.*\})", stdout)
             require(m is not None and k is not None,
-                    f"unexpected CLI output:\n{res.stdout}")
+                    f"unexpected CLI output:\n{stdout}")
             c0, c1 = float(m.group(1)), float(m.group(2))
             launches = json.loads(k.group(1))
             require(c1 < c0, f"CLI {tag}: cost did not decrease: {c0} -> "
@@ -2490,23 +2508,15 @@ def phase_cli_gsba():
     try:
         scene = make_gsba_scene(**GSBA_CLI_SCENE)
         _write_gsba_workspace(work, scene)
-        cmd = [sys.executable, "-m", "sba_tpu_torch.cli",
-               "geometric_semantic_bundle_adjuster",
-               "--input_path", str(work / "in"),
-               "--output_path", str(work / "out"),
-               "--data_path", str(work / "maps"),
-               "--input_geometry", str(work / "cylinders.txt")]
-        env = dict(os.environ, PYTHONPATH=str(ROOT))
-        budget = max(30.0, DEADLINE_S - (time.perf_counter() - T0) - 60)
-        t = time.perf_counter()
-        res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                             text=True, timeout=budget)
-        wall = time.perf_counter() - t
-        require(res.returncode == 0, f"CLI exit {res.returncode}:\n"
-                f"{res.stdout}\n{res.stderr}")
-        m = re.search(r"GSBA: cost (\S+) -> (\S+), mean IoU (\S+)",
-                      res.stdout)
-        require(m is not None, f"unexpected CLI output:\n{res.stdout}")
+        stdout, wall = _run_frontend_cli(
+            ["geometric_semantic_bundle_adjuster",
+             "--input_path", str(work / "in"),
+             "--output_path", str(work / "out"),
+             "--data_path", str(work / "maps"),
+             "--input_geometry", str(work / "cylinders.txt")],
+            "geometric_semantic_bundle_adjuster")
+        m = re.search(r"GSBA: cost (\S+) -> (\S+), mean IoU (\S+)", stdout)
+        require(m is not None, f"unexpected CLI output:\n{stdout}")
         c0, c1, iou = (float(x) for x in m.groups())
         (out,) = read_cylinders_text(work / "out" / "cylinders.txt")
         cyl, cyl0 = scene[4], scene[7]
@@ -3415,21 +3425,624 @@ def phase_point_triangulator(scene, work):
 
 
 def phase_automatic(scene, work):
-    """`automatic_reconstructor --dense 0` on AUTO_VIEWS consecutive views
-    (its own extraction, matching and mapping): all of them registered,
-    under MAPPER_GATES."""
+    """`automatic_reconstructor --dense 1` on AUTO_VIEWS consecutive views
+    with one shared camera (its own extraction, matching, mapping, then
+    image_undistorter, patch_match_stereo, stereo_fuser and
+    poisson_mesher): all views registered under MAPPER_GATES, K6
+    launched, meshed-poisson.ply written; the mesh, mapped onto the truth
+    by the model's camera centres, against the heightfield."""
+    import numpy as np
+    import torch
+
+    from sba_tpu_torch.geometry.quaternions import np_quat_to_rotmat
+    from sba_tpu_torch.geometry.similarity import umeyama
+    from sba_tpu_torch.models.reconstruction import Reconstruction
+    from sba_tpu_torch.ops import patch_match_kernels as pk
+    from sba_tpu_torch.utils.render import _Heightfield
+
     imgs = work / "auto_imgs"
     imgs.mkdir()
     for k in range(AUTO_VIEWS):
         shutil.copy(work / "imgs" / f"view{k:03d}.png", imgs)
+    pk.reset_launches()
     out, wall = _run_frontend_cli(
         ["automatic_reconstructor", "--workspace_path", str(work / "auto"),
-         "--image_path", str(imgs), "--dense", "0"],
+         "--image_path", str(imgs), "--dense", "1",
+         "--ImageReader.single_camera", "1", "--device", "cuda"],
         "automatic_reconstructor")
-    log("automatic_reconstructor", f"{AUTO_VIEWS} views: {wall:.1f} s wall")
+    launches = pk.LAUNCHES["ncc_cost"]
+    w = re.search(r"wall seconds per view: (\{.*\})", out)
+    m = re.search(r"meshing: (.*)", out)
+    require(w is not None and m is not None,
+            f"automatic_reconstructor output:\n{out[-3000:]}")
+    secs = json.loads(w.group(1))
+    log("automatic_reconstructor", f"{AUTO_VIEWS} views, --dense 1: "
+        f"{wall:.1f} s wall; K6 launches {launches}; PatchMatch "
+        f"{sum(secs['photometric'].values()):.1f} s photometric + "
+        f"{sum(secs['geometric'].values()):.1f} s geometric; "
+        + " | ".join(l.strip() for l in out.splitlines()
+                     if l.startswith(("fused", "meshed", "meshing"))))
+    require(launches > 0, "automatic_reconstructor --dense 1 never "
+            "launched K6")
     _mapper_stats(out, "automatic_reconstructor")
-    _model_gates(work / "auto" / "sparse" / "0", scene, AUTO_VIEWS,
-                 "automatic_reconstructor")
+    model = work / "auto" / "sparse" / "0"
+    _model_gates(model, scene, AUTO_VIEWS, "automatic_reconstructor")
+    rec = Reconstruction.read(str(model))
+    ks = [_scene_index(im.name) for im in rec.images.values()]
+    c_est = np.stack([-np_quat_to_rotmat(im.qvec).T @ im.tvec
+                      for im in rec.images.values()])
+    c_gt = np.stack([-np_quat_to_rotmat(scene["qvecs"][k]).T
+                     @ scene["tvecs"][k] for k in ks])
+    s, Rs, t = umeyama(torch.as_tensor(c_est), torch.as_tensor(c_gt))
+    s, Rs, t = float(s), Rs.numpy(), t.numpy()
+    dense = work / "auto" / "dense"
+    require((dense / "meshed-poisson.ply").exists()
+            and (dense / "fused.ply").exists(),
+            "automatic_reconstructor --dense 1 wrote no mesh or cloud")
+    _mesh_check(dense / "meshed-poisson.ply",
+                _Heightfield(5.0, 0.55, FRONTEND_SCENE["seed"]),
+                float(np.median(scene["depths"][:AUTO_VIEWS])),
+                "automatic_reconstructor", gate=False,
+                transform=lambda v: s * v @ Rs.T + t)
+
+
+# ---------------------------------------------------------------------------
+# The end of the dense chain (meshing, the PMVS / CMP-MVS writers,
+# rectification) and retrieval (the vocab-tree commands, loop detection)
+# ---------------------------------------------------------------------------
+
+# Heightfield limits of a mesh's vertices (vertical distance, as a share
+# of the median depth), as the fused cloud's.
+MESH_GATES = dict(median_frac=0.01, p80_frac=0.03, min_vertices=10_000,
+                  min_faces=20_000)
+RECT_PAIR = ("view000.png", "view001.png")
+RECT_GATES = dict(min_points=50, max_points=500, min_ncc=0.7,
+                  min_row_share=0.9, max_depth_rel=1e-6)
+# Loop detection on the ring: overlap 2 and no quadratic jumps, so pairs
+# of views more than 2 apart in the sequence (among them those across
+# the seam between views 23 and 0) come only from retrieval. The phase
+# adds the builder's tree (SequentialMatching.vocab_tree_path), so that
+# its CPU twin ranks through the same tree.
+LOOP_FLAGS = ("--SequentialMatching.overlap", "2",
+              "--SequentialMatching.quadratic_overlap", "0",
+              "--SequentialMatching.loop_detection", "1",
+              "--SequentialMatching.loop_detection_period", "3",
+              "--SequentialMatching.loop_detection_num_images", "4")
+MIN_SEAM_INLIERS = 15      # inliers of a verified loop-detection pair
+# Card = CPU limits of retrieval: the share of equal words through one
+# tree; the k-means objective (the mean cosine of a descriptor and its
+# word's centre) of the trees each device builds from the same draws
+# (k-means is chaotic: one assignment that rounds the other way on the
+# card sends a level's later draws and iterations elsewhere, so the two
+# trees share ~40% of their words; the objective of five seeds on the
+# CPU spreads 3e-4, three Lloyd iterations in place of ten lose 4e-3);
+# and the TF-IDF scores' tolerance through one tree (scores lie in
+# [0, 1]; the retriever prints them to 1e-4).
+RETRIEVAL_TWIN = dict(quantize_share=0.999, objective_tol=1e-3,
+                      score_tol=5e-4)
+
+
+def _mesh_check(path, field, md, tag, gate, transform=None):
+    """The mesh at `path` (its vertices mapped by `transform`) against the
+    heightfield: counts, finiteness and, with `gate`, MESH_GATES."""
+    import numpy as np
+
+    from sba_tpu_torch.utils import mvs_accuracy
+
+    v, f = mvs_accuracy.read_mesh_ply(path)
+    if transform is not None:
+        v = transform(v)
+    c = mvs_accuracy.cloud_accuracy(v, field)
+    log(tag, f"{path.name}: {len(v)} vertices, {len(f)} faces; vertical "
+        f"distance to the heightfield: median {c['median']:.5f}, p80 "
+        f"{c['p80']:.5f} ({100 * c['median'] / md:.3f}% and "
+        f"{100 * c['p80'] / md:.3f}% of the median depth {md:.4f})")
+    require(np.isfinite(v).all() and (not len(f) or (
+        f.min() >= 0 and f.max() < len(v))), f"{tag}: bad mesh")
+    if gate:
+        g = MESH_GATES
+        require(len(v) >= g["min_vertices"] and len(f) >= g["min_faces"]
+                and c["median"] < g["median_frac"] * md
+                and c["p80"] < g["p80_frac"] * md,
+                f"{tag}: mesh outside MESH_GATES")
+    return c
+
+
+def _mesher_lines(out, tag):
+    m = re.search(r"meshed (\d+) vertices / (\d+) faces", out)
+    g = re.search(r"meshing: (.*)", out)
+    require(m is not None and g is not None, f"{tag} output:\n{out}")
+    return g.group(1)
+
+
+def phase_meshing(scene, work):
+    """`poisson_mesher` and `delaunay_mesher` on the mvs phase's
+    workspace (8 x 1600x1200 at TSDFOptions' defaults), then
+    `poisson_mesher` on the same workspace with the true depth maps as
+    its maps (MESH_GATES). Each prints its voxel grid, the TSDF fusion's
+    wall ms on the card, the surface nets' host seconds and the peak
+    device memory."""
+    import numpy as np
+
+    from sba_tpu_torch.models.reconstruction import Reconstruction
+    from sba_tpu_torch.mvs import write_colmap_map
+    from sba_tpu_torch.utils import mvs_accuracy
+    from sba_tpu_torch.utils.render import _Heightfield
+
+    field = _Heightfield(5.0, 0.55, MVS_SCENE["seed"])
+    md = float(np.median(scene["depths"]))
+    ws = work / "dense"
+    for cmd in ("poisson_mesher", "delaunay_mesher"):
+        out, wall = _run_frontend_cli(
+            [cmd, "--input_path", str(ws), "--output_path",
+             str(ws / f"{cmd}.ply"), "--device", "cuda"], cmd)
+        log("meshing", f"{cmd} on the PatchMatch maps: {wall:.1f} s; "
+            + _mesher_lines(out, cmd))
+        _mesh_check(ws / f"{cmd}.ply", field, md, "meshing", gate=False)
+
+    truth = work / "dense_truth"
+    shutil.copytree(ws / "sparse", truth / "sparse")
+    (truth / "stereo" / "depth_maps").mkdir(parents=True)
+    rec = Reconstruction.read(str(truth / "sparse"))
+    t = time.perf_counter()
+    for iid, im in rec.images.items():
+        d = mvs_accuracy.true_depth(field, rec, iid, "cuda")
+        write_colmap_map(d.astype(np.float32), str(
+            truth / "stereo" / "depth_maps" / f"{im.name}.geometric.bin"))
+    log("meshing", f"true depth maps of {len(rec.images)} undistorted "
+        f"views in {time.perf_counter() - t:.1f} s")
+    out, wall = _run_frontend_cli(
+        ["poisson_mesher", "--input_path", str(truth), "--output_path",
+         str(truth / "mesh.ply"), "--device", "cuda"], "poisson_mesher")
+    log("meshing", f"poisson_mesher on the true depth maps: {wall:.1f} s; "
+        + _mesher_lines(out, "poisson_mesher"))
+    _mesh_check(truth / "mesh.ply", field, md, "meshing", gate=True)
+
+
+def _projection_txt(path):
+    import numpy as np
+
+    lines = Path(path).read_text().splitlines()
+    require(lines[0] == "CONTOUR" and len(lines) == 4, f"{path}: {lines}")
+    return np.array([[float(v) for v in l.split()] for l in lines[1:]])
+
+
+def _reprojection_gap(P_of, rec):
+    """Largest pixel distance between each observation's keypoint in the
+    undistorted COLMAP model `rec` and its point projected by the written
+    projection matrix of its image (P_of[image id])."""
+    import numpy as np
+
+    worst = 0.0
+    for iid, im in rec.images.items():
+        P = P_of[iid]
+        for j, pid in enumerate(im.point3D_ids):
+            if pid < 0:
+                continue
+            x = P @ np.append(rec.points3D[int(pid)].xyz, 1.0)
+            worst = max(worst, float(np.linalg.norm(x[:2] / x[2]
+                                                    - im.xys[j])))
+    return worst
+
+
+def phase_dense_writers(scene, work):
+    """`image_undistorter --output_type PMVS` and `CMP-MVS` on the mvs
+    phase's scene: the file layout, and every projection matrix
+    reprojects the sparse points onto the COLMAP workspace's undistorted
+    keypoints; then `image_rectifier` on two neighbouring views: the
+    pair's Q, its rows (the sparse points through the rectifying
+    homographies, and patches of the written images matched along rows)
+    and the depth its Q gives back."""
+
+    from sba_tpu_torch.models.reconstruction import Reconstruction
+
+    colmap = Reconstruction.read(str(work / "dense" / "sparse"))
+    n = len(colmap.images)
+    for kind, sub in (("PMVS", "pmvs_ws"), ("CMP-MVS", "cmpmvs_ws")):
+        out, wall = _run_frontend_cli(
+            ["image_undistorter", "--image_path", str(work / "images"),
+             "--input_path", str(work / "sparse"), "--output_path",
+             str(work / sub), "--output_type", kind, "--device", "cuda"],
+            kind)
+        root = work / sub
+        order = list(colmap.registered_image_ids)
+        if kind == "PMVS":
+            pm = root / "pmvs"
+            need = ([pm / "txt" / f"{i:08d}.txt" for i in range(n)]
+                    + [pm / "visualize" / f"{i:08d}.jpg" for i in range(n)]
+                    + [pm / f for f in ("bundle.rd.out", "vis.dat",
+                                        "option-all")]
+                    + [root / "run-pmvs.sh", root / "run-cmvs-pmvs.sh"])
+            P_of = {iid: _projection_txt(pm / "txt" / f"{k:08d}.txt")
+                    for k, iid in enumerate(order)}
+            vis = (pm / "vis.dat").read_text().splitlines()
+            require(vis[:2] == ["VISDATA", str(n)] and len(vis) == n + 2,
+                    f"vis.dat: {vis[:3]}")
+        else:
+            need = ([root / f"{i + 1:05d}_P.txt" for i in range(n)]
+                    + [root / f"{i + 1:05d}.jpg" for i in range(n)])
+            P_of = {iid: _projection_txt(root / f"{k + 1:05d}_P.txt")
+                    for k, iid in enumerate(order)}
+        missing = [str(p) for p in need if not p.exists()]
+        require(not missing, f"{kind}: missing {missing[:4]}")
+        gap = _reprojection_gap(P_of, colmap)
+        log("dense-writers", f"image_undistorter --output_type {kind}: "
+            f"{wall:.1f} s, {len(need)} files; the projection matrices "
+            f"reproject the sparse points onto the COLMAP workspace's "
+            f"keypoints within {gap:.2e} px")
+        require(gap < 1e-3, f"{kind}: projection matrices off by {gap} px")
+    _check_rectifier(work)
+
+
+def _ncc(a, b):
+    import numpy as np
+
+    a = a - a.mean()
+    b = b - b.mean()
+    return float((a * b).sum() / max(np.sqrt((a * a).sum() * (b * b).sum()),
+                                      1e-12))
+
+
+def _check_rectifier(work):
+    import numpy as np
+    import torch
+    from PIL import Image as PILImage
+
+    from sba_tpu_torch.geometry.quaternions import (np_quat_to_rotmat,
+                                                    pose_inverse,
+                                                    pose_product)
+    from sba_tpu_torch.geometry.undistortion import (rectify_stereo_cameras,
+                                                     undistort_camera)
+    from sba_tpu_torch.models.reconstruction import Reconstruction
+
+    pairs = work / "pairs.txt"
+    pairs.write_text(" ".join(RECT_PAIR) + "\n")
+    out, wall = _run_frontend_cli(
+        ["image_rectifier", "--image_path", str(work / "images"),
+         "--input_path", str(work / "sparse"), "--output_path",
+         str(work / "rect"), "--stereo_pairs_list", str(pairs),
+         "--device", "cuda"], "image_rectifier")
+    d = work / "rect" / "-".join(Path(n).stem for n in RECT_PAIR)
+    rec = Reconstruction.read(str(work / "sparse"))
+    by_name = {im.name: iid for iid, im in rec.images.items()}
+    im1, im2 = (rec.images[by_name[n]] for n in RECT_PAIR)
+    und = undistort_camera(rec.cameras[im1.camera_id])
+    f64 = lambda a: torch.as_tensor(np.asarray(a, np.float64))
+    qi, ti = pose_inverse(f64(im1.qvec), f64(im1.tvec))
+    q, t = pose_product(f64(im2.qvec), f64(im2.tvec), qi, ti)
+    H1, H2, Q = rectify_stereo_cameras(und, und, q.numpy(), t.numpy())
+    Qf = np.loadtxt(d / "Q.txt")
+    require(np.abs(Qf - Q).max() <= 1e-12 * np.abs(Q).max(),
+            f"image_rectifier: Q.txt {Qf} vs {Q}")
+    left = np.asarray(PILImage.open(d / "left.png").convert("L"), np.float64)
+    right = np.asarray(PILImage.open(d / "right.png").convert("L"),
+                       np.float64)
+    fx, fy, cx, cy = und.params
+    K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1.0]])
+    R1, R2 = np_quat_to_rotmat(im1.qvec), np_quat_to_rotmat(im2.qvec)
+    ids2 = set(int(p) for p in im2.point3D_ids if p >= 0)
+    rows, depth_rel, ncc_rows = [], [], []
+    h, w = left.shape
+    r = 5
+    both = sorted(set(int(p) for p in im1.point3D_ids if p >= 0) & ids2)
+    for pid in both[::max(1, len(both) // RECT_GATES["max_points"])]:
+        X = rec.points3D[pid].xyz
+        c1, c2 = R1 @ X + im1.tvec, R2 @ X + im2.tvec
+        if c1[2] <= 0 or c2[2] <= 0:
+            continue
+        x1 = H1 @ (K @ c1)
+        x2 = H2 @ (K @ c2)
+        x1, x2 = x1[:2] / x1[2], x2[:2] / x2[2]
+        if not (r + 4 <= x1[0] < w - r - 4 and r + 4 <= x1[1] < h - r - 4
+                and r + 4 <= x2[0] < w - r - 4
+                and r + 4 <= x2[1] < h - r - 4):
+            continue
+        rows.append(abs(x1[1] - x2[1]))
+        # Q's layout (sba_tpu's, the reference's): f = Q[3,2],
+        # -1/baseline = Q[2,3], principal point (-Q[3,1], -Q[3,0]).
+        disp = x1[0] - x2[0]
+        Z = Q[3, 2] / (Q[2, 3] * disp)
+        P = np.array([(x1[0] + Q[3, 1]) * Z / Q[3, 2],
+                      (x1[1] + Q[3, 0]) * Z / Q[3, 2], Z])
+        depth_rel.append(abs(np.linalg.norm(P) - np.linalg.norm(c1))
+                         / np.linalg.norm(c1))
+        u1, v1 = (int(np.floor(v)) for v in x1)
+        u2, v2 = (int(np.floor(v)) for v in x2)
+        pa = left[v1 - r:v1 + r + 1, u1 - r:u1 + r + 1]
+        best = max(((_ncc(pa, right[v2 + dy - r:v2 + dy + r + 1,
+                                    u2 + dx - r:u2 + dx + r + 1]), dy)
+                    for dy in range(-3, 4) for dx in range(-4, 5)))
+        if best[0] >= RECT_GATES["min_ncc"]:
+            ncc_rows.append(abs(best[1]))
+    g = RECT_GATES
+    share = float(np.mean(np.array(ncc_rows) <= 1)) if ncc_rows else 0.0
+    log("dense-writers", f"image_rectifier {RECT_PAIR}: {wall:.1f} s; "
+        f"{len(rows)} sparse points in both views: row gap through H1/H2 "
+        f"max {max(rows):.2e} px; image patches (NCC >= {g['min_ncc']}) at "
+        f"most 1 row apart for {share:.4f} of {len(ncc_rows)}; depth from "
+        f"Q vs the truth: max rel {max(depth_rel):.2e}")
+    require(len(rows) >= g["min_points"] and max(rows) < 1.0
+            and len(ncc_rows) >= g["min_points"]
+            and share >= g["min_row_share"]
+            and max(depth_rel) < g["max_depth_rel"],
+            "image_rectifier outside RECT_GATES")
+
+
+def _true_overlap(scene, i, j, step=40):
+    """Share of view i's pixels (every `step`th) whose true surface point
+    projects into view j in front of it (SIMPLE_PINHOLE views)."""
+    import numpy as np
+
+    from sba_tpu_torch.geometry.quaternions import np_quat_to_rotmat
+
+    f, cx, cy = scene["camera"]["params"][:3]
+    H, W = scene["depths"].shape[1:]
+    yy, xx = np.meshgrid(np.arange(0, H, step) + 0.5,
+                         np.arange(0, W, step) + 0.5, indexing="ij")
+    d = scene["depths"][i][yy.astype(int), xx.astype(int)]
+    pc = np.stack([(xx - cx) / f * d, (yy - cy) / f * d, d], -1)
+    Ri, Rj = (np_quat_to_rotmat(scene["qvecs"][k]) for k in (i, j))
+    X = (pc.reshape(-1, 3) - scene["tvecs"][i]) @ Ri
+    c = X @ Rj.T + scene["tvecs"][j]
+    u = f * c[:, 0] / c[:, 2] + cx
+    v = f * c[:, 1] / c[:, 2] + cy
+    return float(np.mean((c[:, 2] > 0) & (u >= 0) & (u < W) & (v >= 0)
+                         & (v < H)))
+
+
+def _rankings(out):
+    """{query: [(image, score)]} from `vocab_tree_retriever`'s output."""
+    ranks, query = {}, None
+    for line in out.splitlines():
+        m = re.match(r"(view\d+\.png):$", line)
+        if m:
+            query = m.group(1)
+            ranks[query] = []
+            continue
+        m = re.match(r"  (view\d+\.png)  score=(\S+)$", line)
+        if m and query is not None:
+            ranks[query].append((m.group(1), float(m.group(2))))
+    return ranks
+
+
+def _ranking_twin(card, cpu, tol, tag):
+    """Holds the card's rankings against the CPU's: each image both hold
+    scores within tol on both, and an image only one holds scores within
+    tol of the other's last (a near tie at the cut). Returns the largest
+    score difference and the number of images only one ranking holds."""
+    require(sorted(card) == sorted(cpu) and all(card.values()),
+            f"{tag}: queries differ: {sorted(card)} vs {sorted(cpu)}")
+    worst, cut = 0.0, 0
+    for q in card:
+        a, b = dict(card[q]), dict(cpu[q])
+        for x in a.keys() & b.keys():
+            worst = max(worst, abs(a[x] - b[x]))
+        for x, s, other in [(x, a[x], b) for x in a.keys() - b.keys()] + [
+                (x, b[x], a) for x in b.keys() - a.keys()]:
+            cut += 1
+            require(abs(s - min(other.values())) <= tol,
+                    f"{tag}: {q} ranks {x} ({s}) on one device only")
+    require(worst <= tol, f"{tag}: scores differ by {worst} (> {tol})")
+    return worst, cut
+
+
+def _pairs_twin(card, cpu, full, kth, tol, tag):
+    """Holds the card's set of retrieved pairs against the CPU's: a pair
+    only one holds must score, in the CPU's full ranking of one of its
+    queries, within tol of that query's last retrieved score."""
+    diff = card ^ cpu
+    for a, b in diff:
+        require(any(q in full and abs(full[q][o] - kth[q]) <= tol
+                    for q, o in ((a, b), (b, a))),
+                f"{tag}: pair {(a, b)} retrieved on "
+                f"{'the card' if (a, b) in card else 'the CPU'} only")
+    return len(diff)
+
+
+def phase_retrieval(scene, work):
+    """On the frontend phase's 24-view ring database: `vocab_tree_builder`
+    (16^2 words, up to 100,000 descriptors), `vocab_tree_matcher`
+    (`num_images` 10) on a copy with its matches cleared,
+    `vocab_tree_retriever`, and `sequential_matcher` with loop detection
+    (LOOP_FLAGS) on another cleared copy, all on the card. Every
+    retrieved pair verifies, and loop detection adds pairs beyond the
+    overlap window (>= MIN_SEAM_INLIERS inliers each). Each is then held
+    against the port's CPU path on the same database (RETRIEVAL_TWIN):
+    the card's tree gives the CPU's words, the builder run on the CPU
+    (the same draws) reaches the card's k-means objective, the retriever
+    run on the CPU with the card's tree gives its rankings, and the
+    CPU's retrievals give the matcher's pairs and loop detection's (over
+    the builder's tree), up to near ties at the cut. The true overlap and ring
+    distance of the retrieved pairs are printed beside those of all
+    pairs (every pair of this ring overlaps by more than 0.7, so the
+    truth cannot tell a good ranking from a bad one). The mapper is not
+    rerun."""
+    import numpy as np
+
+    from sba_tpu_torch import cli
+    from sba_tpu_torch.features.pairing import sequential_pairs
+    from sba_tpu_torch.io.database import Database
+    from sba_tpu_torch.retrieval.visual_index import (VisualIndex,
+                                                      vocab_tree_pairs)
+    from sba_tpu_torch.retrieval.vocab_tree import (load_vocab_tree,
+                                                    quantize_descriptors)
+
+    n = FRONTEND_SCENE["num_images"]
+    db = work / "db.db"
+    tree = work / "tree.npz"
+    tw = RETRIEVAL_TWIN
+    secs = {}
+    out, secs["vocab_tree_builder"] = _run_frontend_cli(
+        ["vocab_tree_builder", "--database_path", str(db),
+         "--vocab_tree_path", str(tree), "--device", "cuda"],
+        "vocab_tree_builder")
+    log("retrieval", " | ".join(out.strip().splitlines()[-2:]))
+    require("trained 256-word tree" in out, "vocab_tree_builder: " + out)
+
+    ov = {(a, b): _true_overlap(scene, a, b) for a in range(n)
+          for b in range(n) if a != b}
+    pair_ov = {(a, b): min(ov[a, b], ov[b, a]) for a in range(n)
+               for b in range(a + 1, n)}
+    mean_all = float(np.mean(list(pair_ov.values())))
+    ring_all = np.mean([min(b - a, n - b + a) for a, b in pair_ov])
+
+    def cleared(name):
+        path = work / name
+        shutil.copy(db, path)
+        _run_frontend_cli(["database_cleaner", "--database_path", str(path),
+                           "--type", "matches"], "database_cleaner")
+        return path
+
+    def geometries(path):
+        h = Database(str(path))
+        try:
+            names = {i: _scene_index(im["name"])
+                     for i, im in h.read_images().items()}
+            return {tuple(sorted((names[a], names[b]))):
+                    len(g["inlier_matches"]) for (a, b), g in
+                    h.read_all_two_view_geometries().items()}
+        finally:
+            h.close()
+
+    vt = cleared("vt.db")
+    out, secs["vocab_tree_matcher"] = _run_frontend_cli(
+        ["vocab_tree_matcher", "--database_path", str(vt),
+         "--vocab_tree_path", str(tree), "--VocabTreeMatching.num_images",
+         "10", "--device", "cuda"], "vocab_tree_matcher")
+    v = re.search(r"verified (\d+)/(\d+) retrieved pairs", out)
+    require(v is not None, "vocab_tree_matcher: " + out[-2000:])
+    got = geometries(vt)
+    log("retrieval", f"vocab_tree_matcher: {v.group(1)}/{v.group(2)} "
+        f"retrieved pairs verified; ring distance of the pairs mean "
+        f"{np.mean([min(b - a, n - b + a) for a, b in got]):.2f} (all "
+        f"pairs {ring_all:.2f}); true overlap min "
+        f"{min(pair_ov[p] for p in got):.3f}, mean "
+        f"{np.mean([pair_ov[p] for p in got]):.3f} (all pairs "
+        f"{mean_all:.3f}); " + " | ".join(
+            l for l in out.splitlines() if l.startswith(("retrieval", "match"))))
+    require(len(got) == int(v.group(1)) == int(v.group(2)) > 0,
+            "vocab_tree_matcher: a retrieved pair not verified")
+
+    out, secs["vocab_tree_retriever"] = _run_frontend_cli(
+        ["vocab_tree_retriever", "--database_path", str(db),
+         "--vocab_tree_path", str(tree), "--num_images", "10",
+         "--device", "cuda"], "vocab_tree_retriever")
+    ranks = _rankings(out)
+    require(len(ranks) == n, f"vocab_tree_retriever: {len(ranks)} rankings")
+    top = [tuple(sorted((_scene_index(q), _scene_index(r[0][0]))))
+           for q, r in ranks.items()]
+    log("retrieval", f"vocab_tree_retriever: the best-ranked image of each "
+        f"of {n} queries: true overlap min "
+        f"{min(pair_ov[p] for p in top):.3f}, mean "
+        f"{np.mean([pair_ov[p] for p in top]):.3f}; ring distance mean "
+        f"{np.mean([min(b - a, n - b + a) for a, b in top]):.2f}; "
+        + out.strip().splitlines()[-1])
+
+    loop = cleared("loop.db")
+    loop_flags = (*LOOP_FLAGS, "--SequentialMatching.vocab_tree_path",
+                  str(tree))
+    out, secs["sequential_matcher (loop detection)"] = _run_frontend_cli(
+        ["sequential_matcher", "--database_path", str(loop), *loop_flags,
+         "--device", "cuda"], "sequential_matcher")
+    added = re.search(r"loop detection added (\d+) retrieved pairs", out)
+    require(added is not None, "sequential_matcher: " + out[-2000:])
+    stored = geometries(loop)
+    # Pairs the overlap window cannot make join views more than 2 apart
+    # in the sequence; those at ring distance <= 2 close the ring's seam.
+    beyond = {p: k for p, k in stored.items() if p[1] - p[0] > 2}
+    ok = [p for p, k in beyond.items() if k >= MIN_SEAM_INLIERS]
+    seam = [p for p in beyond if min(p[1] - p[0], n - p[1] + p[0]) <= 2]
+    log("retrieval", f"sequential_matcher with loop detection: "
+        f"{added.group(1)} retrieved pairs added, {len(stored)} pairs "
+        f"stored; {len(beyond)} beyond the overlap window, {len(ok)} of "
+        f"them verified (>= {MIN_SEAM_INLIERS} inliers); at the ring's seam "
+        f"(ring distance <= 2): {sorted(seam)}")
+    require(int(added.group(1)) == len(beyond) >= 1
+            and len(ok) == len(beyond),
+            "loop detection: retrieved pairs missing or not verified")
+
+    # Card = CPU, on the same database.
+    t = time.perf_counter()
+    tree_cpu = work / "tree_cpu.npz"
+    _run_frontend_cli(
+        ["vocab_tree_builder", "--database_path", str(db),
+         "--vocab_tree_path", str(tree_cpu), "--device", "cpu"],
+        "vocab_tree_builder (CPU)")
+    out_cpu, _ = _run_frontend_cli(
+        ["vocab_tree_retriever", "--database_path", str(db),
+         "--vocab_tree_path", str(tree), "--num_images", "10",
+         "--device", "cpu"], "vocab_tree_retriever (CPU)")
+    r_worst, r_cut = _ranking_twin(ranks, _rankings(out_cpu),
+                                   tw["score_tol"], "vocab_tree_retriever")
+    h = Database(str(db))
+    try:
+        images = h.read_images()
+        ids = sorted(images)
+        sidx = {i: _scene_index(images[i]["name"]) for i in ids}
+        descs = {i: cli._unit_descriptors(h, i) for i in ids}
+        flags = dict(zip((f[2:] for f in loop_flags[::2]), loop_flags[1::2]))
+        window = list(sequential_pairs(len(ids), overlap=2,
+                                       quadratic_overlap=False))
+        index_l, _ = cli._loop_detection_index(h, ids, flags, "cpu")
+    finally:
+        h.close()
+    card_tree = load_vocab_tree(str(tree), device="cuda")
+    host_tree = load_vocab_tree(str(tree), device="cpu")
+    cpu_tree = load_vocab_tree(str(tree_cpu), device="cpu")
+    x = np.concatenate(list(descs.values()))
+    w_card = quantize_descriptors(card_tree, x).cpu().numpy()
+    w_host = quantize_descriptors(host_tree, x).numpy()
+    w_cpu = quantize_descriptors(cpu_tree, x).numpy()
+    q_share = float(np.mean(w_card == w_host))
+    b_share = float(np.mean(w_host == w_cpu))
+
+    def objective(t, w):
+        leaf = t.centers[-1].reshape(-1, x.shape[1]).numpy()[w]
+        return float(np.mean(np.sum(x * leaf, 1)))
+
+    j_card, j_cpu = objective(host_tree, w_host), objective(cpu_tree, w_cpu)
+
+    def full_ranking(index, exclude):
+        return {sidx[i]: {sidx[j]: s for j, s in index.query(
+            descs[i], num_images=n, exclude_image_id=i if exclude else None)}
+            for i in ids}
+
+    index = VisualIndex(host_tree)
+    for i in ids:
+        index.add_image(i, descs[i])
+    index.prepare()
+    full = full_ranking(index, True)
+    kth = {q: sorted(r.values())[-10] for q, r in full.items()}
+    cpu_pairs = {tuple(sorted((sidx[a], sidx[b])))
+                 for a, b in vocab_tree_pairs(index, descs, 10)}
+    m_diff = _pairs_twin(set(got), cpu_pairs, full, kth, tw["score_tol"],
+                         "vocab_tree_matcher")
+    period = int(flags["SequentialMatching.loop_detection_period"])
+    num = int(flags["SequentialMatching.loop_detection_num_images"])
+    full_l = {q: r for q, r in full_ranking(index_l, False).items()
+              if q % period == 0}
+    kth_l = {q: sorted(r.values())[-num] for q, r in full_l.items()}
+    loop_cpu = {tuple(sorted((sidx[ids[a]], sidx[ids[b]]))) for a, b in
+                cli._loop_detection_pairs(index_l, descs, ids, window,
+                                          flags)}
+    l_diff = _pairs_twin(set(beyond), loop_cpu, full_l, kth_l,
+                         tw["score_tol"], "loop detection")
+    log("retrieval", f"card = CPU ({time.perf_counter() - t:.1f} s): "
+        f"words of {len(x)} descriptors through the card's tree on the "
+        f"card and the CPU equal {100 * q_share:.4f}%; k-means objective "
+        f"of the tree built on the card {j_card:.6f}, on the CPU (same "
+        f"draws) {j_cpu:.6f} (their words equal {100 * b_share:.2f}%); "
+        f"retriever scores within {r_worst:.3g}, {r_cut} images at a cut "
+        f"on one device only; matcher pairs {len(got)} on the card, "
+        f"{len(cpu_pairs)} on the CPU, {m_diff} differ; loop-detection "
+        f"pairs {len(beyond)} and {len(loop_cpu)}, {l_diff} differ (each "
+        f"at a near tie)")
+    require(q_share >= tw["quantize_share"],
+            "retrieval: the card's words are not the CPU's")
+    require(abs(j_card - j_cpu) <= tw["objective_tol"],
+            "retrieval: the card's k-means objective is not the CPU's")
+    log("retrieval", "seconds per command: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in secs.items()))
 
 
 # ---------------------------------------------------------------------------
@@ -3459,6 +4072,10 @@ PG_MEAS_NOISE = 3e-3
 PG_DRIFT = dict(rot=2e-3, center=0.02, log_scale=2e-3)
 PG_GATES = dict(min_rel_drift_drop=10.0, cost_rtol=1e-3,
                 cli_max_center_frac=1e-4, cli_max_rot_deg=1e-3)
+# Permuted edge lists solved in float32 besides the given order: each
+# sums the segments in another order, so the gate's margin is read
+# against several roundings, not one.
+PG_EDGE_ORDERS = 2
 
 
 def _rec_from_observations(cameras, img_cam, qvecs, tvecs, names, points,
@@ -3535,8 +4152,8 @@ def phase_pose_graph():
     from a drifted start: SE3 with Huber, then Sim3 with scale drift, at
     sba_tpu's defaults (50 LM, 50 CG iterations). PG_GATES: the cost
     falls, the relative drift against the truth falls by
-    min_rel_drift_drop, and the final cost equals the float64 CPU
-    solve's at cost_rtol."""
+    min_rel_drift_drop, and the final cost equals the float64 solve's
+    (on the card: the CPU's took ~27 s of the phase) at cost_rtol."""
     import numpy as np
     import torch
 
@@ -3594,39 +4211,54 @@ def phase_pose_graph():
                   else np.zeros(e))
         drift0 = _drifts(q0, t0, ls0, truth)
         opt = PoseGraphOptions(sim3=sim3, loss="huber")
+        start = dict(qvecs=q0, tvecs=t0, log_scales=ls0, rel_q=rel_q,
+                     rel_t=rel_t, rel_log_s=rel_ls)
+        base = prob64._replace(**{k: torch.as_tensor(v) for k, v
+                                  in start.items()})
+        orders = [None] + [torch.as_tensor(
+            np.random.default_rng(100 + k).permutation(e))
+            for k in range(PG_EDGE_ORDERS)]
+        runs = [(torch.float32, k) for k in range(len(orders))] + [
+            (torch.float64, 0)]
         costs, drift = {}, {}
-        for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
-            start = dict(qvecs=q0, tvecs=t0, log_scales=ls0, rel_q=rel_q,
-                         rel_t=rel_t, rel_log_s=rel_ls)
-            prob = prob64._replace(**{k: torch.as_tensor(v) for k, v
-                                      in start.items()})
+        for dtype, k in runs:
+            prob = base
+            if orders[k] is not None:
+                prob = prob._replace(**{f: getattr(prob, f)[orders[k]] for f
+                                        in ("edge_i", "edge_j", "rel_q",
+                                            "rel_t", "rel_log_s",
+                                            "sqrt_info", "edge_mask")})
             prob = prob._replace(**{
-                f: (v.to(dtype) if v.is_floating_point() else v).to(dev)
+                f: (v.to(dtype) if v.is_floating_point() else v).to("cuda")
                 for f, v in prob._asdict().items()})
-            if dev == "cuda":
-                torch.cuda.synchronize()
+            torch.cuda.synchronize()
             t = time.perf_counter()
             out, s = optimize_pose_graph(prob, opt)
             c1 = float(s.final_cost)
             wall = time.perf_counter() - t
-            costs[dev] = (float(s.initial_cost), c1)
-            drift[dev] = _drifts(*(v.double().cpu().numpy() for v in (
+            costs[dtype, k] = (float(s.initial_cost), c1)
+            drift[dtype, k] = _drifts(*(v.double().cpu().numpy() for v in (
                 out.qvecs, out.tvecs, out.log_scales)), truth)
             its = s.cg_iterations[:s.num_iterations].tolist()
-            log("pose-graph", f"{tag} [{dev}, {dtype}]: {n} poses, {e} edges "
-                f"(graph built in {t_graph:.2f} s), cost {costs[dev][0]:.6g}"
-                f" -> {c1:.6g} in {s.num_iterations} LM iterations, CG "
-                f"iterations per LM iteration {its}; drift (relative, "
-                f"absolute) {drift0[0]:.6f}, {drift0[1]:.5f} -> "
-                f"{drift[dev][0]:.6f}, {drift[dev][1]:.5f}; {wall:.2f} s wall")
-        rc = abs(costs["cuda"][1] - costs["cpu"][1]) / costs["cpu"][1]
-        drop = [drift0[k] / drift["cuda"][k] for k in (0, 1)]
-        log("pose-graph", f"{tag}: final cost card (float32) vs CPU "
-            f"(float64) rel {rc:.3g}; relative drift fell {drop[0]:.1f}x, "
-            f"absolute drift {drop[1]:.3f}x")
-        require(costs["cuda"][1] < costs["cuda"][0]
+            log("pose-graph", f"{tag} [cuda, {dtype}, edge order {k}]: {n} "
+                f"poses, {e} edges (graph built in {t_graph:.2f} s), cost "
+                f"{costs[dtype, k][0]:.6g} -> {c1:.6g} in {s.num_iterations} "
+                f"LM iterations, CG iterations per LM iteration {its}; drift "
+                f"(relative, absolute) {drift0[0]:.6f}, {drift0[1]:.5f} -> "
+                f"{drift[dtype, k][0]:.6f}, {drift[dtype, k][1]:.5f}; "
+                f"{wall:.2f} s wall")
+        f64 = costs[torch.float64, 0][1]
+        rcs = [abs(costs[torch.float32, k][1] - f64) / f64
+               for k in range(len(orders))]
+        drop = [drift0[i] / drift[torch.float32, 0][i] for i in (0, 1)]
+        log("pose-graph", f"{tag}: final cost float32 vs float64 (both on "
+            f"the card) rel {', '.join(f'{r:.3g}' for r in rcs)} (edge "
+            f"orders 0-{len(orders) - 1}; largest {max(rcs):.3g}); relative "
+            f"drift fell {drop[0]:.1f}x, absolute drift {drop[1]:.3f}x")
+        require(all(costs[torch.float32, k][1] < costs[torch.float32, k][0]
+                    for k in range(len(orders)))
                 and drop[0] >= PG_GATES["min_rel_drift_drop"]
-                and rc <= PG_GATES["cost_rtol"],
+                and max(rcs) <= PG_GATES["cost_rtol"],
                 f"pose-graph {tag}: outside PG_GATES: costs {costs}, drift "
                 f"{drift0} -> {drift}")
     log("pose-graph", f"scene model built in {t_rec:.1f} s "
@@ -4069,7 +4701,12 @@ def main() -> int:
     run("cli", phase_cli)
     scene = run("mvs", phase_mvs_scene)
     ncc_err, ncc_inputs = run("twins-mvs", phase_twins_mvs, scene)
-    ncc_launches, pm_solve, pm_ms = run("mvs", phase_mvs, scene)
+    ncc_launches, pm_solve, pm_ms, mvs_work = run("mvs", phase_mvs, scene)
+    try:
+        run("meshing", phase_meshing, scene, mvs_work)
+        run("dense-writers", phase_dense_writers, scene, mvs_work)
+    finally:
+        shutil.rmtree(mvs_work, ignore_errors=True)
     del scene
     probe_in, gather_errs = run("twins-sba", phase_twins_sba)
     gather_launches, sba_ctx, sba_ms, pair_launches = run("sba", phase_sba)
@@ -4081,6 +4718,7 @@ def main() -> int:
     fe_scene, fe_work = run("frontend", phase_frontend)
     fe_full = run("twins-frontend", phase_twins_frontend_full, fe_scene)
     try:
+        run("retrieval", phase_retrieval, fe_scene, fe_work)
         init = run("mapper", phase_mapper, fe_scene, fe_work)
         run("twins-mapper", phase_twins_mapper, fe_work, init)
         run("pose-graph", phase_cli_pose_graph, fe_scene, fe_work)

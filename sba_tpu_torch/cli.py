@@ -1,8 +1,9 @@
 """`colmap`-style command line of the port: the database commands,
-the front end (features, matching, verification), the incremental and
-hierarchical mappers and their commands, the pose graph, model merging,
-global and rig BA, semantic and geometric-semantic BA, and the dense
-chain.
+the front end (features, matching, verification), retrieval (the
+vocabulary tree and loop detection), the incremental and hierarchical
+mappers and their commands, the pose graph, model merging, global and
+rig BA, semantic and geometric-semantic BA, and the dense chain from
+undistortion and rectification to meshing.
 
     python -m sba_tpu_torch.cli database_creator --database_path db.db
     python -m sba_tpu_torch.cli database_cleaner --database_path db.db \
@@ -20,7 +21,8 @@ chain.
     python -m sba_tpu_torch.cli image_registrator --database_path db.db \
         --input_path sparse/0 --output_path reg/
     python -m sba_tpu_torch.cli automatic_reconstructor \
-        --workspace_path ws/ --image_path imgs/ [--dense 0]
+        --workspace_path ws/ --image_path imgs/ [--dense 1] \
+        [--mesher poisson|delaunay]
     python -m sba_tpu_torch.cli hierarchical_mapper --database_path db.db \
         --output_path sparse/ [--SceneClustering.leaf_max_num_images 500] \
         [--SceneClustering.image_overlap 50] [--leaf_output_path leaves/]
@@ -45,6 +47,18 @@ chain.
     python -m sba_tpu_torch.cli patch_match_stereo --workspace_path ws
     python -m sba_tpu_torch.cli stereo_fuser --workspace_path ws \
         --output_path ws/fused.ply
+    python -m sba_tpu_torch.cli poisson_mesher --input_path ws \
+        --output_path ws/meshed-poisson.ply [--Meshing.voxel_size 0.05]
+    python -m sba_tpu_torch.cli image_undistorter --image_path images \
+        --input_path sparse/0 --output_path pmvs_ws --output_type PMVS
+    python -m sba_tpu_torch.cli image_rectifier --image_path images \
+        --input_path sparse/0 --output_path rect --stereo_pairs_list p.txt
+    python -m sba_tpu_torch.cli vocab_tree_builder --database_path db.db \
+        --vocab_tree_path tree.npz [--VocabTree.branching 16]
+    python -m sba_tpu_torch.cli vocab_tree_matcher --database_path db.db \
+        --vocab_tree_path tree.npz [--VocabTreeMatching.num_images 10]
+    python -m sba_tpu_torch.cli vocab_tree_retriever --database_path db.db \
+        --vocab_tree_path tree.npz [--num_images 10]
 
 Flags, file layout and printed lines follow sba_tpu's CLI. ``--device``
 (default "cuda") selects where a command runs; the database commands
@@ -62,9 +76,14 @@ sba_tpu's lines, their seconds in BA, in RANSAC and on the host;
 hierarchical_mapper also splits its wall into the leaves' mappers,
 merging and the seam relaxation (a float64 pose graph on the device).
 pose_graph_optimizer solves in float32 and rig_bundle_adjuster in
-float64 on the device; model_merger is host work.
-``automatic_reconstructor --dense 1`` raises: its chain ends in the
-meshers, which are not ported yet.
+float64 on the device; model_merger is host work. The meshers fuse a
+TSDF of the depth maps on the device and extract the surface on the
+host; image_rectifier warps on the device; the vocab-tree commands and
+``sequential_matcher --SequentialMatching.loop_detection 1`` train and
+quantize on the device and keep the index on the host.
+``automatic_reconstructor --dense 1`` goes on from the sparse model
+through image_undistorter, patch_match_stereo (K6), stereo_fuser and a
+mesher.
 """
 
 from __future__ import annotations
@@ -401,17 +420,28 @@ def run_exhaustive_matcher(flags):
     print(f"verified {n}/{len(pairs)} pairs")
 
 
+def _unit_descriptors(db, iid):
+    d = db.read_descriptors(iid).astype(np.float32)
+    return d / np.maximum(np.linalg.norm(d, axis=-1, keepdims=True), 1e-9)
+
+
 def run_sequential_matcher(flags):
     """Ref: exe/feature.cc:298: image i against i+1..i+overlap and the
-    quadratic jumps i+2^k. `SequentialMatching.loop_detection 1` needs
-    the vocabulary tree, which is not ported yet, and fails."""
+    quadratic jumps i+2^k. With `SequentialMatching.loop_detection` every
+    `loop_detection_period`-th image also queries a vocab-tree index of
+    all images and is matched against its top
+    `loop_detection_num_images` retrievals (ref: feature/matching.h:63-85,
+    matching.cc SequentialFeatureMatcher::RunLoopDetection). Without
+    `SequentialMatching.vocab_tree_path` an 8x8 tree is built on the
+    device from the run's own descriptors, as in sba_tpu."""
     from sba_tpu_torch.features.pairing import sequential_pairs
     from sba_tpu_torch.io.database import Database
 
     (db_path,) = _require(flags, "database_path")
-    if flags.get("SequentialMatching.loop_detection", "0") not in _FALSE:
-        raise SystemExit("--SequentialMatching.loop_detection needs the "
-                         "vocabulary tree, which is not ported yet")
+    loop = flags.get("SequentialMatching.loop_detection", "0") in (
+        "1", "true", "True")
+    if loop:
+        device = _frontend_device(dict(flags), "SiftMatching")
     db = Database(db_path)
     image_ids = sorted(db.read_images())
     overlap = int(flags.get("SequentialMatching.overlap", "10"))
@@ -419,9 +449,193 @@ def run_sequential_matcher(flags):
         "1", "true", "True")
     pairs = list(sequential_pairs(len(image_ids), overlap=overlap,
                                   quadratic_overlap=quad))
+    if loop and len(image_ids) > 2:
+        t0 = time.perf_counter()
+        index, descs = _loop_detection_index(db, image_ids, flags, device)
+        added = _loop_detection_pairs(index, descs, image_ids, pairs, flags)
+        pairs.extend(added)
+        print(f"loop detection added {len(added)} retrieved pairs")
+        print(f"loop detection: {time.perf_counter() - t0:.3f} s "
+              f"[{device}]")
     n = _match_and_verify(db, pairs, image_ids, flags)
     db.close()
     print(f"verified {n}/{len(pairs)} pairs")
+
+
+def _loop_detection_index(db, image_ids, flags, device):
+    """(The loop-detection index of all images, their unit descriptors):
+    over `SequentialMatching.vocab_tree_path`'s tree, else over an 8x8
+    tree built on `device` from up to 256 descriptors an image (20,000
+    in all), as in sba_tpu."""
+    from sba_tpu_torch.retrieval.visual_index import VisualIndex
+    from sba_tpu_torch.retrieval.vocab_tree import (build_vocab_tree,
+                                                    load_any_vocab_tree)
+
+    descs = {iid: _unit_descriptors(db, iid) for iid in image_ids}
+    tree_path = flags.get("SequentialMatching.vocab_tree_path")
+    if tree_path:
+        tree = load_any_vocab_tree(tree_path, device=device)
+    else:
+        sample = np.concatenate([d[:256] for d in descs.values()])[:20000]
+        tree = build_vocab_tree(sample, branching=8, depth=2, device=device)
+    index = VisualIndex(tree)
+    for iid in image_ids:
+        index.add_image(iid, descs[iid])
+    index.prepare()
+    return index, descs
+
+
+def _loop_detection_pairs(index, descs, image_ids, pairs, flags):
+    """The pairs (positions in image_ids, a < b, in the order found) of
+    every `loop_detection_period`-th image and each of its top
+    `loop_detection_num_images` retrievals (itself among them) that are
+    not in `pairs`."""
+    period = int(flags.get("SequentialMatching.loop_detection_period", "10"))
+    num_imgs = int(flags.get(
+        "SequentialMatching.loop_detection_num_images", "50"))
+    pos = {iid: k for k, iid in enumerate(image_ids)}
+    have = set(map(tuple, pairs))
+    added = []
+    for k, iid in enumerate(image_ids):
+        if k % max(period, 1) != 0:
+            continue
+        for jid, _score in index.query(descs[iid], num_images=num_imgs):
+            if jid == iid:
+                continue
+            a, b = sorted((pos[iid], pos[jid]))
+            if (a, b) not in have:
+                have.add((a, b))
+                added.append((a, b))
+    return added
+
+
+# ---------------------------------------------------------------------------
+# vocabulary tree commands (ref: exe/vocab_tree.cc, exe/feature.cc)
+# ---------------------------------------------------------------------------
+
+
+def run_vocab_tree_builder(flags):
+    """Train a vocabulary tree on the device from database descriptors
+    (ref: exe/vocab_tree.cc RunVocabTreeBuilder)."""
+    from sba_tpu_torch.io.database import Database
+    from sba_tpu_torch.retrieval.vocab_tree import (build_vocab_tree,
+                                                    save_vocab_tree)
+
+    db_path, out = _require(flags, "database_path", "vocab_tree_path")
+    device = _device(flags)
+    branching = int(flags.get("VocabTree.branching", "16"))
+    depth = int(flags.get("VocabTree.depth", "2"))
+    max_train = int(flags.get("VocabTree.max_num_descriptors", "100000"))
+    db = Database(db_path)
+    descs = []
+    for iid in sorted(db.read_images()):
+        d = _unit_descriptors(db, iid)
+        if len(d):
+            descs.append(d)
+    db.close()
+    if not descs:
+        raise SystemExit("no descriptors in database")
+    d = np.concatenate(descs)
+    if len(d) > max_train:
+        d = d[np.random.default_rng(0).choice(len(d), max_train,
+                                              replace=False)]
+    t = time.perf_counter()
+    tree = build_vocab_tree(d, branching=branching, depth=depth,
+                            device=device)
+    _sync(device)
+    t = time.perf_counter() - t
+    save_vocab_tree(tree, out)
+    print(f"trained {tree.num_words}-word tree on {len(d)} descriptors "
+          f"-> {out}")
+    print(f"vocab tree: {t:.3f} s of k-means [{device}]")
+
+
+def run_vocab_tree_matcher(flags):
+    """Retrieval-based matching (ref: exe/feature.cc:385
+    RunVocabTreeMatcher): each image's top `VocabTreeMatching.num_images`
+    retrievals are matched and verified."""
+    from sba_tpu_torch.io.database import Database
+    from sba_tpu_torch.retrieval.visual_index import (VisualIndex,
+                                                      vocab_tree_pairs)
+    from sba_tpu_torch.retrieval.vocab_tree import load_any_vocab_tree
+
+    db_path, tree_path = _require(flags, "database_path", "vocab_tree_path")
+    device = _frontend_device(dict(flags), "SiftMatching")
+    num_imgs = int(flags.get("VocabTreeMatching.num_images", "10"))
+    tree = load_any_vocab_tree(tree_path, device=device)
+    db = Database(db_path)
+    image_ids = sorted(db.read_images())
+    t = time.perf_counter()
+    index = VisualIndex(tree)
+    queries = {}
+    for iid in image_ids:
+        d = _unit_descriptors(db, iid)
+        index.add_image(iid, d)
+        queries[iid] = d
+    index.prepare()
+    id_pairs = vocab_tree_pairs(index, queries, num_images=num_imgs)
+    print(f"retrieval: {len(id_pairs)} pairs in "
+          f"{time.perf_counter() - t:.3f} s [{device}]")
+    # vocab_tree_pairs returns IMAGE-ID pairs; _match_and_verify takes
+    # positional indices into image_ids.
+    pos = {iid: k for k, iid in enumerate(image_ids)}
+    pairs = np.asarray([[pos[a], pos[b]] for a, b in id_pairs], np.int64)
+    n = _match_and_verify(db, pairs, image_ids, flags)
+    db.close()
+    print(f"verified {n}/{len(pairs)} retrieved pairs")
+
+
+def run_vocab_tree_retriever(flags):
+    """Rank database images for query images via the vocab tree
+    (ref: exe/vocab_tree.cc:155 RunVocabTreeRetriever); the descriptors
+    go in as stored (uint8), as in sba_tpu."""
+    from sba_tpu_torch.io.database import Database
+    from sba_tpu_torch.retrieval.visual_index import VisualIndex
+    from sba_tpu_torch.retrieval.vocab_tree import load_any_vocab_tree
+
+    db_path, tree_path = _require(flags, "database_path",
+                                  "vocab_tree_path")
+    device = _device(flags)
+    num_images = int(flags.get("num_images", 10))
+    tree = load_any_vocab_tree(tree_path, device=device)
+    db = Database(db_path)
+    names = {iid: img["name"] for iid, img in db.read_images().items()}
+
+    def id_list(path_key):
+        p = flags.get(path_key)
+        if not p:
+            return sorted(names)
+        with open(p) as f:
+            wanted = {l.strip() for l in f if l.strip()}
+        return sorted(i for i, n in names.items() if n in wanted)
+
+    t = time.perf_counter()
+    index = VisualIndex(tree)
+    db_ids = id_list("database_image_list_path")
+    descs = {}
+    for iid in db_ids:
+        d = db.read_descriptors(iid)
+        if len(d):
+            index.add_image(iid, d)
+            descs[iid] = d
+    index.prepare()
+    n_q = 0
+    for iid in id_list("query_image_list_path"):
+        d = descs.get(iid)
+        if d is None:
+            d = db.read_descriptors(iid)
+        if not len(d):
+            continue
+        ranked = index.query(d, num_images=num_images)
+        n_q += 1
+        print(f"{names[iid]}:")
+        for other, score in ranked:
+            if other == iid:
+                continue
+            print(f"  {names[other]}  score={score:.4f}")
+    db.close()
+    print(f"retrieval: {n_q} queries against {index.num_images()} images "
+          f"in {time.perf_counter() - t:.3f} s [{device}]")
 
 
 # ---------------------------------------------------------------------------
@@ -747,26 +961,25 @@ def run_image_registrator(flags):
 
 
 def run_automatic_reconstructor(flags):
-    """One command from images to a sparse model: database_creator,
-    feature_extractor, exhaustive_matcher, mapper (ref: exe/sfm.cc:50
-    RunAutomaticReconstructor). `--dense 1` would go on through the
-    dense chain to the Poisson or Delaunay mesher, which are not ported
-    yet: it raises before any work."""
+    """One command from images to a model: database_creator,
+    feature_extractor, exhaustive_matcher, mapper and, with `--dense 1`,
+    image_undistorter, patch_match_stereo, stereo_fuser and the Poisson
+    or Delaunay mesher (`--mesher`) (ref: exe/sfm.cc:50
+    RunAutomaticReconstructor -> controllers/automatic_reconstruction.cc:139)."""
     workspace, image_path = _require(flags, "workspace_path", "image_path")
-    if flags.get("dense", "0") in ("1", "true", "True"):
-        raise SystemExit(
-            "--dense 1 ends in the Poisson and Delaunay meshers, which are "
-            "not ported yet (ROADMAP Queue 1, item 2); run --dense 0, "
-            "then image_undistorter, patch_match_stereo and stereo_fuser")
-    _device(flags)
+    device = _device(flags)
     quality = flags.get("quality", "high")
+    dense = flags.get("dense", "0") in ("1", "true", "True")
+    mesher = flags.get("mesher", "poisson")
+    if dense and mesher not in ("poisson", "delaunay"):
+        raise SystemExit("ERROR: Invalid `mesher` - supported values "
+                         "are {'poisson', 'delaunay'}.")
     db_path = os.path.join(workspace, "database.db")
     sparse = os.path.join(workspace, "sparse")
     os.makedirs(workspace, exist_ok=True)
 
-    base = dict(flags)
-    base.pop("dense", None)
-    base.pop("quality", None)
+    base = {k: v for k, v in flags.items()
+            if k not in ("dense", "quality", "mesher")}
     base["database_path"] = db_path
     run_database_creator({"database_path": db_path})
     fe = dict(base)
@@ -778,6 +991,24 @@ def run_automatic_reconstructor(flags):
     mp = dict(base)
     mp["output_path"] = sparse
     run_mapper(mp)
+    if dense:
+        und = os.path.join(workspace, "dense")
+        dev = {"device": device}
+        run_image_undistorter({"image_path": image_path,
+                               "input_path": os.path.join(sparse, "0"),
+                               "output_path": und, **dev})
+        run_patch_match_stereo({"workspace_path": und, **dev, **{
+            k: v for k, v in flags.items()
+            if k.startswith("PatchMatchStereo.")}})
+        run_stereo_fuser({"workspace_path": und, **dev,
+                          "output_path": os.path.join(und, "fused.ply")})
+        # Meshing step (ref: automatic_reconstruction.cc:244-251,324-330).
+        mesh_flags = {k: v for k, v in flags.items()
+                      if k.startswith("PoissonMeshing.")
+                      or k.startswith("DelaunayMeshing.")}
+        mesh_flags.update(dev, input_path=und, output_path=os.path.join(
+            und, f"meshed-{mesher}.ply"))
+        run_mesher(mesh_flags)
     print(f"automatic reconstruction complete -> {workspace}")
 
 
@@ -900,10 +1131,12 @@ def _pinhole_K(rec, iid):
 
 def run_image_undistorter(flags):
     """Undistort images + model for MVS (ref: exe/image.cc:305
-    RunImageUndistorter). --output_type COLMAP writes
-    <out>/{images,sparse,stereo} + patch-match.cfg / fusion.cfg / run
-    scripts (undistortion.cc:271-300); the PMVS and CMP-MVS outputs are
-    not ported yet."""
+    RunImageUndistorter). --output_type {COLMAP, PMVS, CMP-MVS}:
+    COLMAP writes <out>/{images,sparse,stereo} + patch-match.cfg /
+    fusion.cfg / run scripts (undistortion.cc:271-300); PMVS writes the
+    pmvs/ workspace (bundle.rd.out, vis.dat, option-all,
+    undistortion.cc:314-366); CMP-MVS writes %05d.jpg + %05d_P.txt
+    (undistortion.cc:540-596). The warps run on the device."""
     import copy
 
     import torch
@@ -913,7 +1146,9 @@ def run_image_undistorter(flags):
         UndistortCameraOptions,
         undistort_reconstruction,
         warp_image_between_cameras,
+        write_cmpmvs_workspace,
         write_colmap_workspace_configs,
+        write_pmvs_workspace,
     )
     from sba_tpu_torch.models.reconstruction import Reconstruction
 
@@ -923,9 +1158,6 @@ def run_image_undistorter(flags):
     if output_type not in ("COLMAP", "PMVS", "CMP-MVS"):
         raise SystemExit("ERROR: Invalid `output_type` - supported values "
                          "are {'COLMAP', 'PMVS', 'CMP-MVS'}.")
-    if output_type != "COLMAP":
-        raise NotImplementedError(
-            f"--output_type {output_type} is not ported yet (COLMAP only)")
     device = _device(flags)
     num_src = int(flags.get("num_patch_match_src_images", "20"))
     opt = apply_flags(UndistortCameraOptions(), "UndistortCamera", flags)
@@ -946,24 +1178,89 @@ def run_image_undistorter(flags):
         undistorted[iid] = torch.clamp(warped * 255, 0, 255).to(
             torch.uint8).cpu().numpy()
 
-    img_out = os.path.join(output_path, "images")
-    os.makedirs(img_out, exist_ok=True)
-    names = []
-    for iid, image in rec.images.items():
-        if iid not in undistorted:
-            continue
-        dst = os.path.join(img_out, image.name)
-        os.makedirs(os.path.dirname(dst) or img_out, exist_ok=True)
-        PILImage.fromarray(undistorted[iid]).save(dst)
-        names.append(image.name)
-    sparse_out = os.path.join(output_path, "sparse")
-    os.makedirs(sparse_out, exist_ok=True)
-    rec.write(sparse_out)
-    write_colmap_workspace_configs(output_path, sorted(names),
-                                   num_patch_match_src_images=num_src)
+    if output_type == "COLMAP":
+        img_out = os.path.join(output_path, "images")
+        os.makedirs(img_out, exist_ok=True)
+        names = []
+        for iid, image in rec.images.items():
+            if iid not in undistorted:
+                continue
+            dst = os.path.join(img_out, image.name)
+            os.makedirs(os.path.dirname(dst) or img_out, exist_ok=True)
+            PILImage.fromarray(undistorted[iid]).save(dst)
+            names.append(image.name)
+        sparse_out = os.path.join(output_path, "sparse")
+        os.makedirs(sparse_out, exist_ok=True)
+        rec.write(sparse_out)
+        write_colmap_workspace_configs(output_path, sorted(names),
+                                       num_patch_match_src_images=num_src)
+    elif output_type == "PMVS":
+        write_pmvs_workspace(output_path, rec, undistorted)
+    else:
+        write_cmpmvs_workspace(output_path, rec, undistorted)
     print(f"undistorted {len(undistorted)} images "
           f"({output_type}) -> {output_path}")
     _print_ncc_launches(device)
+
+
+def run_image_rectifier(flags):
+    """Undistort + planar-rectify stereo pairs (ref: exe/image.cc:204
+    RunImageRectifier; stereo_pairs_list = two image names per line).
+    Each pair's relative pose comes from the model's poses; the warps run
+    on the device in float64 pixel positions. Writes <pair>/left.png,
+    right.png and Q.txt."""
+    import torch
+    from PIL import Image as PILImage
+
+    from sba_tpu_torch.geometry.quaternions import (pose_inverse,
+                                                    pose_product)
+    from sba_tpu_torch.geometry.undistortion import (
+        UndistortCameraOptions, rectify_and_undistort_stereo_pair)
+    from sba_tpu_torch.models.reconstruction import Reconstruction
+
+    input_path, output_path, pairs_list = _require(
+        flags, "input_path", "output_path", "stereo_pairs_list")
+    device = _device(flags)
+    image_path = flags.get("image_path", "")
+    opt = apply_flags(UndistortCameraOptions(), "UndistortCamera", flags)
+    rec = Reconstruction.read(input_path)
+    by_name = {im.name: iid for iid, im in rec.images.items()}
+    os.makedirs(output_path, exist_ok=True)
+    with open(pairs_list) as f:
+        pairs = [l.split() for l in f if l.strip()]
+    t_warp = 0.0
+    for n1, n2 in pairs:
+        if n1 not in by_name or n2 not in by_name:
+            print(f"WARNING: skipping pair {n1} {n2} (not in model)")
+            continue
+        im1 = rec.images[by_name[n1]]
+        im2 = rec.images[by_name[n2]]
+        cam1 = rec.cameras[im1.camera_id]
+        cam2 = rec.cameras[im2.camera_id]
+        f64 = lambda a: torch.as_tensor(np.asarray(a, np.float64))
+        q1_inv, t1_inv = pose_inverse(f64(im1.qvec), f64(im1.tvec))
+        q_rel, t_rel = pose_product(f64(im2.qvec), f64(im2.tvec), q1_inv,
+                                    t1_inv)
+        imgs = [torch.as_tensor(np.asarray(PILImage.open(
+            os.path.join(image_path, n)).convert("RGB"), np.float32),
+            device=device) for n in (n1, n2)]
+        t = time.perf_counter()
+        r1, r2, und_cam, Q = rectify_and_undistort_stereo_pair(
+            imgs[0], imgs[1], cam1, cam2, q_rel.numpy(), t_rel.numpy(),
+            opt)
+        r1, r2 = (r.cpu().numpy() for r in (r1, r2))
+        t_warp += time.perf_counter() - t
+        pair_dir = os.path.join(output_path,
+                                f"{os.path.splitext(n1)[0]}-"
+                                f"{os.path.splitext(n2)[0]}")
+        os.makedirs(pair_dir, exist_ok=True)
+        for tag, arr in (("left", r1), ("right", r2)):
+            PILImage.fromarray(np.clip(arr, 0, 255).astype(np.uint8)).save(
+                os.path.join(pair_dir, f"{tag}.png"))
+        np.savetxt(os.path.join(pair_dir, "Q.txt"), Q)
+        print(f"  rectified {n1} / {n2} -> {pair_dir}")
+    print(f"rectification: {t_warp:.3f} s of warps for {len(pairs)} "
+          f"pairs [{device}]")
 
 
 def run_patch_match_stereo(flags):
@@ -1150,12 +1447,81 @@ def run_stereo_fuser(flags):
     _print_ncc_launches(device)
 
 
+def run_mesher(flags):
+    """`poisson_mesher` and `delaunay_mesher` (ref: exe/mvs.cc:123
+    RunPoissonMesher, exe/mvs.cc:43 RunDelaunayMesher), both realized as
+    in sba_tpu: TSDF fusion of the workspace's depth maps (geometric,
+    else photometric) on the device, then surface nets on the host. Prints
+    sba_tpu's line, then the voxel grid, the fusion's device
+    milliseconds, the surface nets' host seconds and (on CUDA) the peak
+    device memory."""
+    import torch
+
+    from sba_tpu_torch.models.reconstruction import Reconstruction
+    from sba_tpu_torch.mvs import read_colmap_map
+    from sba_tpu_torch.mvs.meshing import (Mesh, TSDFOptions, grid_bounds,
+                                           surface_nets, tsdf_fuse,
+                                           write_mesh_ply)
+
+    workspace, output_path = _require(flags, "input_path", "output_path")
+    device = _device(flags)
+    opt = apply_flags(TSDFOptions(), "Meshing", flags)
+    rec = Reconstruction.read(os.path.join(workspace, "sparse"))
+    stereo = os.path.join(workspace, "stereo")
+    reg = sorted(i for i in rec.images if rec.is_registered(i))
+    depths, Ks, qs, ts = [], [], [], []
+    for iid in reg:
+        name = rec.images[iid].name
+        dp = os.path.join(stereo, "depth_maps", f"{name}.geometric.bin")
+        if not os.path.exists(dp):   # fall back to photometric maps
+            dp = os.path.join(stereo, "depth_maps",
+                              f"{name}.photometric.bin")
+        if not os.path.exists(dp):
+            continue
+        depths.append(read_colmap_map(dp))
+        Ks.append(_pinhole_K(rec, iid))
+        qs.append(rec.images[iid].qvec)
+        ts.append(rec.images[iid].tvec)
+    if not depths:
+        raise SystemExit("no depth maps; run patch_match_stereo first")
+    depths = np.stack(depths)
+    if device != "cpu":
+        torch.cuda.reset_peak_memory_stats(device)
+    bounds = grid_bounds(depths, Ks, qs, ts, opt)
+    t_fuse = t_nets = 0.0
+    if bounds is None:
+        mesh, dims = Mesh(np.zeros((0, 3)), np.zeros((0, 3), int)), (0, 0, 0)
+    else:
+        lo, dims = bounds
+        t = time.perf_counter()
+        tsdf, wts = tsdf_fuse(depths, Ks, qs, ts, lo, dims, opt,
+                              device=device)
+        t_fuse = time.perf_counter() - t
+        t = time.perf_counter()
+        mesh = surface_nets(tsdf, wts, lo, opt.voxel_size, opt.min_weight)
+        t_nets = time.perf_counter() - t
+    write_mesh_ply(mesh, output_path)
+    print(f"meshed {len(mesh.vertices)} vertices / {len(mesh.faces)} "
+          f"faces -> {output_path}")
+    peak = ""
+    if device != "cpu":
+        peak = (f", peak device memory "
+                f"{torch.cuda.max_memory_allocated(device) / 2**20:.1f} MiB")
+    print(f"meshing: {len(depths)} maps, voxel grid {dims[0]} x {dims[1]} x "
+          f"{dims[2]} ({int(np.prod(dims))} voxels), TSDF fusion "
+          f"{1e3 * t_fuse:.3f} ms wall [{device}], surface nets {t_nets:.3f} s "
+          f"[host]{peak}")
+
+
 COMMANDS = {"database_creator": run_database_creator,
             "database_cleaner": run_database_cleaner,
             "database_merger": run_database_merger,
             "feature_extractor": run_feature_extractor,
             "exhaustive_matcher": run_exhaustive_matcher,
             "sequential_matcher": run_sequential_matcher,
+            "vocab_tree_builder": run_vocab_tree_builder,
+            "vocab_tree_matcher": run_vocab_tree_matcher,
+            "vocab_tree_retriever": run_vocab_tree_retriever,
             "mapper": run_mapper,
             "point_triangulator": run_point_triangulator,
             "image_registrator": run_image_registrator,
@@ -1169,8 +1535,12 @@ COMMANDS = {"database_creator": run_database_creator,
             "geometric_semantic_bundle_adjuster":
                 run_geometric_semantic_bundle_adjuster,
             "image_undistorter": run_image_undistorter,
+            "image_rectifier": run_image_rectifier,
             "patch_match_stereo": run_patch_match_stereo,
-            "stereo_fuser": run_stereo_fuser}
+            "stereo_fuser": run_stereo_fuser,
+            "stereo_fusion": run_stereo_fuser,
+            "poisson_mesher": run_mesher,
+            "delaunay_mesher": run_mesher}
 
 
 def main(argv: Optional[List[str]] = None) -> int:

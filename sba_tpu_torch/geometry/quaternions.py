@@ -238,3 +238,16 @@ def np_rotmat_to_quat(R):
         q = np.array([(m10 - m01) / s, (m02 + m20) / s, (m12 + m21) / s,
                       0.25 * s])
     return np_quat_normalize(q)
+
+
+def np_quat_to_angle_axis(q):
+    """w-first quaternion [4] (normalized here) -> angle-axis [3]; the
+    small-angle branch returns 2 (x, y, z) sign(w)."""
+    q = np_quat_normalize(q)
+    w = np.clip(q[0], -1.0, 1.0)
+    angle = 2.0 * np.arccos(np.abs(w))
+    sin_half = np.sqrt(max(1.0 - w * w, 0.0))
+    axis = q[1:] * (np.sign(w) if w != 0 else 1.0)
+    if sin_half < 1e-12:
+        return 2.0 * axis
+    return axis / sin_half * angle

@@ -4,7 +4,8 @@ Port of the part of ``sba_tpu/models/reconstruction.py`` that bundle
 adjustment and the incremental mapper need: construction, registration
 and deregistration, the observation and track edits (add, delete,
 merge), the statistics, reprojection errors, the point and image
-filters, COLMAP IO and the dense view.
+filters, COLMAP IO, the Bundler export (for the PMVS workspace) and the
+dense view.
 `Reconstruction` is a host-side dict container; `SceneArrays` is the
 dense struct-of-arrays numpy view the solvers consume.
 """
@@ -374,6 +375,69 @@ class Reconstruction:
         reg = set(self.registered_image_ids)
         images = {iid: im for iid, im in self.images.items() if iid in reg}
         cm.write_model(self.cameras, images, self.points3D, path, ext)
+
+    # -- Bundler export (the PMVS workspace's bundle.rd.out) -------------
+
+    def _distortion_k(self, camera, skip_distortion):
+        """(k1, k2) of a Bundler camera; None if its model has no
+        Bundler form."""
+        spec = camera_models.model_by_id(camera.model_id)
+        if skip_distortion or spec.name in ("SIMPLE_PINHOLE", "PINHOLE"):
+            return 0.0, 0.0
+        if spec.name == "SIMPLE_RADIAL":
+            return float(camera.params[spec.extra_idxs[0]]), 0.0
+        if spec.name == "RADIAL":
+            return (float(camera.params[spec.extra_idxs[0]]),
+                    float(camera.params[spec.extra_idxs[1]]))
+        return None
+
+    def export_bundler(self, path, list_path, skip_distortion=False) -> bool:
+        """Bundler v0.3 .out + image list (ref: reconstruction.cc:1087
+        ExportBundler). Bundler's camera looks down -z; rows 2/3 of R and
+        ty/tz are negated; 2D coords are principal-point-centered with +y
+        up."""
+        rows = [(iid, self.images[iid], np_quat_to_rotmat(
+            self.images[iid].qvec)) for iid in self.registered_image_ids]
+        idx_of = {iid: i for i, (iid, *_rest) in enumerate(rows)}
+        lines = ["# Bundle file v0.3",
+                 f"{len(rows)} {len(self.points3D)}"]
+        names = []
+        for iid, im, R in rows:
+            cam = self.cameras[im.camera_id]
+            k = self._distortion_k(cam, skip_distortion)
+            if k is None:
+                print("WARNING: Bundler only supports `SIMPLE_RADIAL`, "
+                      "`RADIAL`, and pinhole camera models.")
+                return False
+            lines.append(f"{cam.mean_focal_length():.17g} "
+                         f"{k[0]:.17g} {k[1]:.17g}")
+            lines.append(f"{R[0,0]:.17g} {R[0,1]:.17g} {R[0,2]:.17g}")
+            lines.append(f"{-R[1,0]:.17g} {-R[1,1]:.17g} {-R[1,2]:.17g}")
+            lines.append(f"{-R[2,0]:.17g} {-R[2,1]:.17g} {-R[2,2]:.17g}")
+            t = im.tvec
+            lines.append(f"{t[0]:.17g} {-t[1]:.17g} {-t[2]:.17g}")
+            names.append(im.name)
+        for p in self.points3D.values():
+            lines.append(f"{p.xyz[0]:.17g} {p.xyz[1]:.17g} {p.xyz[2]:.17g}")
+            lines.append(f"{int(p.rgb[0])} {int(p.rgb[1])} {int(p.rgb[2])}")
+            obs = [str(len(p.image_ids))]
+            for img_id, p2d in zip(p.image_ids, p.point2D_idxs):
+                img_id = int(img_id)
+                if img_id not in idx_of:
+                    continue
+                im = self.images[img_id]
+                cam = self.cameras[im.camera_id]
+                spec = camera_models.model_by_id(cam.model_id)
+                cx, cy = (cam.params[i] for i in spec.principal_idxs)
+                xy = im.xys[int(p2d)]
+                obs.append(f"{idx_of[img_id]} {int(p2d)} "
+                           f"{xy[0] - cx:.17g} {cy - xy[1]:.17g}")
+            lines.append(" ".join(obs))
+        with open(path, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        with open(list_path, "w") as f:
+            f.write("\n".join(names) + "\n")
+        return True
 
     # -- dense view --------------------------------------------------------
 

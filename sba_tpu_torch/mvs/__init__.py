@@ -1,5 +1,5 @@
-"""Port of the sba_tpu sub-package of the same name (meshing is not
-ported yet)."""
+"""Port of the sba_tpu sub-package of the same name: PatchMatch stereo,
+fusion, the COLMAP map files and meshing."""
 
 from sba_tpu_torch.mvs.patch_match import (
     PatchMatchOptions,
@@ -12,4 +12,12 @@ from sba_tpu_torch.mvs.fusion import (
 from sba_tpu_torch.mvs.depth_maps import (
     read_colmap_map,
     write_colmap_map,
+)
+from sba_tpu_torch.mvs.meshing import (
+    Mesh,
+    TSDFOptions,
+    mesh_from_depth_maps,
+    surface_nets,
+    tsdf_fuse,
+    write_mesh_ply,
 )

@@ -9,8 +9,9 @@ and the hierarchical mapper's merged models before a global BA.
   vmapped over the 2D one-hot tangents), as sba_tpu's ``jax.jacfwd``.
 - The normal equations are never formed: each LM step solves
   (J^T J + lam diag(J^T J)) dx = -J^T r by PCG whose matvec is gather,
-  per-edge products, scatter-add, with the block diagonal of J^T J as
-  preconditioner (batched D x D Cholesky).
+  per-edge products, segment sums (over the edges sorted by pose, in a
+  fixed order), with the block diagonal of J^T J as preconditioner
+  (batched D x D Cholesky).
 - The PCG and LM loops stop at the first iteration under tolerance, as
   sba_tpu's ``lax.while_loop``s do: the host reads each loop's test
   before every iteration (one sync per PCG iteration), so no iteration
@@ -224,8 +225,21 @@ def _cost(problem: PoseGraphProblem, opt: PoseGraphOptions):
                            * problem.edge_mask)
 
 
-def _segsum(x, idx, n):
-    return x.new_zeros((n,) + x.shape[1:]).index_add_(0, idx, x)
+def _segment_table(idx, n):
+    """CSR form of n segments: (the rows sorted by segment id, stably,
+    and each segment's row count)."""
+    return (torch.argsort(idx, stable=True),
+            torch.bincount(idx, minlength=n))
+
+
+def _segsum(x, table):
+    """Rows of x summed by segment (a `_segment_table`), each segment's
+    rows in row order: the same bits from run to run on every device
+    (index_add_'s CUDA float atomics add in no fixed order, which moved
+    the float32 solve of a 1024-pose graph by ~1e-3 of its cost between
+    two runs), with no padding to the largest degree."""
+    order, counts = table
+    return torch.segment_reduce(x[order], "sum", lengths=counts, axis=0)
 
 
 def _solve_step(problem: PoseGraphProblem, opt: PoseGraphOptions, lam):
@@ -236,13 +250,14 @@ def _solve_step(problem: PoseGraphProblem, opt: PoseGraphOptions, lam):
     d = 7 if opt.sim3 else 6
     r, Ji, Jj = _linearize(problem, opt)
     ei, ej = problem.edge_i, problem.edge_j
+    ti, tj = _segment_table(ei, n), _segment_table(ej, n)
 
-    g = _segsum(torch.einsum("edk,ed->ek", Ji, r), ei, n) + \
-        _segsum(torch.einsum("edk,ed->ek", Jj, r), ej, n)
+    g = _segsum(torch.einsum("edk,ed->ek", Ji, r), ti) + \
+        _segsum(torch.einsum("edk,ed->ek", Jj, r), tj)
     g_inf = torch.max(torch.abs(g))
 
-    Hii = _segsum(torch.einsum("edk,edl->ekl", Ji, Ji), ei, n) + \
-        _segsum(torch.einsum("edk,edl->ekl", Jj, Jj), ej, n)
+    Hii = _segsum(torch.einsum("edk,edl->ekl", Ji, Ji), ti) + \
+        _segsum(torch.einsum("edk,edl->ekl", Jj, Jj), tj)
     diag = torch.diagonal(Hii, dim1=-2, dim2=-1)            # [N, D]
     damp = lam * torch.clamp(diag, min=1e-12)
     eye = torch.eye(d, dtype=r.dtype, device=r.device)
@@ -258,8 +273,8 @@ def _solve_step(problem: PoseGraphProblem, opt: PoseGraphOptions, lam):
     def matvec(u):
         ju = torch.einsum("edk,ek->ed", Ji, u[ei]) + \
             torch.einsum("edk,ek->ed", Jj, u[ej])
-        out = _segsum(torch.einsum("edk,ed->ek", Ji, ju), ei, n) + \
-            _segsum(torch.einsum("edk,ed->ek", Jj, ju), ej, n)
+        out = _segsum(torch.einsum("edk,ed->ek", Ji, ju), ti) + \
+            _segsum(torch.einsum("edk,ed->ek", Jj, ju), tj)
         return out + damp * u
 
     def precond(u):

@@ -8,8 +8,9 @@ known in closed form, so the chain's outputs can be held against it:
   valid share, the median and 80th percentile of |d - truth| / truth
   over the valid pixels and the share of them within 1%, each a mean
   over the views;
-- `cloud_accuracy`: a fused cloud's size and the median and 80th
-  percentile of its points' vertical distance to the heightfield.
+- `cloud_accuracy`: a fused cloud's (or a mesh's vertices') size and
+  the median and 80th percentile of its points' vertical distance to the
+  heightfield.
 
 Run as a script it renders a scene, runs the three dense commands of
 `sba_tpu_torch.cli` on it, prints both measures, the cloud once for each
@@ -98,6 +99,18 @@ def read_ply_xyz(path):
     body = Path(path).read_text().split("end_header\n", 1)[1]
     rows = [line.split()[:3] for line in body.splitlines() if line]
     return np.array(rows, np.float64).reshape(-1, 3)
+
+
+def read_mesh_ply(path):
+    """(vertices [V, 3], faces [F, 3]) of an ASCII mesh .ply written by
+    `sba_tpu_torch.mvs.meshing.write_mesh_ply`."""
+    head, body = Path(path).read_text().split("end_header\n", 1)
+    nv = int(head.split("element vertex ")[1].split()[0])
+    rows = body.splitlines()
+    v = np.array([r.split() for r in rows[:nv]], np.float64).reshape(-1, 3)
+    f = np.array([r.split()[1:] for r in rows[nv:] if r],
+                 np.int64).reshape(-1, 3)
+    return v, f
 
 
 def cloud_accuracy(xyz, field):

@@ -1215,6 +1215,21 @@ def test_pose_graph_on_card_matches_cpu(cuda, sim3, loss):
         1e-3 * float(sb.initial_cost)
 
 
+def test_pose_graph_float32_on_card_repeats_bit_for_bit(cuda):
+    """Two float32 solves of one ring on the card end in the same bits
+    (the segment sums run through a gather table, not float atomics)."""
+    from sba_tpu_torch.optim.pose_graph import (PoseGraphOptions,
+                                                optimize_pose_graph)
+
+    opt = PoseGraphOptions(max_iterations=20, sim3=True, loss="huber")
+    runs = [optimize_pose_graph(_pose_graph_ring(
+        "cuda", torch.float32, True, n=200), opt) for _ in range(2)]
+    (a, sa), (b, sb) = runs
+    assert float(sa.final_cost) == float(sb.final_cost)
+    for f in ("qvecs", "tvecs", "log_scales"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
 def _rig_pair_port(n=60, outlier_frac=0.1, seed=3):
     """tests/test_generalized_relative_pose.py's two rig frames (3
     cameras) with the port's modules."""
@@ -1348,3 +1363,82 @@ def test_rig_bundle_adjust_on_card_matches_cpu(cuda):
         np.testing.assert_allclose(a[k].cpu().numpy(), b[k].numpy(), rtol=0,
                                    atol=1e-9)
     assert float(b["final_cost"]) < float(b["initial_cost"])
+
+
+def test_tsdf_fuse_on_card_equals_cpu(cuda):
+    """tsdf_fuse of one set of float32 depth maps on the card and on the
+    CPU: equal weights, at least 99.9% of the voxels within 1e-5 (the two
+    devices' 3-element products may round apart), the card's mesh as
+    large as the CPU's."""
+    from sba_tpu_torch.mvs import meshing as tm
+
+    rng = np.random.default_rng(0)
+    H, W, f, n = 120, 160, 130.0, 5
+    K = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1.0]])
+    yy, xx = np.meshgrid(np.arange(H) + 0.5, np.arange(W) + 0.5,
+                         indexing="ij")
+    depths = np.stack([2.0 + 0.3 * np.sin(xx / 17.0 + i) + 0.1 * yy / H
+                       + 0.005 * rng.standard_normal((H, W))
+                       for i in range(n)]).astype(np.float32)
+    q = np.tile([1.0, 0, 0, 0], (n, 1)) + rng.normal(0, 0.01, (n, 4))
+    t = np.stack([[0.2 * i, 0.0, 0.0] for i in range(n)])
+    opt = tm.TSDFOptions(voxel_size=0.02, truncation=0.06)
+    lo, dims = tm.grid_bounds(depths, [K] * n, q, t, opt)
+    out = {dev: tm.tsdf_fuse(depths, [K] * n, q, t, lo, dims, opt,
+                             device=dev) for dev in ("cuda", "cpu")}
+    (ta, wa), (tb, wb) = out["cuda"], out["cpu"]
+    np.testing.assert_array_equal(wa, wb)
+    share = (np.abs(ta - tb) <= 1e-5).mean()
+    assert share >= 0.999, share
+    ma = tm.surface_nets(ta, wa, lo, opt.voxel_size)
+    mb = tm.surface_nets(tb, wb, lo, opt.voxel_size)
+    assert len(mb.vertices) > 1000
+    assert abs(len(ma.vertices) - len(mb.vertices)) <= 1e-3 * len(
+        mb.vertices)
+
+
+def test_retrieval_on_card_equals_cpu(cuda):
+    """quantize_descriptors of a 16^2 tree and of a depth-1 tree of
+    4096 imported words, build_vocab_tree with the same seed (the CPU's
+    k-means objective, the same centres from run to run), and
+    vote_and_verify give the CPU's words and counts on the card."""
+    from sba_tpu_torch.retrieval import vocab_tree as tvt
+    from sba_tpu_torch.retrieval.vote_and_verify import vote_and_verify
+
+    rng = np.random.default_rng(0)
+    c = rng.standard_normal((64, 128))
+    x = np.repeat(c, 60, 0) + 0.3 * rng.standard_normal((64 * 60, 128))
+    x = (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+    tree = tvt.build_vocab_tree(x, branching=16, depth=2, device="cpu")
+    flat = tvt.VocabTree((torch.as_tensor(x[:4096])[None],), 4096, 1)
+    for tr in (tree, flat):
+        on_card = tvt.VocabTree(tuple(c.cuda() for c in tr.centers),
+                                tr.branching, tr.depth)
+        a = tvt.quantize_descriptors(on_card, x).cpu().numpy()
+        b = tvt.quantize_descriptors(tr, x).numpy()
+        assert (a == b).mean() >= 0.999, (a != b).sum()
+    # The default draws come from a CPU generator: the tree built on the
+    # card starts from the CPU's centres and reaches its k-means
+    # objective (the mean cosine of a descriptor and its word's centre).
+    card = tvt.build_vocab_tree(x, branching=16, depth=2, device="cuda")
+    assert card.centers[1].shape == (16, 16, 128)
+
+    def objective(t):
+        t = tvt.VocabTree(tuple(c.cpu() for c in t.centers), 16, 2)
+        w = tvt.quantize_descriptors(t, x).numpy()
+        return np.mean(np.sum(x * t.centers[1].reshape(-1, 128).numpy()[w],
+                              1))
+
+    assert abs(objective(card) - objective(tree)) <= 1e-3
+    # Its segment sums add in a fixed order: the same tree every run.
+    again = tvt.build_vocab_tree(x, branching=16, depth=2, device="cuda")
+    assert all(torch.equal(a, b) for a, b in zip(card.centers,
+                                                  again.centers))
+    g1 = np.concatenate([rng.uniform(0, 900, (300, 2)),
+                         rng.uniform(1, 3, (300, 1)),
+                         rng.uniform(0, 6, (300, 1))], 1).astype(np.float32)
+    g2 = g1.copy()
+    g2[:, :2] += [40.0, -25.0]
+    g2[::4, :2] = rng.uniform(0, 900, (75, 2))
+    assert vote_and_verify(g1, g2, device="cuda") \
+        == vote_and_verify(g1, g2, device="cpu") >= 200

@@ -74,6 +74,11 @@ def test_port_and_chip_smoke_import_without_jax():
                  "sba_tpu_torch.estimators.generalized_relative_pose",
                  "sba_tpu_torch.estimators.generalized_pose",
                  "sba_tpu_torch.models.camera_rig",
+                 "sba_tpu_torch.mvs.meshing",
+                 "sba_tpu_torch.retrieval",
+                 "sba_tpu_torch.retrieval.vocab_tree",
+                 "sba_tpu_torch.retrieval.visual_index",
+                 "sba_tpu_torch.retrieval.vote_and_verify",
                  "sba_tpu_torch.cli"):
         assert name in modules, name
     from sba_tpu_torch import cli
@@ -82,8 +87,12 @@ def test_port_and_chip_smoke_import_without_jax():
                 "sequential_matcher", "mapper", "point_triangulator",
                 "image_registrator", "automatic_reconstructor",
                 "hierarchical_mapper", "model_merger",
-                "pose_graph_optimizer", "rig_bundle_adjuster"):
+                "pose_graph_optimizer", "rig_bundle_adjuster",
+                "poisson_mesher", "delaunay_mesher", "stereo_fusion",
+                "image_rectifier", "vocab_tree_builder",
+                "vocab_tree_matcher", "vocab_tree_retriever"):
         assert cmd in cli.COMMANDS, cmd
+    assert len(cli.COMMANDS) == 27
     res = subprocess.run(
         [sys.executable, "-c", _PROBE.format(root=str(ROOT),
                                              modules=modules)],

@@ -270,3 +270,32 @@ def test_from_reconstruction_matches_sba_tpu(synthetic_model, sim3):
     t_pg.apply_pose_graph_result(trec, out, tids)
     np.testing.assert_allclose(trec.images[tids[3]].tvec, np_(jp.tvecs)[3],
                                atol=1e-4)
+
+
+def test_segment_table_sums_equal_index_add():
+    """The segment sums over the edges sorted by pose equal index_add_'s,
+    with segments that have no rows, one row and many; a solve step on
+    the same graph with its edges in another order gives the same step
+    at 1e-12."""
+    rng = np.random.default_rng(0)
+    idx = torch.as_tensor(rng.integers(0, 9, 60))
+    idx[idx == 4] = 5                  # segment 4 empty
+    table = t_pg._segment_table(idx, 11)
+    for shape in ((60,), (60, 6), (60, 7, 7)):
+        x = torch.as_tensor(rng.standard_normal(shape))
+        a = x.new_zeros((11,) + shape[1:]).index_add_(0, idx, x)
+        b = t_pg._segsum(x, table)
+        np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=0, atol=1e-12)
+        assert not b[4].any() and not b[9:].any()
+    problem, _ = _make_ring(n=8, noise=0.05, seed=1)
+    p = to_port(problem)
+    perm = torch.as_tensor(rng.permutation(p.edge_i.shape[0]))
+    q = p._replace(**{f: getattr(p, f)[perm] for f in (
+        "edge_i", "edge_j", "rel_q", "rel_t", "rel_log_s", "sqrt_info",
+        "edge_mask")})
+    opt = t_pg.PoseGraphOptions()
+    lam = torch.tensor(1e-3, dtype=torch.float64)
+    ref, got = t_pg._solve_step(p, opt, lam), t_pg._solve_step(q, opt, lam)
+    np.testing.assert_allclose(np.asarray(got[0]), np.asarray(ref[0]),
+                               rtol=0, atol=1e-12)
+    assert got[3] == ref[3]

@@ -10,6 +10,7 @@ fails without a card unless it is asked for the CPU."""
 
 import contextlib
 import io
+import os
 
 import numpy as np
 import pytest
@@ -260,11 +261,54 @@ def test_automatic_reconstructor_equals_the_commands(tmp_path):
 
 
 def test_automatic_reconstructor_dense_raises(tmp_path):
-    with pytest.raises(SystemExit, match="meshers"):
+    """--dense 1 with a mesher other than poisson or delaunay fails
+    before any work, with sba_tpu's message."""
+    with pytest.raises(SystemExit, match="Invalid `mesher`"):
         t_cli.main(["automatic_reconstructor", "--workspace_path",
                     str(tmp_path / "ws"), "--image_path", str(tmp_path),
-                    "--dense", "1", "--device", "cpu"])
+                    "--dense", "1", "--mesher", "marching", "--device",
+                    "cpu"])
     assert not (tmp_path / "ws").exists()
+
+
+def test_automatic_reconstructor_dense_runs_the_chain(tmp_path):
+    """--dense 1 on four rendered views of one camera goes on through
+    image_undistorter, patch_match_stereo (a short photometric search),
+    stereo_fuser and the Delaunay mesher; its mesh is the one
+    delaunay_mesher writes on the same dense workspace. (One camera:
+    patch_match_stereo stacks each view's sources, which needs one
+    undistorted size, in sba_tpu as in the port.)"""
+    from sba_tpu_torch.utils.render import render_scene, write_scene_images
+
+    scene = render_scene(num_images=4, image_size=(320, 240),
+                         focal=1.2 * 320, seed=3, device="cpu")
+    write_scene_images(scene, str(tmp_path / "imgs"))
+    ws = tmp_path / "auto"
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert t_cli.main([
+            "automatic_reconstructor", "--workspace_path", str(ws),
+            "--image_path", str(tmp_path / "imgs"), "--dense", "1",
+            "--mesher", "delaunay", "--device", "cpu",
+            "--ImageReader.single_camera", "1",
+            "--TwoViewGeometry.max_num_trials", "256",
+            "--Mapper.init_min_num_inliers", "40",
+            "--PatchMatchStereo.window_radius", "1",
+            "--PatchMatchStereo.num_iterations", "2",
+            "--PatchMatchStereo.num_random_samples", "1",
+            "--PatchMatchStereo.geom_consistency", "false"]) == 0
+        assert t_cli.main(["delaunay_mesher", "--input_path",
+                           str(ws / "dense"), "--output_path",
+                           str(tmp_path / "again.ply"), "--device",
+                           "cpu"]) == 0
+    out = buf.getvalue()
+    assert "automatic reconstruction complete" in out
+    maps = os.listdir(ws / "dense" / "stereo" / "depth_maps")
+    assert len([m for m in maps if m.endswith(".photometric.bin")]) == 4
+    assert (ws / "dense" / "fused.ply").exists()
+    mesh = (ws / "dense" / "meshed-delaunay.ply").read_bytes()
+    assert mesh == (tmp_path / "again.ply").read_bytes()
+    assert int(mesh.split(b"element vertex ")[1].split()[0]) > 0
 
 
 @pytest.mark.parametrize("command", ["mapper", "point_triangulator",
