@@ -215,6 +215,31 @@ Needs one CUDA card and nvcc (found through torch's CUDA_HOME, else
                      outliers) and the generalized absolute pose of one
                      snapshot (10% outliers) on the card, against the
                      truth;
+22c. parallel    -- the SPMD solvers (`sba_tpu_torch.parallel`, the
+                     sharded pose graph) on torch.distributed: (a) NCCL
+                     at one rank per card (at one card in this process:
+                     each sharded solver once against its single-device
+                     counterpart on the same scene, bit for bit, or where
+                     the single-device solve is not reproducible itself
+                     (the BA kernels' float atomics) its final cost
+                     within PAR_GATES and its first accepted step's cost
+                     within the spread of single-device reruns of that
+                     step (PAR_FIRST_*; the pose graph's reruns with its
+                     edges reordered); (b)
+                     PAR_RANKS gloo ranks sharing card 0, spawned once:
+                     the headline (K1/K4/K5) and 1024-image (K2-K5)
+                     fused solves, the latter again with the shared
+                     camera's intrinsics free, the float64
+                     observation-sharded PCG and point-sharded explicit
+                     solves of the headline scene (PAR_F64_IT LM
+                     iterations; the latter again with free
+                     intrinsics), bench_sba (map_gather), the GSBA
+                     forest and the 1024-pose SE3 and Sim3 pose graphs,
+                     each against the single-device solve on the card
+                     (PAR_GATES, PG_GATES, and the first step as in
+                     (a)); both ranks bit-equal, each rank's kernels
+                     launched; wall, LM it/s, all-reduces and bytes per
+                     LM iteration;
 23. timing        -- per-kernel CUDA-event times (the stream sleeps
                      while the host enqueues the timed calls, so they are
                      the device's) against the twins, the
@@ -2337,7 +2362,8 @@ def phase_gsba():
     one trunk's views against the others' (one 1 - IoU residual per
     image against the union mask; tests/test_torch_gsba.py::
     test_forest_trunk_trade_matches_sba_tpu). Returns (bench_gsba's
-    problem and options, its warm ms per LM iteration)."""
+    problem and options, its warm ms per LM iteration, the forest's
+    problem, options and float32 summary)."""
     import numpy as np
     import torch
 
@@ -2462,7 +2488,8 @@ def phase_gsba():
         f"{len(chunks)} chunks of up to {chunks[0].stop} images under "
         f"{tg.GSBA_CHUNK_BYTES / 2 ** 30:.0f} GiB; peak device memory "
         f"{peak:.1f} MiB (float32)")
-    return (p32, opt), ms_it
+    del p64
+    return (p32, opt), ms_it, (pf, on, sf)
 
 
 def _write_gsba_workspace(work, scene):
@@ -4153,7 +4180,10 @@ def phase_pose_graph():
     sba_tpu's defaults (50 LM, 50 CG iterations). PG_GATES: the cost
     falls, the relative drift against the truth falls by
     min_rel_drift_drop, and the final cost equals the float64 solve's
-    (on the card: the CPU's took ~27 s of the phase) at cost_rtol."""
+    (on the card: the CPU's took ~27 s of the phase) at cost_rtol.
+    Returns {"SE3", "Sim3": (the drifted float64 problem on the host, the
+    options, the float32 final cost in the given edge order, the start's
+    drift, the truth)}."""
     import numpy as np
     import torch
 
@@ -4187,6 +4217,7 @@ def phase_pose_graph():
     t_rec = time.perf_counter() - t
     c_true = _centers(truth["qvecs"], truth["tvecs"])
     rng = np.random.default_rng(11)
+    solved = {}
     for sim3 in (False, True):
         tag = "Sim3" if sim3 else "SE3"
         t = time.perf_counter()
@@ -4261,8 +4292,10 @@ def phase_pose_graph():
                 and max(rcs) <= PG_GATES["cost_rtol"],
                 f"pose-graph {tag}: outside PG_GATES: costs {costs}, drift "
                 f"{drift0} -> {drift}")
+        solved[tag] = (base, opt, costs[torch.float32, 0][1], drift0, truth)
     log("pose-graph", f"scene model built in {t_rec:.1f} s "
         f"({rec.num_points3d()} points)")
+    return solved
 
 
 def phase_cli_pose_graph(scene, work):
@@ -4643,6 +4676,450 @@ def phase_rig():
             f"rig: generalized pose rotation {rot} deg, centre {cerr}")
 
 
+# ---------------------------------------------------------------------------
+# parallel: the SPMD solvers (sba_tpu_torch.parallel and the sharded pose
+# graph) on torch.distributed
+# ---------------------------------------------------------------------------
+
+PAR_RANKS = 2            # gloo ranks sharing card 0 (NCCL refuses that)
+PAR_F64_IT = 3           # LM iterations of the float64 headline solves
+PAR_PG_IT_ONE_RANK = 10  # LM iterations of the one-rank pose graph check
+PAR_TIMEOUT_S = 300      # the spawned ranks' run, every collective in it
+# Gates of the sharded solves against the single-device ones on the card:
+# float32 BA final cost rtol 1e-3, float64 1e-6; SBA as phase sba holds
+# the card against the CPU twins (cost rtol 1e-3, poses 5e-3); the
+# forest as phase gsba holds float32 against float64 (cost rtol 1e-3);
+# the pose graph at PG_GATES.
+PAR_GATES = dict(f32=1e-3, f64=1e-6, sba_pose=5e-3)
+# The first accepted LM step's cost, which a wrong step moves at first
+# order (a converged final cost barely moves): the sharded solve's must
+# lie within PAR_FIRST_SPREAD_X times the spread of PAR_FIRST_RERUNS
+# single-device reruns of that step (the kernels' and index_add_'s float
+# atomics sum in no fixed order; the pose graph's reruns take its edges
+# in other orders), or within PAR_FIRST_ULPS units of the dtype's
+# rounding (eps), relative, where the reruns agree to the bit.
+PAR_FIRST_RERUNS = 3
+PAR_FIRST_SPREAD_X = 10.0
+PAR_FIRST_ULPS = 1024
+
+
+def _par_case(kind, problem, opt):
+    """A case for the ranks, picklable: (kind, the problem's class and
+    fields as numpy, the options)."""
+    return kind, type(problem), {
+        k: None if v is None else v.detach().cpu().numpy()
+        for k, v in problem._asdict().items()}, opt
+
+
+def _par_inputs(case, device):
+    import torch
+
+    kind, problem_cls, fields, opt = case
+    return kind, problem_cls(**{
+        k: None if v is None else torch.as_tensor(v, device=device)
+        for k, v in fields.items()}), opt
+
+
+def _par_solve(kind, problem, opt, sharded):
+    """One solve of `kind`: the SPMD entry point (over the world group),
+    or its single-device counterpart. Returns (problem, summary)."""
+    import dataclasses
+
+    from sba_tpu_torch import parallel
+    from sba_tpu_torch.optim import ba, ba_fused, gsba, pose_graph, sba
+
+    if kind == "fused":
+        return (parallel.distributed_bundle_adjust_fused if sharded
+                else ba_fused.bundle_adjust_fused)(problem, opt)
+    if kind == "obs":
+        if sharded:
+            return parallel.distributed_bundle_adjust(problem, opt)
+        return ba.bundle_adjust(problem, dataclasses.replace(
+            opt, solver="schur_pcg"))
+    if kind == "pm":
+        if sharded:
+            return parallel.distributed_bundle_adjust_pm(problem, opt)
+        return ba.bundle_adjust(problem, dataclasses.replace(
+            opt, solver="explicit_schur"))
+    if kind == "sba":
+        return (parallel.semantic_bundle_adjust_spmd if sharded
+                else sba.semantic_bundle_adjust)(problem, opt)
+    if kind == "gsba":
+        return (parallel.geometric_semantic_bundle_adjust_spmd if sharded
+                else gsba.geometric_semantic_bundle_adjust)(problem, opt)
+    return (pose_graph.distributed_optimize_pose_graph if sharded
+            else pose_graph.optimize_pose_graph)(problem, opt)
+
+
+def _par_single(kind, problem, opt, reorder=False):
+    """A function of the options that runs the single-device solve of
+    `kind` on `problem` (the fused path prepared once). The pose graph
+    sums in a fixed order and repeats itself bit for bit; with `reorder`
+    each of its calls takes the edges in a fresh order, as phase
+    pose-graph's PG_EDGE_ORDERS do, so that its reruns spread as far as
+    another summation order moves them."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from sba_tpu_torch.optim import ba_fused
+
+    if kind == "fused":
+        ctx = ba_fused.prepare(problem, opt)
+        return lambda o: ba_fused.solve_prepared(ctx[:5] + (o,) + ctx[6:])
+    if kind == "pm":
+        # The point-major layout of the sharded solve, on one device.
+        from sba_tpu_torch.optim.ba import _bundle_adjust_impl
+        from sba_tpu_torch.parallel.distributed_ba import (
+            shard_problem_by_points)
+
+        sh, perm = shard_problem_by_points(problem, 1)
+        back = torch.argsort(perm)
+
+        def solve(o):
+            out, s = _bundle_adjust_impl(sh, dataclasses.replace(
+                o, solver="explicit_schur", obs_layout="point_major"))
+            return out._replace(points=out.points[back]), s
+        return solve
+    if kind == "pg" and reorder:
+        calls = [0]
+        e = problem.edge_i.shape[0]
+
+        def solve(o):
+            calls[0] += 1
+            order = torch.as_tensor(np.random.default_rng(
+                200 + calls[0]).permutation(e), device=problem.edge_i.device)
+            return _par_solve(kind, problem._replace(**{
+                f: getattr(problem, f)[order] for f in (
+                    "edge_i", "edge_j", "rel_q", "rel_t", "rel_log_s",
+                    "sqrt_info", "edge_mask")}), o, False)
+        return solve
+    return lambda o: _par_solve(kind, problem, o, False)
+
+
+def _par_first_step(name, single, opt, got_trace, eps, ref_trace=None):
+    """Gate the sharded solve's first accepted step (`got_trace`, its
+    cost trace) against PAR_FIRST_RERUNS single-device reruns of it
+    (`single(options)`), at the first LM iteration that the
+    single-device solve (`ref_trace`, else a solve of up to 10 LM
+    iterations) accepts. Returns the reading for the log."""
+    import dataclasses
+
+    import numpy as np
+
+    def trace(its):
+        o = dataclasses.replace(opt, max_iterations=its)
+        return np.asarray(single(o)[1].cost_trace.detach().cpu().numpy(),
+                          np.float64)
+
+    t = (trace(min(opt.max_iterations, 10)) if ref_trace is None
+         else np.asarray(ref_trace, np.float64))
+    k = next((i for i in range(1, len(t))
+              if np.isfinite(t[i]) and t[i] != t[0]), None)
+    require(k is not None, f"parallel {name}: the single-device solve "
+            f"accepted none of its first {len(t) - 1} steps")
+    vals = np.array([trace(k)[k] for _ in range(PAR_FIRST_RERUNS)])
+    mid = float(np.median(vals))
+    spread = float(vals.max() - vals.min()) / abs(mid)
+    gap = abs(float(got_trace[k]) - mid) / abs(mid)
+    limit = max(PAR_FIRST_SPREAD_X * spread, PAR_FIRST_ULPS * eps)
+    require(gap <= limit, f"parallel {name}: the cost after the first "
+            f"accepted step (LM iteration {k}) is {gap:.3e} from the "
+            f"single-device one (> {limit:.3e}; {PAR_FIRST_RERUNS} reruns' "
+            f"spread {spread:.3e})")
+    return (f"first accepted step (it {k}) {gap:.3e} from one device "
+            f"(<= {limit:.3e}; reruns' spread {spread:.3e})")
+
+
+def _par_result(problem, summary):
+    """The solved state and costs as numpy (float64 for the costs)."""
+    import numpy as np
+
+    state = {f: getattr(problem, f).detach().cpu().numpy()
+             for f in ("qvecs", "tvecs", "points", "cyl_tvec", "log_scales")
+             if getattr(problem, f, None) is not None}
+    costs = {f: float(getattr(summary, f)) for f in
+             ("initial_cost", "final_cost")}
+    return dict(state=state, iterations=int(summary.num_iterations),
+                trace=np.asarray(summary.cost_trace.detach().cpu()
+                                 .numpy(), np.float64), **costs)
+
+
+def _parallel_rank(rank, world, device, cases):
+    """The body of each spawned rank: every case solved sharded over the
+    world group, with its wall time, the kernels' launch counts and the
+    all-reduces."""
+    import torch
+
+    from sba_tpu_torch.ops import ba_kernels as bk
+    from sba_tpu_torch.ops import map_gather as mg
+    from sba_tpu_torch.parallel import group
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for name, case in cases.items():
+        kind, problem, opt = _par_inputs(case, device)
+        torch.cuda.synchronize()
+        bk.reset_launches()
+        mg.reset_launches()
+        group.reset_stats()
+        t = time.perf_counter()
+        res = _par_result(*_par_solve(kind, problem, opt, True))
+        torch.cuda.synchronize()
+        res.update(wall=time.perf_counter() - t,
+                   launches=dict(bk.LAUNCHES, **mg.LAUNCHES),
+                   allreduce=dict(group.STATS))
+        out[name] = res
+        del problem
+        torch.cuda.empty_cache()
+    return out
+
+
+def _par_diff(a, b):
+    """The largest |difference| of two results' states and final costs,
+    each relative to the larger magnitude of the field."""
+    import numpy as np
+
+    d = abs(a["final_cost"] - b["final_cost"]) / max(abs(a["final_cost"]),
+                                                     1e-30)
+    for f, x in a["state"].items():
+        scale = max(float(np.abs(x).max()), 1e-30)
+        d = max(d, float(np.abs(x.astype(np.float64)
+                                - b["state"][f].astype(np.float64)).max())
+                / scale)
+    return d
+
+
+def _par_equal(a, b):
+    import numpy as np
+
+    return (a["final_cost"] == b["final_cost"]
+            and a["iterations"] == b["iterations"]
+            and all(np.array_equal(x, b["state"][f])
+                    for f, x in a["state"].items()))
+
+
+def _par_one_rank(cases):
+    """Each sharded solve at world size 1 (NCCL, this process) against
+    its single-device counterpart on the same tensors: bit for bit where
+    the single-device solve repeats itself bit for bit; where it does not
+    (the BA kernels' float atomics and CUDA's index_add_ sum in no fixed
+    order, csrc/ba_kernels.cuh), the first accepted step's cost within
+    the reruns' spread (`_par_first_step`) and the final cost within
+    PAR_GATES (a 10-iteration float32 solve amplifies that spread
+    chaotically, to ~1e-3 of the state)."""
+    import torch
+
+    for name, case in cases.items():
+        kind, problem, opt = _par_inputs(case, "cuda")
+        single = _par_single(kind, problem, opt)
+        t = time.perf_counter()
+        a = _par_result(*single(opt))
+        t_single = time.perf_counter() - t
+        t = time.perf_counter()
+        b = _par_result(*_par_solve(kind, problem, opt, True))
+        t_shard = time.perf_counter() - t
+        if _par_equal(a, b):
+            how = "bit for bit"
+        else:
+            spread = _par_diff(a, _par_result(*single(opt)))
+            gap = abs(b["final_cost"] - a["final_cost"]) / a["final_cost"]
+            tol = PAR_GATES["f64" if kind in ("obs", "pm") else "f32"]
+            require(spread > 0 and gap <= tol,
+                    f"parallel {name}: one-rank final cost {gap:.3e} from "
+                    f"the single-device one (> {tol:g}, or that solve "
+                    f"repeats itself bit for bit: spread {spread:.3e})")
+            reruns = _par_single(kind, problem, opt, reorder=True)
+            first = _par_first_step(name, reruns, opt, b["trace"],
+                                    torch.finfo(problem.qvecs.dtype).eps,
+                                    a["trace"])
+            how = (f"final cost at {gap:.3e} (<= {tol:g}), {first} (the "
+                   f"single-device solve is not reproducible: state "
+                   f"{_par_diff(a, b):.3e} from it, its own rerun "
+                   f"{spread:.3e}, relative)")
+        log("parallel", f"NCCL, 1 rank: {name} ({a['iterations']} LM it): "
+            f"sharded = single-device {how}; {t_shard:.2f} s vs "
+            f"{t_single:.2f} s")
+        del problem, single
+
+
+def phase_parallel(ctx, ctx_i, sba_ctx, forest_ctx, pg_ctx):
+    """The SPMD solvers on the card. (a) NCCL at one rank per card: at
+    one card, in this process, each sharded solve against its
+    single-device counterpart (`_par_one_rank`); (b) PAR_RANKS gloo ranks
+    sharing card 0, spawned once for all solves, at full width: the
+    headline (K1, K4, K5), the 1024-image scene (K2-K5), the float64
+    observation-sharded PCG and point-sharded explicit solves of the
+    headline scene, bench_sba (map_gather), the GSBA forest and the
+    1024-pose SE3 and Sim3 pose graphs, each gated against the
+    single-device solve on the card (PAR_GATES, PG_GATES); both ranks
+    bit-equal, and each rank's kernels launched."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from sba_tpu_torch.optim import ba_fused
+    from sba_tpu_torch.optim.ba import BAOptions, bundle_adjust
+    from sba_tpu_torch.optim.gsba import geometric_semantic_bundle_adjust
+    from sba_tpu_torch.optim.pose_graph import optimize_pose_graph
+    from sba_tpu_torch.optim.sba import semantic_bundle_adjust
+    from sba_tpu_torch.parallel import group
+    from sba_tpu_torch.utils.synthetic import make_ba_problem
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    p64 = make_ba_problem(dtype=torch.float64, device="cuda", **HEADLINE)[0]
+    o64 = BAOptions(max_iterations=PAR_F64_IT, function_tolerance=0.0,
+                    gradient_tolerance=0.0, parameter_tolerance=0.0)
+    pf, of, sf = forest_ctx
+
+    # The scenes' one camera, shared by every image, with its intrinsics
+    # free: every rank sums the same replicated per-camera rows.
+    def free_cam(p):
+        return p._replace(free_cam=torch.ones_like(p.free_cam))
+
+    def pg_problem(tag):
+        base, opt, *_ = pg_ctx[tag]
+        return base._replace(**{
+            f: (v.float() if v.is_floating_point() else v).to("cuda")
+            for f, v in base._asdict().items()}), opt
+
+    cases = {
+        "headline": _par_case("fused", ctx[4], ctx[5]),
+        "1024 images": _par_case("fused", ctx_i[4], ctx_i[5]),
+        "f64 obs-sharded PCG": _par_case("obs", p64, dataclasses.replace(
+            o64, solver="schur_pcg")),
+        "f64 point-sharded explicit": _par_case("pm", p64, o64),
+        "1024 images, free shared intrinsics": _par_case(
+            "fused", free_cam(ctx_i[4]), ctx_i[5]),
+        "f64 point-sharded explicit, free shared intrinsics": _par_case(
+            "pm", free_cam(p64), o64),
+        "bench_sba": _par_case("sba", *sba_ctx),
+        "forest": _par_case("gsba", pf, of),
+        "pose graph SE3": _par_case("pg", *pg_problem("SE3")),
+        "pose graph Sim3": _par_case("pg", *pg_problem("Sim3")),
+    }
+
+    # (a) NCCL, one rank per card.
+    n_cards = torch.cuda.device_count()
+    t = time.perf_counter()
+    if n_cards == 1:
+        # Each solver once: the fused path on the headline, the pose
+        # graph in SE3 at PAR_PG_IT_ONE_RANK LM iterations.
+        one = {k: v for k, v in cases.items()
+               if k not in ("1024 images", "pose graph Sim3")
+               and "free" not in k}
+        kind, cls, fields, opt = one["pose graph SE3"]
+        one["pose graph SE3"] = (kind, cls, fields, dataclasses.replace(
+            opt, max_iterations=PAR_PG_IT_ONE_RANK))
+        with group.single_rank("nccl"):
+            _par_one_rank(one)
+        nccl = None
+    else:
+        nccl = group.run_ranks(_parallel_rank, n_cards, "nccl", "cuda",
+                               args=(cases,), timeout=PAR_TIMEOUT_S)
+    log("parallel", f"(a) NCCL at {n_cards} rank(s), one per card: "
+        f"{time.perf_counter() - t:.1f} s; {card}")
+
+    # (b) PAR_RANKS gloo ranks on card 0, spawned once for every solve.
+    t = time.perf_counter()
+    results = group.run_ranks(_parallel_rank, PAR_RANKS, "gloo", "cuda:0",
+                              args=(cases,), timeout=PAR_TIMEOUT_S)
+    t_ranks = time.perf_counter() - t
+
+    # The single-device solves on the card.
+    explicit = dataclasses.replace(o64, solver="explicit_schur")
+    ref = {"headline": ba_fused.solve_prepared(ctx)[1],
+           "1024 images": ba_fused.solve_prepared(ctx_i)[1],
+           "f64 obs-sharded PCG": bundle_adjust(p64, dataclasses.replace(
+               o64, solver="schur_pcg"))[1],
+           "f64 point-sharded explicit": bundle_adjust(p64, explicit)[1],
+           "1024 images, free shared intrinsics":
+               ba_fused.bundle_adjust_fused(free_cam(ctx_i[4]),
+                                            ctx_i[5])[1],
+           "f64 point-sharded explicit, free shared intrinsics":
+               bundle_adjust(free_cam(p64), explicit)[1],
+           "forest": sf}
+    sba_out, ref["bench_sba"] = semantic_bundle_adjust(*sba_ctx)
+    del p64
+    kernels = {"headline": DENSE_KERNELS, "1024 images": IMPLICIT_KERNELS,
+               "1024 images, free shared intrinsics": IMPLICIT_KERNELS,
+               "bench_sba": ("map_gather",)}
+    # The first accepted step of each solve against single-device reruns.
+    first = {}
+    for name, case in cases.items():
+        kind, problem, opt = _par_inputs(case, "cuda")
+        first[name] = (_par_single(kind, problem, opt, reorder=True), opt,
+                       torch.finfo(problem.qvecs.dtype).eps)
+        del problem
+    for group_name, runs in (("NCCL", nccl), ("gloo", results)):
+        if runs is None:
+            continue
+        for name in cases:
+            r = [run[name] for run in runs]
+            for k in range(1, len(r)):
+                require(_par_equal(r[0], r[k]),
+                        f"parallel {group_name} {name}: rank {k}'s solve "
+                        f"is not bit-equal to rank 0's")
+            for k, run in enumerate(r):
+                require(all(run["launches"][x] > 0
+                            for x in kernels.get(name, ())),
+                        f"parallel {group_name} {name}: rank {k} launched "
+                        f"{run['launches']}")
+            got = r[0]
+            c0, c1 = got["initial_cost"], got["final_cost"]
+            require(c1 < c0, f"parallel {name}: cost {c0} -> {c1}")
+            if name.startswith("pose graph"):
+                tag = name.split()[-1]
+                _, _, c32, drift0, truth = pg_ctx[tag]
+                st = got["state"]
+                drift = _drifts(st["qvecs"].astype(np.float64),
+                                st["tvecs"].astype(np.float64),
+                                st["log_scales"].astype(np.float64), truth)
+                gap = abs(c1 - c32) / c32
+                require(gap <= PG_GATES["cost_rtol"] and drift0[0] / drift[0]
+                        >= PG_GATES["min_rel_drift_drop"],
+                        f"parallel {name}: final cost {c1} vs {c32} on one "
+                        f"device, relative drift {drift0[0]} -> {drift[0]}")
+                gate = f"final cost vs one device {gap:.3e} (PG_GATES)"
+            else:
+                c_ref = float(ref[name].final_cost)
+                gap = abs(c1 - c_ref) / c_ref
+                tol = PAR_GATES["f64" if name.startswith("f64") else "f32"]
+                require(gap <= tol, f"parallel {name}: final cost {c1} vs "
+                        f"{c_ref} on one device ({gap:.3e} > {tol:g})")
+                gate = f"final cost vs one device {gap:.3e} (<= {tol:g})"
+                if name == "bench_sba":
+                    pose = max(max_err(torch.as_tensor(got["state"][f]),
+                                       getattr(sba_out, f).cpu())
+                               for f in ("qvecs", "tvecs"))
+                    require(pose <= PAR_GATES["sba_pose"],
+                            f"parallel bench_sba: poses {pose:.3e} from "
+                            f"the single-device solve")
+                    gate += f", poses {pose:.2e}"
+            single, opt, eps = first[name]
+            gate += ", " + _par_first_step(
+                f"{group_name} {name}", single, opt, got["trace"], eps,
+                None if name.startswith("pose graph")
+                else ref[name].cost_trace.detach().cpu().numpy())
+            its = max(got["iterations"], 1)
+            ar = got["allreduce"]
+            log("parallel", f"{group_name} x{len(r)}: {name}: cost {c0:.6g} "
+                f"-> {c1:.6g} in {got['iterations']} LM it, {gate}; "
+                f"{got['wall']:.2f} s = {got['iterations'] / got['wall']:.2f} "
+                f"LM it/s (a fresh process, first solve of its kind); "
+                f"{ar['calls'] / its:.1f} all-reduces and "
+                f"{ar['bytes'] / its / 2**20:.3f} MiB per LM iteration; "
+                f"launches per rank {[json.dumps({k: v for k, v in run['launches'].items() if v}) for run in r]}; "
+                f"ranks bit-equal; {card}")
+    log("parallel", f"(b) {PAR_RANKS} gloo ranks on card 0: spawned and "
+        f"solved in {t_ranks:.1f} s; {card}")
+
+
 def phase_timing_sift():
     """map_gather at SIFT's index law (the first launch of one 1600x1200
     batch of 8, phase twins-frontend) against its plain version and
@@ -4712,7 +5189,7 @@ def main() -> int:
     gather_launches, sba_ctx, sba_ms, pair_launches = run("sba", phase_sba)
     gather_launches["map_gather_pair"] = pair_launches["map_gather_pair"]
     run("cli-sba", phase_cli_sba)
-    gsba_ctx, gsba_ms = run("gsba", phase_gsba)
+    gsba_ctx, gsba_ms, forest_ctx = run("gsba", phase_gsba)
     run("cli-gsba", phase_cli_gsba)
     run("twins-frontend", phase_twins_frontend)
     fe_scene, fe_work = run("frontend", phase_frontend)
@@ -4729,8 +5206,10 @@ def main() -> int:
     finally:
         shutil.rmtree(fe_work, ignore_errors=True)
     del fe_scene
-    run("pose-graph", phase_pose_graph)
+    pg_ctx = run("pose-graph", phase_pose_graph)
     run("rig", phase_rig)
+    run("parallel", phase_parallel, ctx, ctx_i, sba_ctx, forest_ctx, pg_ctx)
+    del forest_ctx, pg_ctx
     rows = run("timing", phase_timing, ctx, launches, errs)
     rows.update(run("timing", phase_timing_implicit, ctx_i, launches_i,
                     errs, k3_per_it))

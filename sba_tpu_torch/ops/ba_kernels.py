@@ -188,15 +188,18 @@ def intrinsic_refine_mask(opt) -> np.ndarray:
     return m
 
 
-def plan_layout(problem, opt, TP: int = 128) -> KernelLayout:
+def plan_layout(problem, opt, TP: int = 128,
+                block_multiple: int = 1) -> KernelLayout:
     """Layout of a point-major problem (obs row = p*K + s), given as a
-    mapping of `BAProblem` field names to arrays."""
+    mapping of `BAProblem` field names to arrays. `block_multiple` pads
+    the block count to a multiple of it, so that the point blocks divide
+    evenly over the ranks of an SPMD solve (parallel/ba_fused_spmd.py)."""
     P = problem["points"].shape[0]
     K = problem["obs_image"].shape[0] // P
     N = problem["qvecs"].shape[0]
     C = problem["cam_params"].shape[0]
     nparams = camera_models.model_by_id(opt.model_id).num_params
-    Pp = _round_up(P, TP)
+    Pp = _round_up(P, TP * block_multiple)
     Npad = _round_up(N, 128)
     base = 42 + 7 * nparams + nparams * nparams
     mode = opt.fused_ranged

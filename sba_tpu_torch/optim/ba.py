@@ -1,6 +1,6 @@
 """Bundle adjustment: Levenberg-Marquardt with an explicit Schur step.
 
-Port of the single-device part of ``sba_tpu/optim/ba.py``:
+Port of ``sba_tpu/optim/ba.py``:
 
 - `BAProblem` is a NamedTuple of tensors: poses ``[N,4]+[N,3]``, points
   ``[P,3]``, zero-padded intrinsics ``[C,12]`` and the observation table.
@@ -11,6 +11,8 @@ Port of the single-device part of ``sba_tpu/optim/ba.py``:
 - `_solve_step_explicit_pm` is the point-major explicit-Schur step: point
   blocks are eliminated in closed form, the reduced camera system
   ``S = B + lam D - EL EL^T`` is assembled dense and solved by Cholesky.
+- `_solve_step_explicit` is the explicit-Schur step on the COO
+  observation table: EL [D, 3P] built by one scatter.
 - `_make_operators` builds the implicit Schur operators of one COO
   linearization (segment sums by image, camera and point); `_pcg` and
   `_dense_schur_solve` solve the reduced camera system with them, and
@@ -25,7 +27,13 @@ above), and everything else as sba_tpu does: the explicit step while its
 couplings fit EXPLICIT_SCHUR_MAX_BYTES, else the dense or the PCG step.
 `pad_problem_pow2` pads the incremental mapper's problems to sba_tpu's
 power-of-two buckets, so that the solver route (judged on sizes) is
-sba_tpu's. The COO explicit step and the SPMD path are not ported yet.
+sba_tpu's.
+
+SPMD (`BAOptions.axis_name`, parallel/distributed_ba.py): the
+observations, or the points with their whole tracks, are sharded over
+the ranks of that axis; every reduction over them is all-reduced by
+`group.all_reduce` where sba_tpu psums, and the reduced system is solved
+replicated on every rank.
 """
 
 from __future__ import annotations
@@ -41,7 +49,9 @@ from sba_tpu_torch.geometry import camera_models
 from sba_tpu_torch.geometry.quaternions import (quat_normalize,
                                                 quat_retract, quat_rotate)
 from sba_tpu_torch.ops.ba_kernels import intrinsic_refine_mask
+from sba_tpu_torch.ops.segment import segment_sum, segment_table
 from sba_tpu_torch.optim.losses import loss_value, loss_weight
+from sba_tpu_torch.parallel import group
 
 MAXP = camera_models.MAX_NUM_PARAMS  # 12
 # The explicit step stores the whitened couplings [6N + 12C, 3P]; above
@@ -197,6 +207,13 @@ class BAOptions:
     # On the card it only selects bf16 couplings (with matvec_bf16) and
     # forces the implicit solve (ops/ba_kernels.py docstring).
     fused_ranged: str = "auto"
+    # Observation table of the explicit step: "coo" (any order) or
+    # "point_major" (`to_point_major`).
+    obs_layout: str = "coo"
+    # SPMD: the observations are sharded over the ranks of this axis
+    # (parallel/distributed_ba.py); every reduction over them is
+    # all-reduced. None = one device.
+    axis_name: Optional[str] = None
 
 
 class BASummary(NamedTuple):
@@ -394,8 +411,9 @@ def _cost(qvecs, tvecs, points, cam_params, problem: BAProblem,
           opt: BAOptions):
     r = _residuals_only(qvecs, tvecs, points, cam_params, problem, opt)
     s = torch.sum(r * r, dim=-1)
-    return 0.5 * torch.sum(problem.obs_mask
-                           * loss_value(opt.loss, s, opt.loss_scale))
+    return group.all_reduce(0.5 * torch.sum(
+        problem.obs_mask * loss_value(opt.loss, s, opt.loss_scale)),
+        opt.axis_name)
 
 
 def evaluate_cost(problem: BAProblem, options: BAOptions):
@@ -407,22 +425,92 @@ def evaluate_cost(problem: BAProblem, options: BAOptions):
 # The LM step and loop
 # ---------------------------------------------------------------------------
 
-def _segsum(v, idx, n, dim=0):
-    """Sum the slices of v along `dim` into n slices by idx."""
+def _segsum(v, idx, n, dim=0, axis_name=None):
+    """Sum the slices of v along `dim` into n slices by idx (over all
+    ranks of `axis_name`)."""
     shape = list(v.shape)
     shape[dim] = n
-    return torch.zeros(shape, dtype=v.dtype, device=v.device).index_add_(
-        dim, idx, v)
+    return group.all_reduce(
+        torch.zeros(shape, dtype=v.dtype,
+                    device=v.device).index_add_(dim, idx, v), axis_name)
+
+
+def _red_pts(problem: BAProblem, v, axis_name=None, dim=0):
+    """Per-observation rows along `dim` -> per-point rows."""
+    return _segsum(v, problem.obs_point.long(), problem.points.shape[0],
+                   dim, axis_name)
+
+
+def _red_imgs(problem: BAProblem, v, axis_name=None, dim=0):
+    """Per-observation rows along `dim` -> per-image rows."""
+    return _segsum(v, problem.obs_image.long(), problem.qvecs.shape[0],
+                   dim, axis_name)
+
+
+def _red_cams(problem: BAProblem, v, axis_name=None, dim=0):
+    """Per-observation rows along `dim` -> per-camera rows."""
+    return _segsum(v, problem.obs_cam.long(), problem.cam_params.shape[0],
+                   dim, axis_name)
 
 
 def _clamp_diag(d):
     return torch.clamp(d, 1e-6, 1e32)
 
 
+def _coupling_matrix(WL_pose, WL_cam, oi, oc, op, N, C, P):
+    """The whitened coupling matrix EL [6N + 12C, 3P] (rows n*6+i |
+    6N+c*12+m) from its per-observation blocks, scattered by (image or
+    camera, point)."""
+    EL_pose = WL_pose.new_zeros(N, P, 6, 3)
+    EL_pose.index_put_((oi, op), WL_pose, accumulate=True)
+    EL_cam = WL_cam.new_zeros(C, P, MAXP, 3)
+    EL_cam.index_put_((oc, op), WL_cam, accumulate=True)
+    return torch.cat([EL_pose.permute(0, 2, 1, 3).reshape(6 * N, 3 * P),
+                      EL_cam.permute(0, 2, 1, 3).reshape(MAXP * C, 3 * P)])
+
+
+def _solve_reduced_system(problem, opt, Hcc_pose, Hcc_cam, Hpc_img, img_cam,
+                          d_pose_l, d_cam_l, ELELt, rhs):
+    """Assemble S = B + lam D - EL EL^T of the reduced camera system (B:
+    the pose and camera blocks, each image's pose-camera block at its
+    camera), make the frozen coordinates identity rows, and solve
+    S du = rhs by Cholesky. Returns (u_pose [N,6], u_cam [C,12]),
+    masked."""
+    N, C = Hcc_pose.shape[0], Hcc_cam.shape[0]
+    dtype, dev = Hcc_pose.dtype, Hcc_pose.device
+    bi = (torch.arange(N, device=dev)[:, None] * 6
+          + torch.arange(6, device=dev)[None, :])            # [N, 6]
+    ci = 6 * N + (torch.arange(C, device=dev)[:, None] * MAXP
+                  + torch.arange(MAXP, device=dev)[None, :])  # [C, 12]
+    cam_cols = ci[img_cam]                                   # [N, 12]
+    D = 6 * N + MAXP * C
+    B = torch.zeros(D, D, dtype=dtype, device=dev)
+    B.index_put_((bi[:, :, None], bi[:, None, :]), Hcc_pose, accumulate=True)
+    B.index_put_((ci[:, :, None], ci[:, None, :]), Hcc_cam, accumulate=True)
+    B.index_put_((bi[:, :, None], cam_cols[:, None, :]), Hpc_img,
+                 accumulate=True)
+    B.index_put_((cam_cols[:, :, None], bi[:, None, :]),
+                 Hpc_img.transpose(1, 2), accumulate=True)
+    d_l = torch.cat([d_pose_l.reshape(-1), d_cam_l.reshape(-1)])
+    S = B + torch.diag(d_l) - ELELt
+    free_pose = _free_pose(problem, opt)
+    free_cam_m = problem.free_cam * torch.as_tensor(
+        intrinsic_refine_mask(opt), dtype=dtype, device=dev)
+    free = torch.cat([free_pose.reshape(-1), free_cam_m.reshape(-1)])
+    S = S * free[:, None] * free[None, :] + torch.diag(1.0 - free)
+    chol = torch.linalg.cholesky_ex(S)[0]
+    du = torch.cholesky_solve((rhs * free)[:, None], chol)[:, 0]
+    return (du[:6 * N].reshape(N, 6) * free_pose,
+            du[6 * N:].reshape(C, MAXP) * free_cam_m)
+
+
 def _solve_step_explicit_pm(problem: BAProblem, opt: BAOptions, lam):
     """Point-major explicit-Schur LM step (see module docstring). Needs
     the layout of `to_point_major`. Returns (u_pose [N,6], u_cam [C,12],
-    d_pts [P,3], predicted, g_inf)."""
+    d_pts [P,3], predicted, g_inf). With `opt.axis_name` the points and
+    their tracks are this rank's (parallel/distributed_ba.py): one
+    all-reduce each for the image payload, EL EL^T and the RHS, and the
+    point sums of the predicted reduction and its gradient norm."""
     r, Jq, Jt, Jx, Jk = _linearize(problem, opt)
     N = problem.qvecs.shape[0]
     P = problem.points.shape[0]
@@ -433,14 +521,11 @@ def _solve_step_explicit_pm(problem: BAProblem, opt: BAOptions, lam):
     oc = problem.obs_cam.long()
     op = problem.obs_point.long()
     dtype, dev = r.dtype, r.device
-    D = 6 * N + MAXP * C
+    axis = opt.axis_name
     Jc = torch.cat([Jq, Jt], dim=-1)                        # [O, 2, 6]
 
     def pt_reduce(v):
         return torch.sum(v.reshape((P, K) + v.shape[1:]), dim=1)
-
-    def img_reduce(v):
-        return _segsum(v, oi, N)
 
     # ---- point side ----
     g_pts = pt_reduce(torch.einsum("oki,ok->oi", Jx, r))     # [P, 3]
@@ -451,59 +536,43 @@ def _solve_step_explicit_pm(problem: BAProblem, opt: BAOptions, lam):
     Hpp_inv = _sym3_inverse(Hpp)
     Lp = torch.linalg.cholesky(Hpp_inv + 1e-14 * eye3)       # [P, 3, 3]
 
-    # ---- image side ----
-    g_pose = img_reduce(torch.einsum("oki,ok->oi", Jc, r))   # [N, 6]
-    Hcc_pose = img_reduce(torch.einsum("oki,okj->oij", Jc, Jc))
-    Hpc_img = img_reduce(torch.einsum("oki,okj->oij", Jc, Jk))  # [N,6,12]
+    # ---- image side: one payload, reduced by image over all ranks ----
+    red = _segsum(torch.cat([
+        torch.einsum("oki,ok->oi", Jc, r),
+        torch.einsum("oki,okj->oij", Jc, Jc).reshape(O, 36),
+        torch.einsum("oki,okj->oij", Jc, Jk).reshape(O, 6 * MAXP),
+        torch.einsum("oki,ok->oi", Jk, r),
+        torch.einsum("oki,okj->oij", Jk, Jk).reshape(O, MAXP * MAXP)], 1),
+        oi, N, axis_name=axis)
+    ofs = np.cumsum([0, 6, 36, 6 * MAXP, MAXP, MAXP * MAXP])
+    g_pose = red[:, ofs[0]:ofs[1]]                          # [N, 6]
+    Hcc_pose = red[:, ofs[1]:ofs[2]].reshape(N, 6, 6)
+    Hpc_img = red[:, ofs[2]:ofs[3]].reshape(N, 6, MAXP)     # [N, 6, 12]
+    # By camera in a fixed order: every rank sums the same replicated
+    # rows and must get the same bits.
     img_cam = problem.image_cam.long()
-    g_cam = _segsum(img_reduce(torch.einsum("oki,ok->oi", Jk, r)), img_cam, C)
-    Hcc_cam = _segsum(img_reduce(torch.einsum("oki,okj->oij", Jk, Jk)),
-                      img_cam, C)
+    cam_tab = segment_table(img_cam, C)
+    g_cam = segment_sum(red[:, ofs[3]:ofs[4]], cam_tab)
+    Hcc_cam = segment_sum(red[:, ofs[4]:ofs[5]].reshape(N, MAXP, MAXP),
+                          cam_tab)
     d_pose_l = lam * _clamp_diag(torch.diagonal(Hcc_pose, dim1=1, dim2=2))
     d_cam_l = lam * _clamp_diag(torch.diagonal(Hcc_cam, dim1=1, dim2=2))
 
-    # ---- whitened coupling matrix EL [D, 3P]: rows n*6+i | 6N+c*12+m ----
+    # ---- whitened coupling matrix EL [D, 3P] ----
     LpO = Lp.repeat_interleave(K, dim=0)                     # [O, 3, 3]
-    WL_pose = torch.einsum("oij,ojk->oik",
-                           torch.einsum("oki,okj->oij", Jc, Jx), LpO)
-    WL_cam = torch.einsum("oij,ojk->oik",
-                          torch.einsum("oki,okj->oij", Jk, Jx), LpO)
-    EL_pose = torch.zeros(N, P, 6, 3, dtype=dtype, device=dev)
-    EL_pose.index_put_((oi, op), WL_pose, accumulate=True)
-    EL_cam = torch.zeros(C, P, MAXP, 3, dtype=dtype, device=dev)
-    EL_cam.index_put_((oc, op), WL_cam, accumulate=True)
-    EL = torch.cat([EL_pose.permute(0, 2, 1, 3).reshape(6 * N, 3 * P),
-                    EL_cam.permute(0, 2, 1, 3).reshape(MAXP * C, 3 * P)])
+    EL = _coupling_matrix(
+        torch.einsum("oij,ojk->oik", torch.einsum("oki,okj->oij", Jc, Jx),
+                     LpO),
+        torch.einsum("oij,ojk->oik", torch.einsum("oki,okj->oij", Jk, Jx),
+                     LpO), oi, oc, op, N, C, P)
 
     # ---- assemble + solve the reduced system ----
-    bi = (torch.arange(N, device=dev)[:, None] * 6
-          + torch.arange(6, device=dev)[None, :])            # [N, 6]
-    ci = 6 * N + (torch.arange(C, device=dev)[:, None] * MAXP
-                  + torch.arange(MAXP, device=dev)[None, :])  # [C, 12]
-    cam_cols = ci[img_cam]                                   # [N, 12]
-    B = torch.zeros(D, D, dtype=dtype, device=dev)
-    B.index_put_((bi[:, :, None], bi[:, None, :]), Hcc_pose, accumulate=True)
-    B.index_put_((ci[:, :, None], ci[:, None, :]), Hcc_cam, accumulate=True)
-    B.index_put_((bi[:, :, None], cam_cols[:, None, :]), Hpc_img,
-                 accumulate=True)
-    B.index_put_((cam_cols[:, :, None], bi[:, None, :]),
-                 Hpc_img.transpose(1, 2), accumulate=True)
-    d_l = torch.cat([d_pose_l.reshape(-1), d_cam_l.reshape(-1)])
-    S = B + torch.diag(d_l) - EL @ EL.T
-    free_pose = _free_pose(problem, opt)
-    free_cam_m = problem.free_cam * torch.as_tensor(
-        intrinsic_refine_mask(opt), dtype=dtype, device=dev)
-    free = torch.cat([free_pose.reshape(-1), free_cam_m.reshape(-1)])
-    S = S * free[:, None] * free[None, :] + torch.diag(1.0 - free)
-
     Ltg = torch.einsum("pji,pj->pi", Lp, g_pts).reshape(-1)  # [3P]
-    Ey = EL @ Ltg
     g_u = torch.cat([g_pose.reshape(-1), g_cam.reshape(-1)])
-    b = (-g_u + Ey) * free
-    chol = torch.linalg.cholesky_ex(S)[0]
-    du = torch.cholesky_solve(b[:, None], chol)[:, 0]
-    u_pose = du[:6 * N].reshape(N, 6) * free_pose
-    u_cam = du[6 * N:].reshape(C, MAXP) * free_cam_m
+    u_pose, u_cam = _solve_reduced_system(
+        problem, opt, Hcc_pose, Hcc_cam, Hpc_img, img_cam, d_pose_l, d_cam_l,
+        group.all_reduce(EL @ EL.T, axis),
+        -g_u + group.all_reduce(EL @ Ltg, axis))
     du_masked = torch.cat([u_pose.reshape(-1), u_cam.reshape(-1)])
 
     # Back-substitution: dp = -Hpp^-1 g_p - Lp (EL^T du).
@@ -518,10 +587,97 @@ def _solve_step_explicit_pm(problem: BAProblem, opt: BAOptions, lam):
          + torch.einsum("oki,oi->ok", Jx,
                         d_pts_step.repeat_interleave(K, dim=0)))
     gTd = (torch.sum(g_pose * u_pose) + torch.sum(g_cam * u_cam)
-           + torch.sum(g_pts * d_pts_step))
-    dHd = (torch.sum(t * t) + torch.sum(d_pts_l * d_pts_step * d_pts_step)
+           + group.all_reduce(torch.sum(g_pts * d_pts_step), axis))
+    dHd = (group.all_reduce(torch.sum(t * t)
+                            + torch.sum(d_pts_l * d_pts_step * d_pts_step),
+                            axis)
            + torch.sum(d_pose_l * u_pose * u_pose)
            + torch.sum(d_cam_l * u_cam * u_cam))
+    predicted = -(gTd + 0.5 * dHd)
+    g_inf = torch.maximum(
+        torch.max(torch.abs(g_pose)),
+        torch.maximum(torch.max(torch.abs(g_cam)), group.all_reduce(
+            torch.max(torch.abs(g_pts)), axis, "max")))
+    return u_pose, u_cam, d_pts_step, predicted, g_inf
+
+
+def _solve_step_explicit(problem: BAProblem, opt: BAOptions, lam):
+    """Explicit-Schur LM step on the COO observation table: the whitened
+    coupling matrix EL = E chol(C^-1) [D, 3P] is built dense by one
+    scatter, then S = B + lam D - EL EL^T is solved by Cholesky.
+    `bundle_adjust` takes it for solver explicit_schur when the couplings
+    pass EXPLICIT_SCHUR_MAX_BYTES (and for solver fused off the kernels
+    while they fit). With
+    `opt.axis_name` the observations are sharded and EL is all-reduced,
+    as every reduction over them."""
+    r, Jq, Jt, Jx, Jk = _linearize(problem, opt)
+    N = problem.qvecs.shape[0]
+    P = problem.points.shape[0]
+    C = problem.cam_params.shape[0]
+    oi = problem.obs_image.long()
+    op = problem.obs_point.long()
+    oc = problem.obs_cam.long()
+    dtype, dev = r.dtype, r.device
+    axis = opt.axis_name
+    Jc = torch.cat([Jq, Jt], dim=-1)                        # [O, 2, 6]
+
+    g_pose = _red_imgs(problem, torch.einsum("oki,ok->oi", Jc, r), axis)
+    g_cam = _red_cams(problem, torch.einsum("oki,ok->oi", Jk, r), axis)
+    g_pts = _red_pts(problem, torch.einsum("oki,ok->oi", Jx, r), axis)
+    d_pose_l = lam * _clamp_diag(
+        _red_imgs(problem, torch.einsum("oki,oki->oi", Jc, Jc), axis))
+    d_cam_l = lam * _clamp_diag(
+        _red_cams(problem, torch.einsum("oki,oki->oi", Jk, Jk), axis))
+    d_pts_l = lam * _clamp_diag(
+        _red_pts(problem, torch.einsum("oki,oki->oi", Jx, Jx), axis))
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    Hpp = (_red_pts(problem, torch.einsum("oki,okj->oij", Jx, Jx), axis)
+           + torch.diag_embed(d_pts_l) + 1e-12 * eye3)
+    Hpp_inv = _sym3_inverse(Hpp)
+    Lp = torch.linalg.cholesky(Hpp_inv + 1e-14 * eye3)       # [P, 3, 3]
+
+    # Per-observation couplings, whitened: WL = (Ju^T Jx) Lp.
+    W_pose = torch.einsum("oki,okj->oij", Jc, Jx)            # [O, 6, 3]
+    W_cam = torch.einsum("oki,okj->oij", Jk, Jx)             # [O, 12, 3]
+    LpO = Lp[op]
+    EL = group.all_reduce(_coupling_matrix(
+        torch.einsum("oij,ojk->oik", W_pose, LpO),
+        torch.einsum("oij,ojk->oik", W_cam, LpO), oi, oc, op, N, C, P), axis)
+
+    Hcc_pose = _red_imgs(problem, torch.einsum("oki,okj->oij", Jc, Jc),
+                         axis)
+    Hcc_cam = _red_cams(problem, torch.einsum("oki,okj->oij", Jk, Jk),
+                        axis)
+    Hpc_img = _red_imgs(problem, torch.einsum("oki,okj->oij", Jc, Jk),
+                        axis)                                # [N, 6, 12]
+    img_cam = (problem.image_cam.long() if problem.image_cam is not None
+               else torch.zeros(N, dtype=torch.long, device=dev)
+               .scatter_reduce(0, oi, oc, "amax", include_self=False))
+
+    # RHS: b = -g_u + E C^-1 g_p.
+    y = torch.einsum("pij,pj->pi", Hpp_inv, g_pts)[op]
+    Ey_pose = _red_imgs(problem, torch.einsum("oij,oj->oi", W_pose, y), axis)
+    Ey_cam = _red_cams(problem, torch.einsum("oij,oj->oi", W_cam, y), axis)
+    u_pose, u_cam = _solve_reduced_system(
+        problem, opt, Hcc_pose, Hcc_cam, Hpc_img, img_cam, d_pose_l, d_cam_l,
+        EL @ EL.T, torch.cat([(-g_pose + Ey_pose).reshape(-1),
+                              (-g_cam + Ey_cam).reshape(-1)]))
+
+    # Back-substitution: dp = C^-1 (-g_p - E^T du).
+    Etu = _red_pts(problem, torch.einsum("oij,oi->oj", W_pose, u_pose[oi])
+                   + torch.einsum("oij,oi->oj", W_cam, u_cam[oc]), axis)
+    d_pts_step = (torch.einsum("pij,pj->pi", Hpp_inv, -g_pts - Etu)
+                  * problem.free_points[:, None])
+
+    t = (torch.einsum("oki,oi->ok", Jc, u_pose[oi])
+         + torch.einsum("oki,oi->ok", Jk, u_cam[oc])
+         + torch.einsum("oki,oi->ok", Jx, d_pts_step[op]))
+    gTd = (torch.sum(g_pose * u_pose) + torch.sum(g_cam * u_cam)
+           + torch.sum(g_pts * d_pts_step))
+    dHd = (group.all_reduce(torch.sum(t * t), axis)
+           + torch.sum(d_pose_l * u_pose * u_pose)
+           + torch.sum(d_cam_l * u_cam * u_cam)
+           + torch.sum(d_pts_l * d_pts_step * d_pts_step))
     predicted = -(gTd + 0.5 * dHd)
     g_inf = torch.maximum(
         torch.max(torch.abs(g_pose)),
@@ -530,36 +686,38 @@ def _solve_step_explicit_pm(problem: BAProblem, opt: BAOptions, lam):
     return u_pose, u_cam, d_pts_step, predicted, g_inf
 
 
-def _make_operators(problem: BAProblem, r, Jq, Jt, Jx, Jk, lam):
+def _make_operators(problem: BAProblem, r, Jq, Jt, Jx, Jk, lam,
+                    axis_name=None):
     """The implicit Schur operators of one COO linearization.
 
     Reduced unknowns u = (pose [N,6], cam [C,12]); the points [P,3] are
     eliminated. The operators take a leading batch of vectors
     ([..., N, 6], [..., C, 12]), which `_dense_schur_solve` uses to
-    apply them to a basis.
+    apply them to a basis. Every reduction over the observations is
+    all-reduced over `axis_name`.
     """
-    N = problem.qvecs.shape[0]
-    P = problem.points.shape[0]
-    C = problem.cam_params.shape[0]
     oi = problem.obs_image.long()
     op = problem.obs_point.long()
     oc = problem.obs_cam.long()
     Jc = torch.cat([Jq, Jt], dim=-1)                        # [O, 2, 6]
 
-    def obs_sum(v, idx, n):                 # [..., O, d] -> [..., n, d]
-        return _segsum(v, idx, n, v.ndim - 2)
+    def imgs(v):                            # [..., O, d] -> [..., N, d]
+        return _red_imgs(problem, v, axis_name, v.ndim - 2)
 
-    g_pose = _segsum(torch.einsum("oki,ok->oi", Jc, r), oi, N)
-    g_cam = _segsum(torch.einsum("oki,ok->oi", Jk, r), oc, C)
-    g_pts = _segsum(torch.einsum("oki,ok->oi", Jx, r), op, P)
-    d_pose_l = lam * _clamp_diag(
-        _segsum(torch.einsum("oki,oki->oi", Jc, Jc), oi, N))
-    d_cam_l = lam * _clamp_diag(
-        _segsum(torch.einsum("oki,oki->oi", Jk, Jk), oc, C))
-    d_pts_l = lam * _clamp_diag(
-        _segsum(torch.einsum("oki,oki->oi", Jx, Jx), op, P))
+    def cams(v):
+        return _red_cams(problem, v, axis_name, v.ndim - 2)
+
+    def pts(v):
+        return _red_pts(problem, v, axis_name, v.ndim - 2)
+
+    g_pose = imgs(torch.einsum("oki,ok->oi", Jc, r))
+    g_cam = cams(torch.einsum("oki,ok->oi", Jk, r))
+    g_pts = pts(torch.einsum("oki,ok->oi", Jx, r))
+    d_pose_l = lam * _clamp_diag(imgs(torch.einsum("oki,oki->oi", Jc, Jc)))
+    d_cam_l = lam * _clamp_diag(cams(torch.einsum("oki,oki->oi", Jk, Jk)))
+    d_pts_l = lam * _clamp_diag(pts(torch.einsum("oki,oki->oi", Jx, Jx)))
     eye3 = torch.eye(3, dtype=r.dtype, device=r.device)
-    Hpp = (_segsum(torch.einsum("oki,okj->oij", Jx, Jx), op, P)
+    Hpp = (_red_pts(problem, torch.einsum("oki,okj->oij", Jx, Jx), axis_name)
            + torch.diag_embed(d_pts_l) + 1e-12 * eye3)
     Hpp_inv = _sym3_inverse(Hpp)
 
@@ -573,11 +731,11 @@ def _make_operators(problem: BAProblem, r, Jq, Jt, Jx, Jk, lam):
         return out
 
     def JT_apply_cam(t):
-        return (obs_sum(torch.einsum("oki,...ok->...oi", Jc, t), oi, N),
-                obs_sum(torch.einsum("oki,...ok->...oi", Jk, t), oc, C))
+        return (imgs(torch.einsum("oki,...ok->...oi", Jc, t)),
+                cams(torch.einsum("oki,...ok->...oi", Jk, t)))
 
     def JT_apply_pts(t):
-        return obs_sum(torch.einsum("oki,...ok->...oi", Jx, t), op, P)
+        return pts(torch.einsum("oki,...ok->...oi", Jx, t))
 
     def hpp_solve(y):
         return torch.einsum("pij,...pj->...pi", Hpp_inv, y)
@@ -595,12 +753,14 @@ def _make_operators(problem: BAProblem, r, Jq, Jt, Jx, Jk, lam):
     Bp = torch.einsum("oki,okj->oij", Jc, Jx)               # [O, 6, 3]
     Bc = torch.einsum("oki,okj->oij", Jk, Jx)               # [O, 12, 3]
     HinvO = Hpp_inv[op]
-    S_pose = (_segsum(torch.einsum("oki,okj->oij", Jc, Jc), oi, N)
-              - _segsum(torch.einsum("oij,ojk,olk->oil", Bp, HinvO, Bp),
-                        oi, N))
-    S_cam = (_segsum(torch.einsum("oki,okj->oij", Jk, Jk), oc, C)
-             - _segsum(torch.einsum("oij,ojk,olk->oil", Bc, HinvO, Bc),
-                       oc, C))
+    S_pose = (_red_imgs(problem, torch.einsum("oki,okj->oij", Jc, Jc),
+                        axis_name)
+              - _red_imgs(problem, torch.einsum("oij,ojk,olk->oil", Bp,
+                                                HinvO, Bp), axis_name))
+    S_cam = (_red_cams(problem, torch.einsum("oki,okj->oij", Jk, Jk),
+                       axis_name)
+             - _red_cams(problem, torch.einsum("oij,ojk,olk->oil", Bc,
+                                               HinvO, Bc), axis_name))
     free_pose = torch.cat([problem.free_rot[:, None].expand(-1, 3),
                            problem.free_trans], dim=1)
     S_pose = (S_pose + torch.diag_embed(d_pose_l + 1e-10)
@@ -684,12 +844,15 @@ def _dense_schur_solve(matvec, b_pose, b_cam, n_obs):
 
 def _solve_step(problem: BAProblem, opt: BAOptions, lam):
     """One linearization + linear solve by `opt.solver` (explicit_schur
-    on a point-major problem, dense_schur or schur_pcg on any layout).
-    Returns (u_pose, u_cam, d_pts, predicted, g_inf), the step masked."""
+    on the `opt.obs_layout` table, dense_schur or schur_pcg on any
+    layout). Returns (u_pose, u_cam, d_pts, predicted, g_inf), the step
+    masked."""
     if opt.solver == "explicit_schur":
-        return _solve_step_explicit_pm(problem, opt, lam)
+        if opt.obs_layout == "point_major":
+            return _solve_step_explicit_pm(problem, opt, lam)
+        return _solve_step_explicit(problem, opt, lam)
     lin = _linearize(problem, opt)
-    ops = _make_operators(problem, *lin, lam)
+    ops = _make_operators(problem, *lin, lam, opt.axis_name)
     if opt.solver == "dense_schur":
         u_pose, u_cam = _dense_schur_solve(ops["schur_matvec"],
                                            ops["b_pose"], ops["b_cam"],
@@ -710,7 +873,7 @@ def _solve_step(problem: BAProblem, opt: BAOptions, lam):
     t = ops["J_apply"](u_pose, u_cam, d_pts)
     gTd = (torch.sum(ops["g_pose"] * u_pose) + torch.sum(ops["g_cam"] * u_cam)
            + torch.sum(ops["g_pts"] * d_pts))
-    dHd = (torch.sum(t * t)
+    dHd = (group.all_reduce(torch.sum(t * t), opt.axis_name)
            + torch.sum(ops["d_pose_l"] * u_pose * u_pose)
            + torch.sum(ops["d_cam_l"] * u_cam * u_cam)
            + torch.sum(ops["d_pts_l"] * d_pts * d_pts))
@@ -747,8 +910,12 @@ def lm_done(opt: BAOptions, accept, actual, cost, g_inf, lam, step_norm,
 
 def _bundle_adjust_impl(problem: BAProblem, options: BAOptions):
     """LM loop over `_solve_step` (a point-major problem for the
-    explicit step)."""
+    point-major explicit step). Under `options.axis_name` every stopping
+    test reads all-reduced values, so that all ranks stop together: with
+    a point-major table the points are sharded too, and their norms are
+    all-reduced (sba_tpu reads each shard's own there)."""
     opt = options
+    pts_axis = opt.axis_name if opt.obs_layout == "point_major" else None
     cost0 = evaluate_cost(problem, opt)
     q, t, x, k = (problem.qvecs, problem.tvecs, problem.points,
                   problem.cam_params)
@@ -777,10 +944,11 @@ def _bundle_adjust_impl(problem: BAProblem, options: BAOptions):
         k = torch.where(accept, k2, k)
         prev_cost = cost
         cost = torch.where(accept, new_cost, cost)
+        dp2, x2 = group.all_reduce(torch.stack([torch.sum(d_pts ** 2),
+                                                torch.sum(x ** 2)]), pts_axis)
         step_norm = torch.sqrt(torch.sum(u_pose ** 2) + torch.sum(u_cam ** 2)
-                               + torch.sum(d_pts ** 2))
-        x_norm = torch.sqrt(torch.sum(t ** 2) + torch.sum(x ** 2)
-                            + torch.sum(k ** 2)) + 1.0
+                               + dp2)
+        x_norm = torch.sqrt(torch.sum(t ** 2) + x2 + torch.sum(k ** 2)) + 1.0
         it += 1
         trace[it] = cost
         if bool(lm_done(opt, accept, actual, prev_cost, g_inf, lam,
@@ -789,20 +957,23 @@ def _bundle_adjust_impl(problem: BAProblem, options: BAOptions):
     out = problem._replace(qvecs=q, tvecs=t, points=x, cam_params=k)
     summary = BASummary(
         initial_cost=cost0, final_cost=cost, num_iterations=it,
-        num_residuals=torch.sum(problem.obs_mask).to(torch.int32),
+        num_residuals=group.all_reduce(torch.sum(problem.obs_mask),
+                                       opt.axis_name).to(torch.int32),
         gradient_norm=g_inf, cost_trace=trace)
     return out, summary
 
 
 def bundle_adjust(problem: BAProblem, options: Optional[BAOptions] = None):
     """Solve. float32 problems on CUDA go through the fused kernels.
-    Everything else is routed as sba_tpu routes it: the point-major
-    explicit-Schur step while its couplings fit
-    EXPLICIT_SCHUR_MAX_BYTES (solver auto or explicit_schur); otherwise
-    the dense step for solver dense_schur, or under auto for a reduced
-    system of at most `dense_threshold` unknowns, and the PCG step for
-    the rest. (sba_tpu's explicit_schur above the limit takes its COO
-    explicit step, which is not ported: the port takes the PCG step.)"""
+    Everything else is routed as sba_tpu routes it. On one device
+    (`axis_name` None) with a COO table, solver auto or explicit_schur
+    takes the point-major explicit step while its couplings fit
+    EXPLICIT_SCHUR_MAX_BYTES. Otherwise dense_schur takes the dense step;
+    schur_pcg the PCG step; explicit_schur the COO explicit step
+    (`_solve_step_explicit`, at any size); auto and fused the COO
+    explicit step while the couplings fit on one device, else the dense
+    step for a reduced system of at most `dense_threshold` unknowns and
+    the PCG step above."""
     options = options or BAOptions()
     if options.solver not in ("auto", "fused", "explicit_schur",
                               "dense_schur", "schur_pcg"):
@@ -817,12 +988,18 @@ def bundle_adjust(problem: BAProblem, options: Optional[BAOptions] = None):
     reduced = 6 * n + MAXP * c
     fits = (reduced * 3 * p * problem.points.element_size()
             <= EXPLICIT_SCHUR_MAX_BYTES)
-    if fits and options.solver in ("auto", "fused", "explicit_schur"):
-        options = dataclasses.replace(options, solver="explicit_schur")
+    single = options.axis_name is None
+    if single and options.obs_layout == "coo" and fits \
+            and options.solver in ("auto", "explicit_schur"):
+        options = dataclasses.replace(options, solver="explicit_schur",
+                                      obs_layout="point_major")
         return _bundle_adjust_impl(to_point_major(problem), options)
-    dense = options.solver == "dense_schur" or (
-        options.solver in ("auto", "fused")
-        and reduced <= options.dense_threshold)
+    if options.solver in ("dense_schur", "schur_pcg", "explicit_schur"):
+        return _bundle_adjust_impl(problem, options)
+    if fits and single:
+        options = dataclasses.replace(options, solver="explicit_schur")
+        return _bundle_adjust_impl(problem, options)
+    dense = reduced <= options.dense_threshold
     options = dataclasses.replace(
         options, solver="dense_schur" if dense else "schur_pcg")
     return _bundle_adjust_impl(problem, options)

@@ -26,6 +26,13 @@ never formed:
 
 On CUDA tensors the kernels are the hand-written CUDA ones; on CPU
 tensors their plain twins.
+
+With `axis_name`, the point blocks are sharded over the ranks of that
+axis (parallel/ba_fused_spmd.py): each rank runs the kernels on its own
+blocks, and all-reduces make the replicated epilogue see the global
+system, where sba_tpu psums: the image payload, S_corr and Ey once per
+LM iteration, K3's correction once per CG iteration, the step sums (and
+the max of the point gradient), the cost and the point norms.
 """
 
 from __future__ import annotations
@@ -35,10 +42,12 @@ import torch
 
 from sba_tpu_torch.geometry.quaternions import quat_retract
 from sba_tpu_torch.ops import ba_kernels as bk
+from sba_tpu_torch.ops.segment import segment_sum, segment_table
 from sba_tpu_torch.optim.ba import (
-    MAXP, BAOptions, BAProblem, BASummary, _image_cam_of, lm_done,
-    lm_update, problem_to_numpy,
+    MAXP, BAOptions, BAProblem, BASummary, _image_cam_of,
+    lm_done, lm_update, problem_to_numpy,
 )
+from sba_tpu_torch.parallel import group
 
 DENSE_MAX_IMAGES = 128   # auto-policy crossover to the implicit path
 TP = 128                 # points per kernel block
@@ -123,12 +132,15 @@ def _solve_reduced(S, b, free, opt: BAOptions, x0=None):
     return x * free
 
 
-def _bucketize(problem: dict, options: BAOptions, device):
+def _bucketize(problem: dict, options: BAOptions, device,
+               block_multiple: int = 1):
     """Partition points into track-length buckets (host side, numpy).
 
     Returns [(static, lay, idx)] with idx the bucket's original point
     indices; the bucket's padded points are columns [0, len(idx)) of
-    its [3, lay.Pp] array.
+    its [3, lay.Pp] array. `block_multiple` pads each bucket's block
+    count so that the blocks divide evenly over the ranks of an SPMD
+    solve.
     """
     op = problem["obs_point"]
     oi = problem["obs_image"]
@@ -182,17 +194,18 @@ def _bucketize(problem: dict, options: BAOptions, device):
                    obs_image=sub_oi,
                    obs_point=np.repeat(np.arange(Pb, dtype=np.int32), K),
                    obs_cam=sub_oc, obs_xy=sub_xy, obs_mask=sub_m)
-        lay = bk.plan_layout(sub, options, TP)
+        lay = bk.plan_layout(sub, options, TP, block_multiple)
         static = bk.build_static(sub, options, lay, device)
         buckets.append((static, lay, idx))
     return buckets
 
 
 def _fused_step(statics, lays, opt, qvecs, tvecs, pts_list, cams, lam,
-                free_arrays, warm=None):
+                free_arrays, warm=None, axis_name=None):
     """One linearize + solve over all buckets. Returns (u_pose [N,6],
     u_cam [C,12], dp_list (per-bucket [3, Pp]), predicted, g_inf).
-    `warm = (u_pose [N,6], u_cam [C,np])` seeds the reduced solve."""
+    `warm = (u_pose [N,6], u_cam [C,np])` seeds the reduced solve. With
+    `axis_name`, the buckets hold this rank's point blocks."""
     lay0 = lays[0]
     N, C, Npad, Dk = lay0.N, lay0.C, lay0.Npad, lay0.Dk
     nparams = lay0.nparams
@@ -221,14 +234,21 @@ def _fused_step(statics, lays, opt, qvecs, tvecs, pts_list, cams, lam,
             img_red += i_b
             ey += e_b
             per_bucket.append((pt_pay, jw, None))
+        s_corr = group.all_reduce(s_corr, axis_name)
+        ey = group.all_reduce(ey, axis_name)
+    img_red = group.all_reduce(img_red, axis_name)
 
     # ---- unpack the image payload ----
     ofs = np.cumsum([0, 6, 36, 6 * nparams, nparams, nparams * nparams])
     red = img_red[:N]
     icam = image_cam[:N].long()
+    cam_tab = segment_table(icam, C)
 
-    def cam_sum(v):              # rows keyed by image -> by camera
-        return torch.zeros((C,) + v.shape[1:], **f32).index_add_(0, icam, v)
+    def cam_sum(v):
+        # Rows keyed by image -> by camera, in a fixed order: every rank
+        # sums the same replicated rows and must get the same bits (the
+        # PCG's and the LM loop's tests read them).
+        return segment_sum(v, cam_tab)
 
     g_pose = red[:, ofs[0]:ofs[1]]                          # [N, 6]
     Hcc_pose = red[:, ofs[1]:ofs[2]].reshape(N, 6, 6)
@@ -275,9 +295,10 @@ def _fused_step(statics, lays, opt, qvecs, tvecs, pts_list, cams, lam,
                   + d_cam_l * vc)
             vp_t[:, :N] = vp.T
             vc_t[:nparams] = vc.T
-            corr = sum(bk.schur_matvec(static, vp_t, vc_t, jcorr, lay, opt)
-                       for static, lay, (_, _, jcorr)
-                       in zip(statics, lays, per_bucket))
+            corr = group.all_reduce(
+                sum(bk.schur_matvec(static, vp_t, vc_t, jcorr, lay, opt)
+                    for static, lay, (_, _, jcorr)
+                    in zip(statics, lays, per_bucket)), axis_name)
             hp = hp - corr[:N, :6]
             hc = hc - cam_sum(corr[:N, 6:6 + nparams])
             # gauge: identity on frozen coordinates
@@ -365,7 +386,8 @@ def _fused_step(statics, lays, opt, qvecs, tvecs, pts_list, cams, lam,
         dp_list.append(dp)
         acc += acc_b
         g_inf_pts = torch.maximum(g_inf_pts, torch.max(torch.abs(pt_pay[:3])))
-    t2, g_dp, d_dp2 = acc
+    t2, g_dp, d_dp2 = group.all_reduce(acc, axis_name)
+    g_inf_pts = group.all_reduce(g_inf_pts, axis_name, "max")
     gTd = torch.sum(g_pose * u_pose) + torch.sum(g_cam * u_cam_np) + g_dp
     dHd = (t2 + torch.sum(d_pose_l * u_pose * u_pose)
            + torch.sum(d_cam_l * u_cam_np * u_cam_np) + d_dp2)
@@ -378,16 +400,21 @@ def _fused_step(statics, lays, opt, qvecs, tvecs, pts_list, cams, lam,
     return u_pose, u_cam, dp_list, predicted, g_inf
 
 
-def _fused_lm_loop(statics, lays, pts0, problem, options, free_arrays):
+def _fused_lm_loop(statics, lays, pts0, problem, options, free_arrays,
+                   axis_name=None):
     """The LM loop (Python; one host sync per iteration for the stopping
-    test, plus the PCG's convergence checks)."""
+    test, plus the PCG's convergence checks). With `axis_name`, `statics`,
+    `lays` and `pts0` are this rank's blocks and every test reads
+    all-reduced values, so that all ranks stop at the same iteration."""
     opt = options
     lay0 = lays[0]
     image_cam = statics[0].image_cam
 
     def cost_of(q, t, pts_list, k):
         par = bk.pack_params(q, t, k, image_cam, lay0)
-        return bk.fused_cost_buckets(statics, par, pts_list, lays, opt)
+        return group.all_reduce(
+            bk.fused_cost_buckets(statics, par, pts_list, lays, opt),
+            axis_name)
 
     q, t, k = problem.qvecs, problem.tvecs, problem.cam_params
     pts_t = pts0
@@ -403,7 +430,8 @@ def _fused_lm_loop(statics, lays, pts0, problem, options, free_arrays):
     warm = None
     while it < opt.max_iterations:
         u_pose, u_cam, dp_list, predicted, g_inf = _fused_step(
-            statics, lays, opt, q, t, pts_t, k, lam, free_arrays, warm=warm)
+            statics, lays, opt, q, t, pts_t, k, lam, free_arrays, warm=warm,
+            axis_name=axis_name)
         if opt.cg_warm_start:
             # Seed of the next reduced solve; it is rescaled against the
             # next damped system, so accept or reject needs no fix-up.
@@ -421,8 +449,9 @@ def _fused_lm_loop(statics, lays, pts0, problem, options, free_arrays):
         k = torch.where(accept, k2, k)
         prev_cost = cost
         cost = torch.where(accept, new_cost, cost)
-        dp2_sum = sum(torch.sum(dp ** 2) for dp in dp_list)
-        pts2_sum = sum(torch.sum(p ** 2) for p in pts_t)
+        dp2_sum, pts2_sum = group.all_reduce(torch.stack([
+            sum(torch.sum(dp ** 2) for dp in dp_list),
+            sum(torch.sum(p ** 2) for p in pts_t)]), axis_name)
         step_norm = torch.sqrt(torch.sum(u_pose ** 2) + torch.sum(u_cam ** 2)
                                + dp2_sum)
         x_norm = torch.sqrt(torch.sum(t ** 2) + pts2_sum
@@ -446,11 +475,23 @@ def _pack_bucket_points(points, idxs, lays):
             for idx, lay in zip(idxs, lays)]
 
 
-def prepare(problem: BAProblem, options: BAOptions):
+def with_schur_tiles(statics, lays, options: BAOptions):
+    """`statics` with K1's Schur work list (fixed for the solve, built
+    on the card) where the dense path runs on CUDA."""
+    if statics[0].obs_img.is_cuda and not use_implicit(lays[0], options):
+        statics = tuple(st._replace(tiles=bk.build_schur_tiles(st, lay))
+                        for st, lay in zip(statics, lays))
+    return statics
+
+
+def prepare(problem: BAProblem, options: BAOptions, block_multiple: int = 1,
+            tiles: bool = True):
     """Host-side prep (track-length bucketing, static tables, gauge
     masks), separated from the solve so that repeated solves over one
     problem structure pay it once. Returns a context for
-    `solve_prepared`."""
+    `solve_prepared`. `block_multiple` pads every bucket's blocks to a
+    multiple of it; `tiles=False` leaves K1's work list unbuilt (an SPMD
+    solve builds it per rank)."""
     dev = problem.points.device
     problem = BAProblem(*[
         None if v is None else (v.float() if v.is_floating_point() else v)
@@ -464,13 +505,11 @@ def prepare(problem: BAProblem, options: BAOptions):
     if not np.array_equal(derived, host["image_cam"]):
         raise ValueError(
             "problem.image_cam is inconsistent with obs_image/obs_cam")
-    buckets = _bucketize(host, options, dev)
+    buckets = _bucketize(host, options, dev, block_multiple)
     statics = tuple(b[0] for b in buckets)
     lays = tuple(b[1] for b in buckets)
-    if dev.type == "cuda" and not use_implicit(lays[0], options):
-        # K1's Schur work list, fixed for the solve (built on the card).
-        statics = tuple(st._replace(tiles=bk.build_schur_tiles(st, lay))
-                        for st, lay in zip(statics, lays))
+    if tiles:
+        statics = with_schur_tiles(statics, lays, options)
     idxs = tuple(b[2] for b in buckets)
     pts0 = _pack_bucket_points(problem.points, idxs, lays)
 

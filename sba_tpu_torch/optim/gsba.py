@@ -41,8 +41,17 @@ The pixel work runs in chunks of whole images under a byte budget
 on a tensor whose shape does not depend on the chunk, so the budget
 changes no bit of a solve. The LM loop is a Python loop with one host
 sync per iteration; the [dim, dim] system (dim = 6N + kdim K + 3P) is
-solved by Cholesky. Images sharded over devices (``axis_name``) are not
-ported yet.
+solved by Cholesky.
+
+SPMD (``axis_name``, parallel/gsba_spmd.py): the images (poses, masks,
+their rasterization and their landmark observations) are sharded over
+the ranks of that axis, the cylinders and points replicated. The step
+keeps its global layout (``spmd_num_images`` poses); each rank's rows
+fill its own images' columns, one all-reduce of (H, g) per
+linearization and one of each cost make every rank solve the global
+system, and the landmark weight divides by the global observation count
+``spmd_num_obs``. The image chunks (`GSBA_CHUNK_BYTES`) apply within each
+rank.
 """
 
 from __future__ import annotations
@@ -67,6 +76,7 @@ from sba_tpu_torch.models.cylinder import (
     quadrilateral_mask,
 )
 from sba_tpu_torch.optim.losses import loss_value, loss_weight
+from sba_tpu_torch.parallel import group
 
 LOG = logging.getLogger(__name__)
 
@@ -126,7 +136,10 @@ class GSBAOptions:
     gradient_tolerance: float = 1e-14
     parameter_tolerance: float = 1e-12
     initial_trust_radius: float = 1e2
-    # Images sharded over a device mesh: not ported yet (raises).
+    # SPMD (set by parallel/gsba_spmd.py): the axis the images are
+    # sharded over, the global image count (each rank holds a contiguous
+    # slice of spmd_num_images / size images) and the global landmark
+    # observation count (the landmark weight's divisor).
     axis_name: Optional[str] = None
     spmd_num_images: int = 0
     spmd_num_obs: int = 0
@@ -143,6 +156,20 @@ class GSBASummary(NamedTuple):
 
 def _kdim(opt: GSBAOptions) -> int:
     return 8 if opt.cylinder_parametrization == "default" else 7
+
+
+def _n_global(problem: GSBAProblem, opt: GSBAOptions) -> int:
+    """Images of the step's layout: all of them, also where this rank
+    holds a slice."""
+    return opt.spmd_num_images if opt.axis_name else problem.qvecs.shape[0]
+
+
+def _img_gidx(problem: GSBAProblem, opt: GSBAOptions):
+    """Global indices of this rank's images (a contiguous slice)."""
+    Nl = problem.qvecs.shape[0]
+    idx = torch.arange(Nl, device=problem.qvecs.device)
+    return idx if opt.axis_name is None else \
+        idx + group.rank(opt.axis_name) * Nl
 
 
 # ---------------------------------------------------------------------------
@@ -330,25 +357,29 @@ def _retract_cyl(problem: GSBAProblem, opt: GSBAOptions, d_cyl):
                             torch.log(torch.clamp(h, min=1e-8)))
 
 
-def _geo_img_weight(problem: GSBAProblem):
-    """[N] per-image geometry weight (uniform 1/N unless given)."""
+def _geo_img_weight(problem: GSBAProblem, opt: GSBAOptions):
+    """[N] per-image geometry weight of this rank's images (uniform
+    1/N over all images unless given)."""
     if problem.img_weight is not None:
         return problem.img_weight
-    N = problem.qvecs.shape[0]
-    return torch.full((N,), 1.0 / N, dtype=problem.tvecs.dtype,
-                      device=problem.tvecs.device)
+    return torch.full((problem.qvecs.shape[0],),
+                      1.0 / _n_global(problem, opt),
+                      dtype=problem.tvecs.dtype, device=problem.tvecs.device)
 
 
 def _dims(problem: GSBAProblem, opt: GSBAOptions):
-    return (problem.qvecs.shape[0], problem.cyl_qvec.shape[0],
+    """(N, K, P, kdim) of the step's layout (N: all images)."""
+    return (_n_global(problem, opt), problem.cyl_qvec.shape[0],
             problem.points.shape[0], _kdim(opt))
 
 
 def _apply_deltas(problem: GSBAProblem, opt: GSBAOptions, delta):
-    """Unflatten and retract an LM step. Layout:
+    """Unflatten and retract an LM step. Layout (global under SPMD):
     [N*6 pose | K*kdim cylinder | P*3 points]."""
     N, K, P, kdim = _dims(problem, opt)
     d_pose = delta[: N * 6].reshape(N, 6)
+    if opt.axis_name is not None:
+        d_pose = d_pose[_img_gidx(problem, opt)]
     d_cyl = delta[N * 6: N * 6 + K * kdim].reshape(K, kdim)
     d_pts = delta[N * 6 + K * kdim:].reshape(P, 3)
     q = quat_retract(problem.qvecs, d_pose[:, :3])
@@ -362,8 +393,12 @@ def _free_vector(problem: GSBAProblem, opt: GSBAOptions):
     dtype = problem.tvecs.dtype
     ext = 1.0 if opt.refine_extrinsics else 0.0
     free_pose = torch.cat([
-        problem.free_rot[:, None].expand(N, 3) * ext,
-        problem.free_trans * ext], dim=1).reshape(-1)
+        problem.free_rot[:, None].expand(-1, 3) * ext,
+        problem.free_trans * ext], dim=1)
+    if opt.axis_name is not None:
+        free_pose = group.gather_rows(
+            free_pose, int(_img_gidx(problem, opt)[0]), N, opt.axis_name)
+    free_pose = free_pose.reshape(-1)
     geo = 1.0 if opt.refine_geometry else 0.0
     free_cyl = torch.full((K * kdim,), geo, dtype=dtype,
                           device=problem.tvecs.device)
@@ -378,7 +413,9 @@ def _use_landmarks(problem, opt):
 
 
 def _land_scale(problem, opt):
-    return opt.landmark_error_weight / max(problem.obs_xy.shape[0], 1)
+    n_obs = (opt.spmd_num_obs if opt.axis_name
+             else problem.obs_xy.shape[0])
+    return opt.landmark_error_weight / max(n_obs, 1)
 
 
 def _all_residuals(problem: GSBAProblem, opt: GSBAOptions, delta,
@@ -388,7 +425,8 @@ def _all_residuals(problem: GSBAProblem, opt: GSBAOptions, delta,
     geo_r, _ = _cyl_residuals(q, t, cq, ct, r, h, problem, opt, hard)
     K = problem.cyl_qvec.shape[0]
     res = [geo_r.reshape(-1)]
-    wts = [_geo_img_weight(problem).repeat_interleave(K).to(geo_r.dtype)]
+    wts = [_geo_img_weight(problem, opt).repeat_interleave(K).to(
+        geo_r.dtype)]
     if _use_landmarks(problem, opt):
         rl = _landmark_residuals(q, t, pts, problem).reshape(-1)
         res.append(rl)
@@ -397,8 +435,9 @@ def _all_residuals(problem: GSBAProblem, opt: GSBAOptions, delta,
 
 
 def _robust_cost(res, wts, opt):
-    return 0.5 * torch.sum(wts * loss_value(opt.loss, res * res,
-                                            opt.loss_scale))
+    return group.all_reduce(0.5 * torch.sum(
+        wts * loss_value(opt.loss, res * res, opt.loss_scale)),
+        opt.axis_name)
 
 
 def _cost(problem, opt):
@@ -437,7 +476,7 @@ def _quad_jacobian(problem: GSBAProblem, opt: GSBAOptions):
 
 def _weighted(problem, opt, res):
     """IRLS-weighted residuals r sqrt(w_n rho'(r^2)), [N, K]."""
-    w = _geo_img_weight(problem)[:, None] * loss_weight(
+    w = _geo_img_weight(problem, opt)[:, None] * loss_weight(
         opt.loss, res * res, opt.loss_scale)
     return res * torch.sqrt(w)
 
@@ -446,7 +485,8 @@ def _geo_local_jacobian(problem: GSBAProblem, opt: GSBAOptions):
     """IRLS-weighted geometry residuals [N*K] and their exact Jacobian
     rows in the shared local tangent, [N*K, 6 + kdim] (the counterpart
     of sba_tpu's ``jacfwd(_geo_weighted_local)``)."""
-    N, K, _, kdim = _dims(problem, opt)
+    N, K, kdim = problem.qvecs.shape[0], problem.cyl_qvec.shape[0], \
+        _kdim(opt)
     quad, jq, valid = _quad_jacobian(problem, opt)
     T, M, dT, dM = _mask_moments(quad, problem.sem_masks, opt.soft_tau,
                                  image_chunks(problem))
@@ -477,19 +517,22 @@ def _land_weighted(problem: GSBAProblem, opt: GSBAOptions, delta):
 
 
 def _linearize(problem: GSBAProblem, opt: GSBAOptions, free):
-    """(g, H) of the free-masked Gauss-Newton system."""
+    """(g, H) of the free-masked Gauss-Newton system (summed over the
+    ranks of `opt.axis_name` by one all-reduce)."""
     N, K, P, kdim = _dims(problem, opt)
+    Nl = problem.qvecs.shape[0]
     rg, jl = _geo_local_jacobian(problem, opt)
-    jl = jl.reshape(N, K, 6 + kdim)
+    jl = jl.reshape(Nl, K, 6 + kdim)
     dtype, dev = rg.dtype, rg.device
-    eye_n = torch.eye(N, dtype=dtype, device=dev)
+    # Rows of this rank's images select their global pose columns.
+    eye_n = torch.eye(N, dtype=dtype, device=dev)[_img_gidx(problem, opt)]
     eye_k = torch.eye(K, dtype=dtype, device=dev)
     J = torch.cat([
-        torch.einsum("nkp,nm->nkmp", jl[..., :6], eye_n).reshape(N * K,
+        torch.einsum("nkp,nm->nkmp", jl[..., :6], eye_n).reshape(Nl * K,
                                                                  N * 6),
         torch.einsum("nkc,kl->nklc", jl[..., 6:], eye_k).reshape(
-            N * K, K * kdim),
-        rg.new_zeros(N * K, P * 3)], dim=1)
+            Nl * K, K * kdim),
+        rg.new_zeros(Nl * K, P * 3)], dim=1)
     r = rg
     if _use_landmarks(problem, opt):
         z = torch.zeros_like(free)
@@ -500,7 +543,12 @@ def _linearize(problem: GSBAProblem, opt: GSBAOptions, free):
         r = torch.cat([rg, land(z)])
         J = torch.cat([J, jacfwd(land)(z)], dim=0)
     J = J * free[None, :]
-    return J.T @ r, J.T @ J
+    g, H = J.T @ r, J.T @ J
+    if opt.axis_name is None:
+        return g, H
+    gh = group.all_reduce(torch.cat([g[:, None], H], 1), opt.axis_name)
+    # Contiguous, as on one device: a strided H takes other GEMM paths.
+    return gh[:, 0].contiguous(), gh[:, 1:].contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -575,9 +623,11 @@ def _gsba_solve(problem: GSBAProblem, opt: GSBAOptions):
                             prob.cyl_tvec, torch.exp(prob.cyl_log_radius),
                             torch.exp(prob.cyl_log_height), prob, opt,
                             True)
-    m = (_geo_img_weight(prob) > 0).to(iou.dtype)
-    mean_iou = torch.sum(iou * m[:, None]) / torch.clamp(
-        torch.sum(m) * iou.shape[1], min=1.0)
+    m = (_geo_img_weight(prob, opt) > 0).to(iou.dtype)
+    num, den = group.all_reduce(
+        torch.stack([torch.sum(iou * m[:, None]),
+                     torch.sum(m) * iou.shape[1]]), opt.axis_name)
+    mean_iou = num / torch.clamp(den, min=1.0)
     return prob, GSBASummary(initial_cost=cost0, final_cost=cost,
                              num_iterations=it, cost_trace=trace,
                              per_image_iou=iou, mean_iou=mean_iou)
@@ -585,13 +635,10 @@ def _gsba_solve(problem: GSBAProblem, opt: GSBAOptions):
 
 def geometric_semantic_bundle_adjust(problem: GSBAProblem,
                                      options: Optional[GSBAOptions] = None):
-    """Solve; returns (refined problem, GSBASummary)."""
-    opt = options or GSBAOptions()
-    if opt.axis_name is not None:
-        raise NotImplementedError(
-            "GSBAOptions.axis_name: images sharded over devices come with "
-            "the multi-GPU slice of the port")
-    return _gsba_solve(problem, opt)
+    """Solve; returns (refined problem, GSBASummary). Under
+    `options.axis_name` the problem holds this rank's images
+    (parallel/gsba_spmd.py) and `per_image_iou` their rows."""
+    return _gsba_solve(problem, options or GSBAOptions())
 
 
 def evaluate_iou(problem: GSBAProblem, options: Optional[GSBAOptions] = None):

@@ -20,9 +20,15 @@ and the hierarchical mapper's merged models before a global BA.
 Conventions: poses are world->camera ``(qvec wxyz, tvec)``; an edge
 (i, j) holds the measured ``T_ij = T_j o T_i^{-1}``; the residual is the
 log error ``[log_rot, t, (log s)]`` of ``T_meas^{-1} o (T_j o T_i^{-1})``
-whitened by the edge's square-root information. Edges sharded over
-devices (sba_tpu's ``shard_edges``, ``distributed_optimize_pose_graph``)
-come with the multi-GPU slice: ``PoseGraphOptions.axis_name`` raises.
+whitened by the edge's square-root information.
+
+SPMD (``PoseGraphOptions.axis_name``, `distributed_optimize_pose_graph`):
+the edges are padded to a multiple of the mesh size (`shard_edges`) and
+split contiguously over the ranks, the poses replicated. Each rank sorts
+its own edges by pose for the segment sums; the per-pose sums (gradient
+and block diagonal once per LM iteration, the matvec once per PCG
+iteration), the costs and the edge count are all-reduced, so every
+loop test reads the same values on every rank.
 """
 
 from __future__ import annotations
@@ -38,7 +44,10 @@ from sba_tpu_torch.geometry.quaternions import (quat_conjugate,
                                                 quat_normalize, quat_retract,
                                                 quat_rotate,
                                                 quat_to_angle_axis)
+from sba_tpu_torch.ops.segment import segment_sum, segment_table
 from sba_tpu_torch.optim.losses import loss_value, loss_weight
+from sba_tpu_torch.parallel import group
+
 
 class PoseGraphProblem(NamedTuple):
     """Static-shape pose graph on one device; edges may be padded
@@ -69,7 +78,7 @@ class PoseGraphOptions:
     function_tolerance: float = 1e-8
     gradient_tolerance: float = 1e-10
     parameter_tolerance: float = 1e-10
-    # Mesh axis the edges shard over: the multi-GPU slice.
+    # SPMD: the axis the edges are sharded over (poses replicated).
     axis_name: Optional[str] = None
 
 
@@ -221,25 +230,9 @@ def _cost(problem: PoseGraphProblem, opt: PoseGraphOptions):
     r = _edge_residual(zeros, zeros, *_edge_args(problem), opt.sim3)
     valid = problem.edge_mask > 0
     s = torch.where(valid, torch.sum(r * r, dim=-1), torch.zeros_like(r[:, 0]))
-    return 0.5 * torch.sum(loss_value(opt.loss, s, opt.loss_scale)
-                           * problem.edge_mask)
-
-
-def _segment_table(idx, n):
-    """CSR form of n segments: (the rows sorted by segment id, stably,
-    and each segment's row count)."""
-    return (torch.argsort(idx, stable=True),
-            torch.bincount(idx, minlength=n))
-
-
-def _segsum(x, table):
-    """Rows of x summed by segment (a `_segment_table`), each segment's
-    rows in row order: the same bits from run to run on every device
-    (index_add_'s CUDA float atomics add in no fixed order, which moved
-    the float32 solve of a 1024-pose graph by ~1e-3 of its cost between
-    two runs), with no padding to the largest degree."""
-    order, counts = table
-    return torch.segment_reduce(x[order], "sum", lengths=counts, axis=0)
+    return group.all_reduce(0.5 * torch.sum(
+        loss_value(opt.loss, s, opt.loss_scale) * problem.edge_mask),
+        opt.axis_name)
 
 
 def _solve_step(problem: PoseGraphProblem, opt: PoseGraphOptions, lam):
@@ -250,14 +243,18 @@ def _solve_step(problem: PoseGraphProblem, opt: PoseGraphOptions, lam):
     d = 7 if opt.sim3 else 6
     r, Ji, Jj = _linearize(problem, opt)
     ei, ej = problem.edge_i, problem.edge_j
-    ti, tj = _segment_table(ei, n), _segment_table(ej, n)
+    ti, tj = segment_table(ei, n), segment_table(ej, n)
 
-    g = _segsum(torch.einsum("edk,ed->ek", Ji, r), ti) + \
-        _segsum(torch.einsum("edk,ed->ek", Jj, r), tj)
+    ax = opt.axis_name
+    g = segment_sum(torch.einsum("edk,ed->ek", Ji, r), ti) + \
+        segment_sum(torch.einsum("edk,ed->ek", Jj, r), tj)
+    Hii = segment_sum(torch.einsum("edk,edl->ekl", Ji, Ji), ti) + \
+        segment_sum(torch.einsum("edk,edl->ekl", Jj, Jj), tj)
+    if ax is not None:
+        gh = group.all_reduce(torch.cat([g, Hii.reshape(n, d * d)], 1), ax)
+        g = gh[:, :d].contiguous()
+        Hii = gh[:, d:].contiguous().reshape(n, d, d)
     g_inf = torch.max(torch.abs(g))
-
-    Hii = _segsum(torch.einsum("edk,edl->ekl", Ji, Ji), ti) + \
-        _segsum(torch.einsum("edk,edl->ekl", Jj, Jj), tj)
     diag = torch.diagonal(Hii, dim1=-2, dim2=-1)            # [N, D]
     damp = lam * torch.clamp(diag, min=1e-12)
     eye = torch.eye(d, dtype=r.dtype, device=r.device)
@@ -273,9 +270,9 @@ def _solve_step(problem: PoseGraphProblem, opt: PoseGraphOptions, lam):
     def matvec(u):
         ju = torch.einsum("edk,ek->ed", Ji, u[ei]) + \
             torch.einsum("edk,ek->ed", Jj, u[ej])
-        out = _segsum(torch.einsum("edk,ed->ek", Ji, ju), ti) + \
-            _segsum(torch.einsum("edk,ed->ek", Jj, ju), tj)
-        return out + damp * u
+        out = segment_sum(torch.einsum("edk,ed->ek", Ji, ju), ti) + \
+            segment_sum(torch.einsum("edk,ed->ek", Jj, ju), tj)
+        return group.all_reduce(out, ax) + damp * u
 
     def precond(u):
         return torch.einsum("nkl,nl->nk", Hinv, u)
@@ -326,12 +323,9 @@ def _apply(problem: PoseGraphProblem, dx, sim3):
 
 def optimize_pose_graph(problem: PoseGraphProblem,
                         options: Optional[PoseGraphOptions] = None):
-    """The LM loop on the problem's device. Returns (problem', summary)."""
+    """The LM loop on the problem's device. Returns (problem', summary).
+    Under `options.axis_name` the problem holds this rank's edges."""
     opt = options or PoseGraphOptions()
-    if opt.axis_name is not None:
-        raise NotImplementedError(
-            "PoseGraphOptions.axis_name: edges sharded over devices come "
-            "with the multi-GPU slice of the port")
     cost0 = _cost(problem, opt)
     max_it = opt.max_iterations
     trace = torch.full((max_it + 1,), float("nan"), dtype=cost0.dtype,
@@ -376,9 +370,57 @@ def optimize_pose_graph(problem: PoseGraphProblem,
             break
     summary = PoseGraphSummary(
         initial_cost=cost0, final_cost=cost, num_iterations=it,
-        num_residuals=torch.sum(problem.edge_mask).to(torch.int32),
+        num_residuals=group.all_reduce(torch.sum(problem.edge_mask),
+                                       opt.axis_name).to(torch.int32),
         gradient_norm=g_inf, cost_trace=trace, cg_iterations=cg_counts)
     return prob, summary
+
+
+# ---------------------------------------------------------------------------
+# SPMD: edges sharded over the ranks of a mesh
+# ---------------------------------------------------------------------------
+
+_EDGES = ("edge_i", "edge_j", "rel_q", "rel_t", "rel_log_s", "sqrt_info",
+          "edge_mask")
+
+
+def _pad_edges(problem: PoseGraphProblem, pad: int) -> PoseGraphProblem:
+    """`pad` more edges (0, 0) of mask 0 with identity measurements (their
+    residuals stay finite)."""
+    if pad == 0:
+        return problem
+    padded = {f: torch.cat([getattr(problem, f), getattr(problem, f).new_zeros(
+        (pad,) + getattr(problem, f).shape[1:])]) for f in _EDGES}
+    padded["rel_q"][-pad:, 0] = 1.0
+    return problem._replace(**padded)
+
+
+def shard_edges(problem: PoseGraphProblem, mesh=None,
+                axis_name: str = "edges") -> PoseGraphProblem:
+    """The edges padded to a multiple of the mesh size (mask 0, identity
+    measurements, pose 0), as sba_tpu's ``shard_edges`` lays them out;
+    rank r solves the contiguous r-th 1/size of them
+    (`distributed_optimize_pose_graph`)."""
+    n_dev = (group.as_mesh(None, axis_name) if mesh is None else mesh).size
+    return _pad_edges(problem, (-problem.edge_i.shape[0]) % n_dev)
+
+
+def distributed_optimize_pose_graph(problem: PoseGraphProblem,
+                                    options: Optional[PoseGraphOptions] = None,
+                                    mesh=None, axis_name: str = "edges"):
+    """SPMD pose-graph solve over the ranks of `mesh` (the world group by
+    default): edges sharded, per-pose sums all-reduced. Every rank
+    returns the padded problem with the solved poses, and the summary."""
+    opt = dataclasses.replace(options or PoseGraphOptions(),
+                              axis_name=axis_name)
+    mesh = group.as_mesh(mesh, axis_name)
+    padded = shard_edges(problem, mesh, axis_name)
+    local = padded._replace(**{
+        f: group.shard_rows(getattr(padded, f), mesh.rank,
+                            mesh.size).contiguous() for f in _EDGES})
+    out, summary = optimize_pose_graph(local, opt)
+    return padded._replace(qvecs=out.qvecs, tvecs=out.tvecs,
+                           log_scales=out.log_scales), summary
 
 
 # ---------------------------------------------------------------------------
@@ -496,19 +538,6 @@ def pad_edges_pow2(problem: PoseGraphProblem, min_edges: int = 8
     """Pad the edge arrays to the next power of two (mask 0; identity
     measurements, so padded residuals stay finite)."""
     e = problem.edge_i.shape[0]
-    target = max(min_edges, 1 << (e - 1).bit_length())
-    if target == e:
-        return problem
-    pad = target - e
+    return _pad_edges(problem,
+                      max(min_edges, 1 << (e - 1).bit_length()) - e)
 
-    def padv(a):
-        return torch.cat([a, a.new_zeros((pad,) + a.shape[1:])])
-
-    ident = problem.rel_q.new_zeros((pad, 4))
-    ident[:, 0] = 1.0
-    return problem._replace(
-        edge_i=padv(problem.edge_i), edge_j=padv(problem.edge_j),
-        rel_q=torch.cat([problem.rel_q, ident]), rel_t=padv(problem.rel_t),
-        rel_log_s=padv(problem.rel_log_s),
-        sqrt_info=padv(problem.sqrt_info),
-        edge_mask=padv(problem.edge_mask))

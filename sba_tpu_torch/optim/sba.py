@@ -27,8 +27,13 @@ Where the port differs from the reference: forward-mode AD
 12 passes batched into one call, where ``jax.jacfwd`` batches the
 tangents of one pass; the two-map f32 path reads one interleaved
 depth|label table (`pair_table`) with one 8-byte gather where sba_tpu
-keeps two tables; pairs sharded over a device mesh (``axis_name``) are
-not ported yet.
+keeps two tables.
+
+SPMD (``axis_name``, parallel/sba_spmd.py): the ordered pairs are
+sharded over the ranks of that axis, poses and maps replicated; one
+all-reduce of (H, g, cost) per linearization makes every rank's solve
+see the global normal equations, and one more sums the solution's
+counts.
 """
 
 from __future__ import annotations
@@ -58,6 +63,7 @@ from sba_tpu_torch.ops.interpolation import (
 )
 from sba_tpu_torch.ops.map_gather import map_gather
 from sba_tpu_torch.optim.losses import loss_value, loss_weight
+from sba_tpu_torch.parallel import group
 
 # Reprojection status codes (ref: src/base/semantic_cost_functions.h:45).
 OUT_OF_BOUNDS = -1
@@ -116,7 +122,8 @@ class SBAOptions:
     gradient_tolerance: float = 1e-12
     parameter_tolerance: float = 1e-10
     initial_trust_radius: float = 1e2
-    # Mesh axis the pairs are sharded over: the multi-GPU slice.
+    # SPMD: the axis the ordered pairs are sharded over (set by
+    # parallel/sba_spmd.py); poses are replicated.
     axis_name: Optional[str] = None
 
 
@@ -583,11 +590,8 @@ def _chunk_size(problem: SBAProblem, opt: SBAOptions) -> int:
 
 
 def _linearize_system(problem: SBAProblem, opt: SBAOptions):
-    """(H [6N,6N], g [6N], cost), accumulated over chunks of pairs."""
-    if opt.axis_name is not None:
-        raise NotImplementedError(
-            "SBAOptions.axis_name: pairs sharded over devices come with "
-            "the multi-GPU slice of the port")
+    """(H [6N,6N], g [6N], cost), accumulated over chunks of pairs (and
+    summed over the ranks of `opt.axis_name` by one all-reduce)."""
     Q = problem.pair_src.shape[0]
     analytic = _use_analytic(problem, opt)
     chunk = _chunk_size(problem, opt)
@@ -607,7 +611,12 @@ def _linearize_system(problem: SBAProblem, opt: SBAOptions):
             H, g, cost = Hb, gb, c
         else:
             H, g, cost = H + Hb, g + gb, cost + c
-    return H, g, cost
+    if opt.axis_name is None:
+        return H, g, cost
+    n = H.shape[0]
+    flat = group.all_reduce(torch.cat([H.reshape(-1), g, cost.reshape(1)]),
+                            opt.axis_name)
+    return flat[:n * n].reshape(n, n), flat[n * n:-1], flat[-1]
 
 
 def _sba_solve(problem: SBAProblem, opt: SBAOptions):
@@ -684,15 +693,16 @@ def _sba_solve(problem: SBAProblem, opt: SBAOptions):
 
     out = problem._replace(qvecs=q, tvecs=t)
     hard = evaluate_hard(out, opt)
-    num_res = (torch.sum(problem.pair_mask)
-               * problem.pix_xy.shape[0]).to(torch.int32)
+    names = ("num_valid", "num_out_of_bounds", "num_invalid_depth",
+             "num_label_mismatch")
+    counts = group.all_reduce(torch.stack(
+        [(torch.sum(problem.pair_mask)
+          * problem.pix_xy.shape[0]).to(torch.int64)]
+        + [hard[k] for k in names]), opt.axis_name)
     summary = SBASummary(
         initial_cost=cost0, final_cost=cost, num_iterations=it,
-        num_residuals=num_res, cost_trace=trace,
-        num_valid=hard["num_valid"],
-        num_out_of_bounds=hard["num_out_of_bounds"],
-        num_invalid_depth=hard["num_invalid_depth"],
-        num_label_mismatch=hard["num_label_mismatch"])
+        num_residuals=counts[0].to(torch.int32), cost_trace=trace,
+        **{k: counts[i + 1] for i, k in enumerate(names)})
     return out, summary
 
 

@@ -93,6 +93,41 @@ def test_explicit_step_matches_sba_tpu():
                                    err_msg=name)
 
 
+@pytest.mark.parametrize("gather", [False, True])
+def test_coo_explicit_step_matches_sba_tpu(gather):
+    """The COO explicit step (`_solve_step_explicit`: EL by one scatter)
+    on a two-camera OPENCV scene with free intrinsics and a robust loss,
+    against sba_tpu's step without and with its gather layouts
+    (`attach_gather_layouts`: one-hot contractions in place of the
+    scatters). The port keeps no gather layouts: its segment sums hold
+    against both of sba_tpu's routes."""
+    j_prob, t_prob = _problems(4, observations_per_point=None)
+    cam = np.array(j_prob.cam_params)
+    cam[:, 4:8] = (0.02, -0.005, 1e-3, -2e-3)
+    oc = (np.asarray(j_prob.obs_image) % 2).astype(np.int32)
+    j_prob = j_prob._replace(cam_params=np.concatenate([cam, cam * 1.01]),
+                             free_cam=np.ones((2, 12)), obs_cam=oc,
+                             image_cam=np.arange(5, dtype=np.int32) % 2)
+    t_prob = tba.problem_from_numpy(
+        {k: np.asarray(v) for k, v in j_prob._asdict().items()
+         if v is not None}, device="cpu")
+    if gather:
+        j_prob = jba.attach_gather_layouts(j_prob)
+        np.testing.assert_array_equal(t_prob.image_cam.numpy(),
+                                      np.asarray(j_prob.image_cam))
+    kw = dict(model_id=4, solver="explicit_schur", loss="huber")
+    step = jax.jit(jba._solve_step_explicit, static_argnums=1)
+    out_j = step(j_prob, jba.BAOptions(**kw), jnp.float64(1e-3))
+    out_t = tba._solve_step_explicit(t_prob, tba.BAOptions(**kw),
+                                     torch.tensor(1e-3, dtype=torch.float64))
+    for name, a, b in zip(("u_pose", "u_cam", "d_pts", "predicted", "g_inf"),
+                          out_t, out_j):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a.numpy(), b, rtol=1e-8,
+                                   atol=1e-10 * max(np.abs(b).max(), 1.0),
+                                   err_msg=name)
+
+
 def _perturbed_model(path):
     rec = jmake(num_images=5, num_points=50, seed=5)
     rng = np.random.default_rng(5)
@@ -232,7 +267,7 @@ def _routed_step(module, monkeypatch):
 @pytest.mark.parametrize("dense_threshold", [512, 16])
 @pytest.mark.parametrize("over_limit", [False, True])
 @pytest.mark.parametrize("solver", ["auto", "explicit_schur", "dense_schur",
-                                    "schur_pcg"])
+                                    "schur_pcg", "fused"])
 def test_solver_routing_matches_sba_tpu(monkeypatch, solver, over_limit,
                                         dense_threshold):
     """`bundle_adjust` picks sba_tpu's step for every solver, with the
@@ -240,9 +275,9 @@ def test_solver_routing_matches_sba_tpu(monkeypatch, solver, over_limit,
     limit is lowered instead of allocating 2 GiB; sba_tpu's fixed one is
     passed by a zero-stride stand-in for the points, which its routing
     reads only the shape of), and with the reduced system (42 unknowns)
-    under and over `dense_threshold`. The one difference: sba_tpu's
-    explicit_schur over the limit takes its COO explicit step, which is
-    not ported, and the port the PCG step."""
+    under and over `dense_threshold`: explicit_schur over the limit
+    takes the COO explicit step in both, and so does fused (off the
+    kernels) under it."""
     j_prob, t_prob = _problems(0)
     if over_limit:
         monkeypatch.setattr(tba, "EXPLICIT_SCHUR_MAX_BYTES", 1)
@@ -256,7 +291,6 @@ def test_solver_routing_matches_sba_tpu(monkeypatch, solver, over_limit,
         solver=solver, dense_threshold=dense_threshold))
     tba.bundle_adjust(t_prob, tba.BAOptions(
         solver=solver, dense_threshold=dense_threshold))
-    expect = {"explicit_coo": "pcg"}.get(seen_j[0], seen_j[0])
-    assert seen_t == [expect]
+    assert seen_t == seen_j
     assert (seen_j[0] == "explicit") == (solver in ("auto", "explicit_schur")
                                          and not over_limit)

@@ -1442,3 +1442,142 @@ def test_retrieval_on_card_equals_cpu(cuda):
     g2[::4, :2] = rng.uniform(0, 900, (75, 2))
     assert vote_and_verify(g1, g2, device="cuda") \
         == vote_and_verify(g1, g2, device="cpu") >= 200
+
+
+# ---------------------------------------------------------------------------
+# SPMD solvers on torch.distributed (sba_tpu_torch.parallel)
+# ---------------------------------------------------------------------------
+
+def _spmd_cases():
+    """Small scenes of every sharded solver, as numpy (the ranks' input):
+    the fused dense and implicit paths (float32), the float64
+    observation- and point-sharded solves, the implicit and the
+    point-sharded ones again with one shared camera's intrinsics free,
+    SBA (float32, map_gather),
+    GSBA with its landmark term and a Sim3 pose graph. Returns {name:
+    (kind, fields, option kwargs, the single-device solve on the card,
+    the final cost's rtol, the kernels that must launch)}."""
+    import dataclasses
+
+    from sba_tpu_torch.optim import gsba as tg
+    from sba_tpu_torch.optim import pose_graph as tpg
+    from sba_tpu_torch.optim import sba as tsba
+    from sba_tpu_torch.optim.ba import problem_to_numpy
+    from sba_tpu_torch.utils.synthetic import make_gsba_scene, make_sba_scene
+
+    def fields(p):
+        return {k: v.detach().cpu().numpy() for k, v in p._asdict().items()
+                if v is not None}
+
+    cases = {}
+    p32 = make_ba_problem(dtype=torch.float32, device="cuda", **_SMALL)[0]
+    for mode, kernels in (("dense", ("fused_schur", "backsub", "fused_cost")),
+                          ("implicit", ("fused_reduce", "schur_matvec",
+                                        "backsub", "fused_cost"))):
+        opt = BAOptions(max_iterations=10, dtype="float32", fused_mode=mode)
+        cases[f"fused {mode}"] = (
+            "fused", {k: v for k, v in problem_to_numpy(p32).items()
+                      if v is not None}, dataclasses.asdict(opt),
+            lambda o=opt: bundle_adjust(p32, o), 1e-3, kernels)
+    # One camera shared by every image, its intrinsics free: the
+    # replicated per-camera sums must come out bit-equal on every rank.
+    p32c = p32._replace(free_cam=torch.ones_like(p32.free_cam))
+    opt = BAOptions(max_iterations=10, dtype="float32", fused_mode="implicit")
+    cases["fused implicit, free shared intrinsics"] = (
+        "fused", {k: v for k, v in problem_to_numpy(p32c).items()
+                  if v is not None}, dataclasses.asdict(opt),
+        lambda o=opt: bundle_adjust(p32c, o), 1e-3,
+        ("fused_reduce", "schur_matvec", "backsub", "fused_cost"))
+    p64 = make_ba_problem(device="cuda", **_SMALL)[0]
+    p64c = p64._replace(free_cam=torch.ones_like(p64.free_cam))
+    for kind, solver, p, tag in (
+            ("obs", "schur_pcg", p64, ""), ("pm", "explicit_schur", p64, ""),
+            ("pm", "explicit_schur", p64c, ", free shared intrinsics")):
+        opt = BAOptions(max_iterations=10, solver=solver)
+        cases[f"f64 {kind}{tag}"] = (
+            kind, fields(p), dataclasses.asdict(opt),
+            lambda o=opt, p=p: bundle_adjust(p, o), 1e-6, ())
+    q, t, cam, depth, sem, q0, t0 = make_sba_scene(
+        num_images=5, image_size=(64, 48), pose_noise=0.01, seed=11)
+    so = tsba.SBAOptions(pixel_step=4, max_iterations=8)
+    ps = tsba.build_sba_problem(q0, t0, cam, depth, sem, so,
+                                dtype=torch.float32, device="cuda")
+    cases["sba"] = ("sba", fields(ps), dataclasses.asdict(so),
+                    lambda: tsba.semantic_bundle_adjust(ps, so), 1e-3,
+                    ("map_gather",))
+    q, t, cam, sem, cyl, q0, t0, cyl0 = make_gsba_scene(
+        num_images=5, image_size=(64, 48), pose_noise=0.005,
+        cylinder_noise=0.03, seed=4)
+    pts = np.random.default_rng(1).uniform([-1, -1, 4], [1, 1, 6], (20, 3))
+    obs = (np.repeat(np.arange(5), 20), np.tile(np.arange(20), 5),
+           np.random.default_rng(2).uniform(0, 60, (100, 2)))
+    go = tg.GSBAOptions(max_iterations=5, landmark_error_weight=1.0)
+    pg = tg.build_gsba_problem(q0, t0, cam, sem, [cyl0], go, points=pts,
+                               obs=obs, device="cuda")
+    cases["gsba"] = ("gsba", fields(pg), dataclasses.asdict(go),
+                     lambda: tg.geometric_semantic_bundle_adjust(pg, go),
+                     1e-6, ())
+    rng = np.random.default_rng(3)
+    n = 9
+    ei, ej = np.arange(n - 1), np.arange(1, n)
+    qv = np.tile([1.0, 0, 0, 0], (n, 1)) + rng.normal(0, 0.01, (n, 4))
+    tv = np.cumsum(rng.normal(0, 1, (n, 3)), 0)
+    rq, rt = tpg.relative_pose(*(torch.as_tensor(a) for a in (
+        qv[ei], tv[ei], qv[ej], tv[ej])))
+    qv[1:] += rng.normal(0, 0.02, (n - 1, 4))
+    pp = tpg.make_problem(qv, tv, ei, ej, rq.numpy(), rt.numpy(), sim3=True,
+                          dtype=torch.float64, device="cuda")
+    po = tpg.PoseGraphOptions(sim3=True, max_iterations=20)
+    cases["pose graph"] = ("pose_graph", fields(pp), dataclasses.asdict(po),
+                           lambda: tpg.optimize_pose_graph(pp, po), 1e-6, ())
+    return cases
+
+
+def _check_spmd_runs(runs, cases):
+    """Every rank returns the same bits and launched the case's kernels;
+    the final costs match the single-device solves on the card."""
+    for name, (_, _, _, single, rtol, kernels) in cases.items():
+        for r in runs[1:]:
+            for part in (0, 1):
+                for k, v in runs[0][name][part].items():
+                    np.testing.assert_array_equal(v, r[name][part][k],
+                                                  err_msg=f"{name} {k}")
+        for r in runs:
+            assert all(r[name][2][k] > 0 for k in kernels), (name, r[name][2])
+        ref = float(single()[1].final_cost)
+        got = float(runs[0][name][1]["final_cost"])
+        assert abs(got - ref) <= rtol * abs(ref), (name, got, ref)
+
+
+def test_spmd_two_gloo_ranks_share_one_card(cuda, tmp_path):
+    """Two gloo ranks on card 0 (NCCL refuses two ranks of one
+    communicator on one GPU): every sharded solver, both ranks bit-equal,
+    each rank's kernels launched, the final costs those of the
+    single-device solves."""
+    import torch_parallel_ranks as ranks
+
+    from sba_tpu_torch.ops import cuda_build
+    from sba_tpu_torch.parallel import group
+
+    cuda_build.build()   # once, before the ranks load it
+    cases = _spmd_cases()
+    runs = group.run_ranks(ranks.solve_cases, 2, "gloo", "cuda:0",
+                           args=({k: v[:3] for k, v in cases.items()},),
+                           timeout=300, store_dir=str(tmp_path))
+    _check_spmd_runs(runs, cases)
+
+
+def test_spmd_nccl_one_rank_per_card(cuda, tmp_path):
+    """NCCL at one rank per card (world size = the card count)."""
+    import torch_parallel_ranks as ranks
+
+    from sba_tpu_torch.ops import cuda_build
+    from sba_tpu_torch.parallel import group
+
+    cuda_build.build()
+    cases = _spmd_cases()
+    runs = group.run_ranks(ranks.solve_cases, torch.cuda.device_count(),
+                           "nccl", "cuda",
+                           args=({k: v[:3] for k, v in cases.items()},),
+                           timeout=300, store_dir=str(tmp_path))
+    _check_spmd_runs(runs, cases)

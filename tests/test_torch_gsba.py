@@ -476,9 +476,24 @@ def test_long_solve_spread_is_sba_tpu_own_spread():
 
 
 def test_sharded_images_raise():
-    _, _, tp, _ = _problems({})
-    with pytest.raises(NotImplementedError):
-        tg.geometric_semantic_bundle_adjust(tp, tg.GSBAOptions(axis_name="d"))
+    """`GSBAOptions.axis_name` solves sharded: the images and their
+    landmark observations over one rank
+    (`geometric_semantic_bundle_adjust_spmd` in a world of this process
+    alone) give `geometric_semantic_bundle_adjust`'s solve bit for bit."""
+    from sba_tpu_torch.parallel import (
+        geometric_semantic_bundle_adjust_spmd, group)
+
+    _, _, tp, topt = _problems(dict(max_iterations=3,
+                                    landmark_error_weight=5.0),
+                               landmarks=True)
+    ref, rs = tg.geometric_semantic_bundle_adjust(tp, topt)
+    with group.single_rank():
+        out, s = geometric_semantic_bundle_adjust_spmd(tp, topt)
+    for f in STATE:
+        assert torch.equal(getattr(out, f), getattr(ref, f)), f
+    for f in ("final_cost", "cost_trace", "per_image_iou", "mean_iou"):
+        np.testing.assert_array_equal(getattr(s, f).numpy(),
+                                      getattr(rs, f).numpy(), err_msg=f)
 
 
 # ---------------------------------------------------------------------------

@@ -79,6 +79,13 @@ def test_port_and_chip_smoke_import_without_jax():
                  "sba_tpu_torch.retrieval.vocab_tree",
                  "sba_tpu_torch.retrieval.visual_index",
                  "sba_tpu_torch.retrieval.vote_and_verify",
+                 "sba_tpu_torch.ops.segment",
+                 "sba_tpu_torch.parallel",
+                 "sba_tpu_torch.parallel.group",
+                 "sba_tpu_torch.parallel.ba_fused_spmd",
+                 "sba_tpu_torch.parallel.distributed_ba",
+                 "sba_tpu_torch.parallel.sba_spmd",
+                 "sba_tpu_torch.parallel.gsba_spmd",
                  "sba_tpu_torch.cli"):
         assert name in modules, name
     from sba_tpu_torch import cli
@@ -93,6 +100,16 @@ def test_port_and_chip_smoke_import_without_jax():
                 "vocab_tree_matcher", "vocab_tree_retriever"):
         assert cmd in cli.COMMANDS, cmd
     assert len(cli.COMMANDS) == 27
+    import sba_tpu_torch.parallel as par
+
+    for name in ("make_mesh", "shard_problem", "shard_problem_by_points",
+                 "distributed_bundle_adjust", "distributed_bundle_adjust_pm",
+                 "distributed_bundle_adjust_fused",
+                 "semantic_bundle_adjust_spmd",
+                 "geometric_semantic_bundle_adjust_spmd"):
+        assert callable(getattr(par, name)), name
+    from sba_tpu_torch.optim.pose_graph import (
+        distributed_optimize_pose_graph, shard_edges)  # noqa: F401
     res = subprocess.run(
         [sys.executable, "-c", _PROBE.format(root=str(ROOT),
                                              modules=modules)],

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from sba_tpu.optim import pose_graph as j_pg
+from sba_tpu_torch.ops.segment import segment_sum, segment_table
 from sba_tpu_torch.optim import pose_graph as t_pg
 from test_pose_graph import _make_ring
 
@@ -198,10 +199,24 @@ def test_float32_problem_equals_sba_tpu():
 
 
 def test_axis_name_raises():
-    problem, _ = _make_ring(n=4, noise=0.05, seed=2)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        t_pg.optimize_pose_graph(to_port(problem),
-                                 t_pg.PoseGraphOptions(axis_name="edges"))
+    """`PoseGraphOptions.axis_name` solves sharded: the edges over one
+    rank (`distributed_optimize_pose_graph` in a world of this process
+    alone) give `optimize_pose_graph`'s solve bit for bit, PCG counts
+    included."""
+    from sba_tpu_torch.parallel import group
+
+    problem, _ = _make_ring(n=5, noise=0.05, seed=2, sim3=True)
+    tp, opt = to_port(problem), t_pg.PoseGraphOptions(max_iterations=20,
+                                                      sim3=True)
+    ref, rs = t_pg.optimize_pose_graph(tp, opt)
+    with group.single_rank():
+        out, s = t_pg.distributed_optimize_pose_graph(tp, opt)
+    for f in ("qvecs", "tvecs", "log_scales"):
+        assert torch.equal(getattr(out, f), getattr(ref, f)), f
+    assert s.num_iterations == rs.num_iterations
+    for f in ("final_cost", "cost_trace", "cg_iterations", "num_residuals"):
+        np.testing.assert_array_equal(getattr(s, f).numpy(),
+                                      getattr(rs, f).numpy(), err_msg=f)
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -280,11 +295,11 @@ def test_segment_table_sums_equal_index_add():
     rng = np.random.default_rng(0)
     idx = torch.as_tensor(rng.integers(0, 9, 60))
     idx[idx == 4] = 5                  # segment 4 empty
-    table = t_pg._segment_table(idx, 11)
+    table = segment_table(idx, 11)
     for shape in ((60,), (60, 6), (60, 7, 7)):
         x = torch.as_tensor(rng.standard_normal(shape))
         a = x.new_zeros((11,) + shape[1:]).index_add_(0, idx, x)
-        b = t_pg._segsum(x, table)
+        b = segment_sum(x, table)
         np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=0, atol=1e-12)
         assert not b[4].any() and not b[9:].any()
     problem, _ = _make_ring(n=8, noise=0.05, seed=1)

@@ -344,9 +344,21 @@ def test_assembled_system_matches(problems, chunk):
 
 
 def test_sharded_pairs_raise(problems):
+    """`SBAOptions.axis_name` solves sharded: the pairs over one rank
+    (`semantic_bundle_adjust_spmd` in a world of this process alone)
+    give `semantic_bundle_adjust`'s solve bit for bit, counts included."""
+    from sba_tpu_torch.parallel import group, semantic_bundle_adjust_spmd
+
     _, _, pt, _ = problems
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tsba.semantic_bundle_adjust(pt, tsba.SBAOptions(axis_name="pairs"))
+    opt = tsba.SBAOptions(pixel_step=3, max_iterations=3)
+    ref, rs = tsba.semantic_bundle_adjust(pt, opt)
+    with group.single_rank():
+        out, s = semantic_bundle_adjust_spmd(pt, opt)
+    for f in ("qvecs", "tvecs"):
+        assert torch.equal(getattr(out, f), getattr(ref, f)), f
+    for f in ("initial_cost", "final_cost", "num_residuals", "num_valid",
+              "num_label_mismatch"):
+        assert torch.equal(getattr(s, f), getattr(rs, f)), f
 
 
 # ---------------------------------------------------------------------------
