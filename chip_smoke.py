@@ -53,8 +53,8 @@ Needs one CUDA card and nvcc (found through torch's CUDA_HOME, else
                      (implicit) and a 20-image OPENCV model
                      (`--BundleAdjustment.model_id 4`), then at its
                      defaults (float64) on a 256-image model whose
-                     couplings pass the explicit step's 2 GiB: 2 LM
-                     iterations of the plain PCG step, no kernel;
+                     couplings pass the explicit step's 2 GiB: 1 LM
+                     iteration of the plain PCG step, no kernel;
 10. twins-mvs      -- K6 (ncc_cost) against its twin on the same CUDA
                      tensors, bit for bit, at 1600x1200 x 4 sources (r=3
                      and r=5 with step 1, r=3 with step 2; one source
@@ -109,7 +109,9 @@ Needs one CUDA card and nvcc (found through torch's CUDA_HOME, else
                      `main`, in this process, as every command below)
                      on an 8-image 640x480 model with TIFF maps, at its
                      defaults (float64, forward mode) and in hard_numeric
-                     mode;
+                     mode; the maps must decode through the native loader
+                     (`io/native_loader.py`, built with g++ from
+                     native/sba_native.cc), equal to PIL's;
 15. gsba          -- geometric-semantic BA in float32 through
                      `geometric_semantic_bundle_adjust` (plain PyTorch,
                      no kernel of its own): bench_gsba (bench.py:125: 20
@@ -167,12 +169,46 @@ Needs one CUDA card and nvcc (found through torch's CUDA_HOME, else
                      consecutive rotations, points); wall seconds and
                      registrations per second, local and global BAs and
                      their LM iterations, the wall's split into BA,
-                     RANSAC and host, peak memory, the busy share;
+                     RANSAC and host, peak memory, the busy share; with
+                     `--Mapper.live_viewer_path`: the live page written
+                     and the last state's registered count the model's;
 20. twins-mapper  -- the mapper's initial pair, first registration,
                      triangulation and local BA (TWIN_LOCAL_BA_IT LM
                      iterations) on the card and the CPU with the same
                      draws: inlier sets equal, poses within 1e-8 of the
                      baseline, local BA costs at rtol 1e-9;
+20c. cli-tools    -- (after twins-mapper) on the frontend phase's views,
+                     database and the mapper's model: feature_extractor
+                     with first_octave -1 and the affine shape, and with
+                     DSP, into fresh databases (every map_gather launch
+                     bit-equal to map_gather_plain, indices below 2^31;
+                     CLI_TOOLS_TWIN_VIEWS views against the CPU under the
+                     front end's row rule; the affine rows' det and
+                     anisotropy finite; images/s and map_gather ms a
+                     view), then
+                     the 19 commands below, each gated:
+                     model_converter to 8 formats (the files equal
+                     Reconstruction's own exports, BIN reads back),
+                     model_analyzer, model_aligner + model_comparer
+                     against the true poses (MAPPER_GATES' ATE),
+                     model_orientation_aligner (IMAGE-ORIENTATION's
+                     transform on the ring, MANHATTAN-WORLD's axes on a
+                     1600x1200 grid),
+                     model_transformer (model and PLY, undone),
+                     model_cropper, model_splitter (tiles, extent,
+                     parts), color_extractor (card = CPU), point_filtering,
+                     image_filterer, image_deleter,
+                     image_undistorter_standalone against
+                     image_undistorter's pixels, spatial_matcher,
+                     matches_importer and transitive_matcher on the card
+                     on the full database at sba_tpu's defaults (the
+                     pairs each selects, the ring's neighbours
+                     verified), and on twin databases of
+                     CLI_TOOLS_MATCH_FEATURES features an image with
+                     fewer neighbours and rounds (verified pairs card =
+                     CPU), feature_importer
+                     (a round trip), project_generator and model_viewer;
+                     each command's seconds;
 20a. pose_graph_optimizer -- the command at its defaults (float32) on
                      the mapper phase's model: its printed line, the
                      poses within PG_GATES of the input's, MAPPER_GATES;
@@ -191,7 +227,8 @@ Needs one CUDA card and nvcc (found through torch's CUDA_HOME, else
 22. automatic_reconstructor -- `--dense 1` on 8 of the views with one
                      shared camera (its own extraction, matching and
                      mapping within MAPPER_GATES, then undistortion,
-                     PatchMatch, fusion and `poisson_mesher`): K6
+                     PatchMatch at AUTO_PM_IT iterations a pass,
+                     fusion and `poisson_mesher`): K6
                      launched, the cloud and mesh written, the mesh's
                      heightfield errors (after the model's similarity
                      onto the truth) printed;
@@ -250,7 +287,9 @@ Needs one CUDA card and nvcc (found through torch's CUDA_HOME, else
                      random du, also at the 1024-image bucket; B1-B4
                      also beside the least time over the 32-byte
                      sectors their samples touch (B3's sector floor);
-                     `map_gather` also at SIFT's index law;
+                     `map_gather` also at SIFT's index law and at the
+                     three laws of phase cli-tools (first_octave -1, an
+                     affine Baumberg pass, DSP's ten scales);
 24. profile       -- device time by kernel over one warm solve of the
                      headline (with K1's split between its linearize-and-
                      reduce kernel and its three Schur kernels, and its
@@ -1314,8 +1353,8 @@ def phase_cli():
     model (more than 128 images: the implicit path) and a 20-image
     OPENCV model (`--BundleAdjustment.model_id 4`: sba_tpu's CLI takes
     the camera model from that flag); then at its defaults (float64) on
-    CLI_F64, whose couplings pass the explicit step's limit: 2 LM
-    iterations of the PCG step, no kernel."""
+    CLI_F64, whose couplings pass the explicit step's limit: 1 LM
+    iteration of the PCG step, no kernel."""
     import numpy as np
 
     from sba_tpu_torch.optim import ba as ba_mod
@@ -1350,7 +1389,7 @@ def phase_cli():
         f"points, {arr.num_observations} observations (built in "
         f"{time.perf_counter() - t:.1f} s); couplings {need / 1e9:.2f} GB "
         f"> {ba_mod.EXPLICIT_SCHUR_MAX_BYTES / 2**30:.0f} GiB: the PCG step")
-    _run_cli(rec, "float64 PCG", ("--BundleAdjustment.max_iterations", "2"),
+    _run_cli(rec, "float64 PCG", ("--BundleAdjustment.max_iterations", "1"),
              (), IMPLICIT_KERNELS + DENSE_KERNELS)
 
 
@@ -2214,9 +2253,34 @@ def _write_sba_workspace(work, scene):
     rec.write(str(work / "in"))
 
 
+def _check_native_maps(maps):
+    """The float TIFF maps decode through the native loader (built with
+    g++ from native/sba_native.cc at first use), equal to PIL's."""
+    import numpy as np
+    from PIL import Image as PILImage
+
+    from sba_tpu_torch.io import maps as io_maps
+    from sba_tpu_torch.io import native_loader
+
+    t = time.perf_counter()
+    require(native_loader.is_available(),
+            "native loader: the library did not build or load")
+    dt = time.perf_counter() - t
+    files = sorted(maps.glob("*.tiff"))
+    for f in files:
+        a = native_loader.decode_image_native(str(f))
+        b = np.asarray(PILImage.open(f), np.float32)
+        require(a is not None and np.array_equal(a, b)
+                and np.array_equal(io_maps.read_float_map_tiff(f), b),
+                f"native loader: {f.name} differs from PIL")
+    log("cli-sba", f"native loader ({native_loader._LIB_PATH}; built with "
+        f"g++ at its first use in this run, is_available() here "
+        f"{dt:.3f} s): {len(files)} TIFF maps equal to PIL's")
+
+
 def phase_cli_sba():
     """semantic_bundle_adjuster on the card: defaults (float64, forward
-    mode) cut to 10 LM iterations, and hard_numeric."""
+    mode) cut to 5 LM iterations, and hard_numeric."""
     from sba_tpu_torch.ops import cuda_build, map_gather
     from sba_tpu_torch.utils.synthetic import make_sba_scene
 
@@ -2225,9 +2289,10 @@ def phase_cli_sba():
                                  dir=cuda_build.BUILD_DIR))
     try:
         _write_sba_workspace(work, make_sba_scene(**SBA_CLI_SCENE))
+        _check_native_maps(work / "maps")
         for tag, extra in (("defaults", (
                                "--SemanticBundleAdjustment.max_iterations",
-                               "10")),
+                               "5")),
                            ("hard_numeric", (
                                "--SemanticBundleAdjustment.mode",
                                "hard_numeric",
@@ -2943,10 +3008,12 @@ def phase_frontend():
 SIFT_GATHER = {}
 
 
-def _gather_checked(extract):
+def _gather_checked(extract, keep=None):
     """`extract()` with every launch of SIFT's map_gather held bit-equal
     to map_gather_plain on the same card tensors: (its result, (samples,
-    table words) per launch)."""
+    table words, largest index) per launch). The first launch is kept in
+    SIFT_GATHER; `keep` {law: launch position} keeps those launches in
+    SIFT_LAWS."""
     import torch
 
     from sba_tpu_torch.features import sift
@@ -2957,9 +3024,12 @@ def _gather_checked(extract):
     def checked(table, idx, *args):
         out = mg.map_gather(table, idx, *args)
         same.append(torch.equal(out, mg.map_gather_plain(table, idx, *args)))
-        calls.append((idx.numel(), table.numel()))
+        calls.append((idx.numel(), table.numel(), int(idx.max())))
         if not SIFT_GATHER:
             SIFT_GATHER.update(table=table, idx=idx, args=args)
+        for law, pos in (keep or {}).items():
+            if len(calls) - 1 == pos and law not in SIFT_LAWS:
+                SIFT_LAWS[law] = dict(table=table, idx=idx, args=args)
         return out
 
     sift.map_gather = checked
@@ -2969,7 +3039,9 @@ def _gather_checked(extract):
         sift.map_gather = mg.map_gather
     require(bool(calls) and all(same),
             f"map_gather against map_gather_plain: launches (samples, "
-            f"table words) {calls}, bit-equal {same}")
+            f"table words, largest index) {calls}, bit-equal {same}")
+    require(max(c[2] for c in calls) < 2 ** 31, "map_gather: an index past "
+            "int32")
     return out, calls
 
 
@@ -3160,7 +3232,8 @@ MAPPER_GATES = dict(max_reproj_px=1.0, max_ate_frac=0.05,
                     max_rel_rot_deg=1.0, min_points=1000)
 RING_RADIUS = 1.6         # utils/render.py::render_scene's default
 AUTO_VIEWS = 8            # views of the automatic_reconstructor phase
-TWIN_LOCAL_BA_IT = 10     # LM iterations of twins-mapper's local BA
+AUTO_PM_IT = 2            # its PatchMatch iterations a pass (8 by default)
+TWIN_LOCAL_BA_IT = 5      # LM iterations of twins-mapper's local BA
 TRI_MAX_ERR_FRAC = 0.01   # point_triangulator: median height error / depth
 
 
@@ -3271,7 +3344,8 @@ def phase_mapper(scene, work):
     with _Utilization() as util:
         out, wall = _run_frontend_cli(
             ["mapper", "--database_path", str(work / "db.db"),
-             "--output_path", str(work / "sparse")], "mapper")
+             "--output_path", str(work / "sparse"),
+             "--Mapper.live_viewer_path", str(work / "live")], "mapper")
         torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
     busy = ("not measured (nvidia-smi read no utilization)"
@@ -3284,6 +3358,18 @@ def phase_mapper(scene, work):
     _model_gates(work / "sparse" / "0", scene, n, "mapper")
     require(not (work / "sparse" / "1").exists(),
             "mapper: more than one model")
+    from sba_tpu_torch.models.reconstruction import Reconstruction
+
+    live = json.loads((work / "live" / "state.json").read_text())
+    n_reg = Reconstruction.read(str(work / "sparse" / "0")) \
+        .num_registered_images()
+    require((work / "live" / "live.html").exists()
+            and live["num_registered"] == live["revision"] == n_reg,
+            f"mapper: live viewer state {live['num_registered']} registered "
+            f"(revision {live['revision']}), model {n_reg}")
+    log("mapper", f"live viewer: live.html and state.json revision "
+        f"{live['revision']}, {live['num_registered']} registered, "
+        f"{len(live['points'])} points (the model's {n_reg})")
     m = re.search(r"mapper 0: initial pair \((\d+), (\d+)\), two-view "
                   r"seed (\d+)", out)
     require(m is not None, f"mapper output:\n{out[-2000:]}")
@@ -3475,7 +3561,8 @@ def phase_automatic(scene, work):
     out, wall = _run_frontend_cli(
         ["automatic_reconstructor", "--workspace_path", str(work / "auto"),
          "--image_path", str(imgs), "--dense", "1",
-         "--ImageReader.single_camera", "1", "--device", "cuda"],
+         "--ImageReader.single_camera", "1", "--device", "cuda",
+         "--PatchMatchStereo.num_iterations", str(AUTO_PM_IT)],
         "automatic_reconstructor")
     launches = pk.LAUNCHES["ncc_cost"]
     w = re.search(r"wall seconds per view: (\{.*\})", out)
@@ -4102,7 +4189,7 @@ PG_GATES = dict(min_rel_drift_drop=10.0, cost_rtol=1e-3,
 # Permuted edge lists solved in float32 besides the given order: each
 # sums the segments in another order, so the gate's margin is read
 # against several roundings, not one.
-PG_EDGE_ORDERS = 2
+PG_EDGE_ORDERS = 1
 
 
 def _rec_from_observations(cameras, img_cam, qvecs, tvecs, names, points,
@@ -4682,7 +4769,7 @@ def phase_rig():
 # ---------------------------------------------------------------------------
 
 PAR_RANKS = 2            # gloo ranks sharing card 0 (NCCL refuses that)
-PAR_F64_IT = 3           # LM iterations of the float64 headline solves
+PAR_F64_IT = 2           # LM iterations of the float64 headline solves
 PAR_PG_IT_ONE_RANK = 10  # LM iterations of the one-rank pose graph check
 PAR_TIMEOUT_S = 300      # the spawned ranks' run, every collective in it
 # Gates of the sharded solves against the single-device ones on the card:
@@ -4698,7 +4785,7 @@ PAR_GATES = dict(f32=1e-3, f64=1e-6, sba_pose=5e-3)
 # atomics sum in no fixed order; the pose graph's reruns take its edges
 # in other orders), or within PAR_FIRST_ULPS units of the dtype's
 # rounding (eps), relative, where the reruns agree to the bit.
-PAR_FIRST_RERUNS = 3
+PAR_FIRST_RERUNS = 2
 PAR_FIRST_SPREAD_X = 10.0
 PAR_FIRST_ULPS = 1024
 
@@ -5120,11 +5207,12 @@ def phase_parallel(ctx, ctx_i, sba_ctx, forest_ctx, pg_ctx):
         f"solved in {t_ranks:.1f} s; {card}")
 
 
-def phase_timing_sift():
+def phase_timing_sift(law="SIFT's index law"):
     """map_gather at SIFT's index law (the first launch of one 1600x1200
-    batch of 8, phase twins-frontend) against its plain version and
-    torch.take on the same table; the bound counts the table words the
-    samples touch, the indices and the output."""
+    batch of 8, phase twins-frontend; or the launch SIFT_GATHER holds)
+    against its plain version and torch.take on the same table; the bound
+    counts the table words the samples touch, the indices and the
+    output."""
     import torch
 
     from sba_tpu_torch.ops import map_gather as mg
@@ -5139,13 +5227,771 @@ def phase_timing_sift():
     ms = time_ms(lambda: mg.map_gather(table, idx, *args), 50)
     plain_ms = time_ms(lambda: mg.map_gather_plain(table, idx, *args), 5)
     lib_ms = time_ms(lambda: torch.take(table, gi), 50)
-    log("timing", f"map_gather at SIFT's index law ({idx.numel()} samples "
+    log("timing", f"map_gather at {law} ({idx.numel()} samples "
         f"over a {table.numel()}-word table of {word}-byte words, "
         f"{touched} words touched): {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"torch.take {lib_ms:.4f} ms; bound {bound:.4f} ms (bytes: the "
         f"touched words, the indices and the output), {100 * bound / ms:.1f}"
         f"% of it")
     SIFT_GATHER.clear()
+
+
+# ---------------------------------------------------------------------------
+# cli-tools: the model and image tools, the other matchers and SIFT's
+# options, on the front end's views, database and the mapper's model
+# ---------------------------------------------------------------------------
+
+CLI_TOOLS_TWIN_VIEWS = 2      # views extracted on the CPU too (row rule)
+CLI_TOOLS_MATCH_FEATURES = 512    # features an image in the matchers' twins
+CLI_TOOLS_UNDISTORT_VIEWS = 4     # views image_deleter keeps, undistorted
+CLI_TOOLS_GRID = dict(size=(1600, 1200), step=100, focal=1500.0)
+# The new index laws of SIFT's map_gather (the first launch of each
+# kind, kept for phase timing): the variant and the launch's position.
+SIFT_LAWS = {}
+_LAW_LAUNCH = {"first_octave": ("first_octave", 1),   # descriptor taps
+               "affine": ("octave-1+affine", 0),       # a Baumberg pass
+               "dsp": ("dsp", 1)}                      # ten scales
+
+
+def _sift_rows_twin(card, cpu, affine, tag):
+    """The front end's row rule between a view's card rows and its CPU
+    rows (valid rows only; each card row against the CPU row nearest in (x,
+    y, scale, orientation), the orientation of affine rows read from
+    A's polar factor): 98% within 1e-3 px and rad, u8 descriptor entries
+    of those rows within 1 in 99%. Affine rows keep the 98% in (x, y,
+    scale); their orientation comes out of six Baumberg iterations that
+    amplify a float32 rounding (sba_tpu against itself one ulp off keeps
+    ~95% of rows), so whole rows are held at 95% and descriptors at
+    98%."""
+    import numpy as np
+    from scipy.spatial import cKDTree
+
+    (kc, dc), (kp, dp) = card, cpu
+
+    def rows(k):
+        k = np.asarray(k, np.float64)
+        if not affine:
+            return k
+        A = k[:, 2:].reshape(-1, 2, 2)
+        sc = np.sqrt(np.abs(np.linalg.det(A)))
+        u, _, vt = np.linalg.svd(A / sc[:, None, None])
+        R = u @ vt
+        ori = np.mod(np.arctan2(R[:, 1, 0], R[:, 0, 0]), 2 * np.pi)
+        return np.stack([k[:, 0], k[:, 1], sc, ori], 1)
+
+    a, b = rows(kc), rows(kp)
+    dist, idx = cKDTree(b[:, :3]).query(a[:, :3], k=min(4, len(b)),
+                                        p=np.inf)
+    od = np.abs(a[:, None, 3] - b[idx, 3])
+    od = np.minimum(od, 2 * np.pi - od)
+    full = np.maximum(dist, od)
+    j = np.argmin(full, 1)
+    r = np.arange(len(a))
+    geo = float((dist[r, j] <= 1e-3).mean())
+    ok = full[r, j] <= 1e-3
+    share = float(ok.mean())
+    du = np.abs(dc[ok].astype(np.int64)
+                - dp[idx[r, j][ok]].astype(np.int64))
+    desc = float((du <= 1).mean()) if du.size else 0.0
+    log("cli-tools", f"{tag}: {len(kc)} card rows, {len(kp)} CPU rows; "
+        f"{100 * share:.2f}% with a CPU row within 1e-3 px and rad "
+        f"({100 * geo:.2f}% in x, y, scale; 99th percentile "
+        f"{np.quantile(full[r, j], 0.99):.2e}); their descriptor entries "
+        f"within 1: {100 * desc:.3f}%")
+    require(geo >= 0.98 and share >= (0.95 if affine else 0.98)
+            and desc >= (0.98 if affine else 0.99)
+            and abs(len(kc) - len(kp)) <= 0.005 * len(kp),
+            f"{tag}: card rows against the CPU outside the row rule")
+
+
+def _extract_variant(work, scene, tag, flags, kw):
+    """feature_extractor with `flags` into a fresh database, every
+    map_gather launch held bit-equal to map_gather_plain; the CPU twin of
+    CLI_TOOLS_TWIN_VIEWS views under the same options."""
+    import numpy as np
+    import torch
+
+    from sba_tpu_torch.features import sift
+    from sba_tpu_torch.io.database import Database
+    from sba_tpu_torch.ops import map_gather as mg
+
+    db = work / f"db_{tag}.db"
+    mg.reset_launches()
+    (out, wall), calls = _gather_checked(
+        lambda: _run_frontend_cli(
+            ["feature_extractor", "--database_path", str(db), "--image_path",
+             str(work / "imgs"), *flags], f"feature_extractor {tag}"),
+        {law: pos for law, (variant, pos) in _LAW_LAUNCH.items()
+         if variant == tag})
+    m = re.search(r"extraction: (\S+) s for (\d+) images \((\S+) images/s\)",
+                  out)
+    k = re.search(r"kernel launches: (\{.*\})", out)
+    require(m is not None and k is not None, f"{tag} output:\n{out[-2000:]}")
+    n = int(m.group(2))
+    launches = json.loads(k.group(1))["map_gather"]
+    require(launches == len(calls) == mg.LAUNCHES["map_gather"] > 0,
+            f"{tag}: map_gather launches {launches}, checked {len(calls)}")
+    # The launches' device time: one batch again under CUDA events.
+    imgs = scene["images"][:8].astype(np.float32) / 255.0
+    opt = sift.SiftExtractionOptions(**kw)
+    ms = []
+
+    def timed(table, idx, *args):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        out_ = mg.map_gather(table, idx, *args)
+        b.record()
+        ms.append((a, b))
+        return out_
+
+    sift.map_gather = timed
+    try:
+        sift.extract_sift_batch(imgs, opt, device="cuda")
+        torch.cuda.synchronize()
+    finally:
+        sift.map_gather = mg.map_gather
+    per_batch = sum(a.elapsed_time(b) for a, b in ms)
+    log("cli-tools", f"feature_extractor {tag}: {m.group(3)} images/s "
+        f"({n} views of {scene['images'].shape[2]}x"
+        f"{scene['images'].shape[1]}, {wall:.1f} s command wall); "
+        f"map_gather {launches} launches ({launches / n:.3f} a view) of "
+        f"{sorted({c[0] for c in calls})} samples over a "
+        f"{calls[0][1]}-word table (largest index {max(c[2] for c in calls)}"
+        f" < 2^31), each bit-equal to map_gather_plain; "
+        f"{per_batch / 8:.4f} ms of map_gather a view (CUDA events, one "
+        f"batch of 8)")
+    cpu = [sift.extract_sift_batch(imgs[i:i + 1], opt, device="cpu")
+           for i in range(CLI_TOOLS_TWIN_VIEWS)]
+    dbh = Database(str(db))
+    by_name = {v["name"]: i for i, v in dbh.read_images().items()}
+    affine = bool(kw.get("estimate_affine_shape"))
+    for i, (kp, dp, mp) in enumerate(cpu):
+        iid = by_name[f"view{i:03d}.png"]
+        _sift_rows_twin((dbh.read_keypoints(iid), dbh.read_descriptors(iid)),
+                        (kp[0][mp[0]], dp[0][mp[0]]), affine,
+                        f"{tag} view {i} card vs CPU")
+    if affine:
+        A = np.concatenate([dbh.read_keypoints(i)[:, 2:]
+                            for i in dbh.read_images()]).astype(np.float64)
+        A = A.reshape(-1, 2, 2)
+        det = np.linalg.det(A)
+        sv = np.linalg.svd(A, compute_uv=False)
+        aniso = sv[:, 0] / sv[:, 1]
+        require(np.isfinite(det).all() and (det > 0).all()
+                and np.isfinite(aniso).all(),
+                f"{tag}: affine rows' det / anisotropy not finite")
+        log("cli-tools", f"{tag}: {len(A)} affine rows, det in "
+            f"[{det.min():.4g}, {det.max():.4g}], anisotropy median "
+            f"{np.median(aniso):.4f}, max {aniso.max():.4f}")
+    dbh.close()
+    return db, float(m.group(3))
+
+
+def _write_true_model(scene, path):
+    """The ring's true poses as a COLMAP model (no points)."""
+    import numpy as np
+
+    from sba_tpu_torch.geometry import camera_models
+    from sba_tpu_torch.io.colmap_models import Camera, Image
+    from sba_tpu_torch.models.reconstruction import Reconstruction
+
+    cam = scene["camera"]
+    rec = Reconstruction()
+    rec.add_camera(Camera(1, camera_models.model_by_name(cam["model"])
+                          .model_id, cam["width"], cam["height"],
+                          np.asarray(cam["params"], np.float64)))
+    for k in range(len(scene["qvecs"])):
+        rec.add_image(Image(k + 1, np.asarray(scene["qvecs"][k]),
+                            np.asarray(scene["tvecs"][k]), 1,
+                            f"view{k:03d}.png", np.zeros((0, 2)),
+                            np.zeros(0, np.int64)), registered=True)
+    path.mkdir(parents=True, exist_ok=True)
+    rec.write(str(path))
+
+
+def _same_tree(a, b):
+    import filecmp
+
+    cmp = filecmp.dircmp(a, b)
+    if cmp.left_only or cmp.right_only or cmp.diff_files or cmp.funny_files:
+        return False
+    return all(filecmp.cmp(Path(a) / f, Path(b) / f, shallow=False)
+               for f in cmp.common_files) \
+        and all(_same_tree(Path(a) / d, Path(b) / d) for d in cmp.common_dirs)
+
+
+def _verified_pairs(db_path, min_inliers=15):
+    from sba_tpu_torch.io.database import Database
+
+    db = Database(str(db_path))
+    names = {i: v["name"] for i, v in db.read_images().items()}
+    out = {}
+    for (a, b), g in db.read_all_two_view_geometries().items():
+        n = len(g["inlier_matches"])
+        if n >= min_inliers:
+            out[tuple(sorted((names[a], names[b])))] = n
+    db.close()
+    return out
+
+
+def _matcher_twin(work, base, cmd, args, tag, seconds):
+    """`cmd` on two copies of `base` (the card, then --device cpu): the
+    verified pairs (>= 15 inliers) must be the same."""
+    got = {}
+    for dev in ("cuda", "cpu"):
+        db = work / f"{tag}_{dev}.db"
+        shutil.copy(base, db)
+        extra = ["--device", "cpu"] if dev == "cpu" else []
+        _, wall = _run_frontend_cli([cmd, "--database_path", str(db), *args,
+                                     *extra], f"{cmd} [{dev}]")
+        got[dev] = _verified_pairs(db)
+        seconds[f"{cmd} [{dev}]"] = wall
+    require(set(got["cuda"]) == set(got["cpu"]) and got["cuda"],
+            f"{cmd}: verified pairs card {sorted(got['cuda'])} vs CPU "
+            f"{sorted(got['cpu'])}")
+    diff = [abs(got["cuda"][p] - got["cpu"][p]) / got["cpu"][p]
+            for p in got["cpu"]]
+    log("cli-tools", f"{cmd}: {len(got['cuda'])} verified pairs, the same "
+        f"on the card and the CPU (inliers differ by at most "
+        f"{100 * max(diff):.2f}%); card {seconds[f'{cmd} [cuda]']:.1f} s, "
+        f"CPU {seconds[f'{cmd} [cpu]']:.1f} s")
+    return got["cuda"]
+
+
+def _matcher_full(work, src, cmd, args, seconds):
+    """`cmd` on the card on a copy of `src`: the pairs it matched and those
+    it verified (>= 15 inliers), by image name, and its seconds."""
+    from sba_tpu_torch.io.database import Database
+
+    db_path = work / f"{cmd}_full.db"
+    shutil.copy(src, db_path)
+    tag = f"{cmd} [cuda, full width]"
+    _, wall = _run_frontend_cli([cmd, "--database_path", str(db_path),
+                                 *args], tag)
+    seconds[tag] = wall
+    db = Database(str(db_path))
+    names = {i: v["name"] for i, v in db.read_images().items()}
+    matched = {tuple(sorted((names[a], names[b])))
+               for a, b in db.read_all_matches()}
+    db.close()
+    verified = _verified_pairs(db_path)
+    log("cli-tools", f"{tag}: {len(matched)} pairs matched, "
+        f"{len(verified)} verified, {wall:.2f} s")
+    return matched, verified
+
+
+def _cli_tools_matchers(scene, work, tools, cli, seconds):
+    """spatial_matcher, matches_importer and transitive_matcher on the
+    card on the front end's full database at sba_tpu's defaults, then
+    card against CPU on CLI_TOOLS_MATCH_FEATURES twins."""
+    import sqlite3
+
+    from sba_tpu_torch.geometry.quaternions import np_quat_to_rotmat
+    from sba_tpu_torch.io.database import Database
+
+    # the matchers on the card at full width: the front end's database
+    # (every feature, its matches cleared) at sba_tpu's defaults, gated
+    # on the pairs each selects and on the ring's neighbours verifying
+    full = tools / "m_full.db"
+    shutil.copy(work / "db.db", full)
+    cli(["database_cleaner", "--database_path", str(full), "--type",
+         "matches"])
+    db = Database(str(full))
+    names = {i: v["name"] for i, v in db.read_images().items()}
+    db.close()
+    ring = sorted(names.values())
+    n = len(ring)
+    chain = set(zip(ring[:-1], ring[1:]))
+    centers = {f"view{k:03d}.png": -np_quat_to_rotmat(scene["qvecs"][k]).T
+               @ scene["tvecs"][k] for k in range(len(scene["qvecs"]))}
+
+    def with_priors(src, dst):
+        shutil.copy(src, dst)
+        con = sqlite3.connect(str(dst))
+        for iid, nm in names.items():
+            con.execute("UPDATE images SET prior_tx=?, prior_ty=?, "
+                        "prior_tz=? WHERE image_id=?",
+                        (*map(float, centers[nm]), iid))
+        con.commit()
+        con.close()
+        return dst
+
+    (tools / "pairs.txt").write_text("\n".join(
+        f"{a} {b}" for a, b in sorted(chain)) + "\n")
+    # 50 neighbours within 100 (sba_tpu's defaults) take every pair of
+    # the 24 views; the list takes the ring's neighbours; three rounds
+    # from the sequential matcher's neighbours reach ring distance 2^3.
+    seq_full = tools / "m_full_seq.db"
+    shutil.copy(full, seq_full)
+    cli(["sequential_matcher", "--database_path", str(seq_full),
+         "--SequentialMatching.overlap", "1",
+         "--SequentialMatching.quadratic_overlap", "0"])
+    reach = 2 ** 3
+    full_runs = (
+        ("spatial_matcher", with_priors(full, tools / "m_full_sp.db"), [],
+         {(a, b) for k, a in enumerate(ring) for b in ring[k + 1:]}),
+        ("matches_importer", full,
+         ["--match_list_path", str(tools / "pairs.txt")], chain),
+        ("transitive_matcher", seq_full, [],
+         {(ring[i], ring[j]) for i in range(n)
+          for j in range(i + 1, min(n, i + reach + 1))}))
+    for cmd, src, args, want in full_runs:
+        matched, verified = _matcher_full(tools, src, cmd, args, seconds)
+        require(set(matched) == want and chain <= set(verified),
+                f"{cmd} at full width: matched {len(matched)} pairs "
+                f"(want {len(want)}, missing {sorted(want - set(matched))}"
+                f", extra {sorted(set(matched) - want)}); ring neighbours "
+                f"unverified {sorted(chain - set(verified))}")
+    # card against CPU: twin databases of CLI_TOOLS_MATCH_FEATURES
+    # features an image and fewer rounds (the CPU's time)
+    base = tools / "m_base.db"
+    shutil.copy(full, base)
+    db = Database(str(base))
+    for iid in names:
+        db.write_keypoints(iid, db.read_keypoints(iid)
+                           [:CLI_TOOLS_MATCH_FEATURES])
+        db.write_descriptors(iid, db.read_descriptors(iid)
+                             [:CLI_TOOLS_MATCH_FEATURES])
+    db.commit()
+    db.close()
+    _matcher_twin(tools, with_priors(base, tools / "m_spatial.db"),
+                  "spatial_matcher",
+                  ["--SpatialMatching.max_num_neighbors", "3"],
+                  "spatial", seconds)
+    _matcher_twin(tools, base, "matches_importer",
+                  ["--match_list_path", str(tools / "pairs.txt")],
+                  "import", seconds)
+    seq = tools / "m_seq.db"
+    shutil.copy(base, seq)
+    cli(["sequential_matcher", "--database_path", str(seq),
+         "--SequentialMatching.overlap", "1",
+         "--SequentialMatching.quadratic_overlap", "0"])
+    _matcher_twin(tools, seq, "transitive_matcher",
+                  ["--TransitiveMatching.num_iterations", "1"],
+                  "transitive", seconds)
+
+
+def _grid_view(path):
+    """tests/test_lines_coordinate_frame.py:193's Manhattan grid at
+    CLI_TOOLS_GRID's size: vertical and horizontal lines, 3 px wide."""
+    import numpy as np
+    from PIL import Image as PILImage
+
+    w, h = CLI_TOOLS_GRID["size"]
+    step = CLI_TOOLS_GRID["step"]
+    img = np.zeros((h, w), np.uint8)
+    for x in range(60, w - 40, step):
+        img[40:h - 40, x - 1:x + 2] = 255
+    for y in range(60, h - 40, step):
+        img[y - 1:y + 2, 30:w - 30] = 255
+    PILImage.fromarray(img).save(path)
+
+
+def phase_cli_tools(scene, work):
+    """The slice's commands on the frontend phase's 24 rendered 1600x1200
+    views, its database and the mapper's model, in this process:
+    (a) feature_extractor with first_octave -1 and the affine shape, and
+    with DSP, each map_gather launch bit-equal to its plain version,
+    CLI_TOOLS_TWIN_VIEWS views against the CPU under the front end's row
+    rule;
+    (b) every one of the 19 commands, each gated; the matchers on the
+    card on the full database at sba_tpu's defaults, and on the card
+    against the CPU on twin databases of CLI_TOOLS_MATCH_FEATURES
+    features an image. IMAGE-ORIENTATION's gate holds the command's
+    transform of the port's own consensus axis, not the axis: the ring's
+    cameras share no image "down" direction, and
+    tests/test_torch_coordinate_frame.py holds the estimator against
+    sba_tpu's."""
+    import dataclasses
+    import os
+
+    import numpy as np
+    from PIL import Image as PILImage
+
+    from sba_tpu_torch.estimators.coordinate_frame import (
+        estimate_gravity_vector_from_image_orientation,
+        rotation_from_unit_vectors)
+    from sba_tpu_torch.features.matching import SiftMatchingOptions
+    from sba_tpu_torch.features.sift import SiftExtractionOptions
+    from sba_tpu_torch.geometry.quaternions import (np_quat_to_rotmat,
+                                                    np_rotmat_to_quat)
+    from sba_tpu_torch.io.database import Database
+    from sba_tpu_torch.io.ply import read_ply
+    from sba_tpu_torch.models.reconstruction import Reconstruction
+    from sba_tpu_torch.optim.ba import BAOptions
+    from sba_tpu_torch.options import flags_from_ini, read_project_ini
+
+    t0 = time.perf_counter()
+    seconds = {}
+
+    def cli(args, tag=None):
+        tag = tag or args[0]
+        out, wall = _run_frontend_cli(args, tag)
+        seconds[tag] = seconds.get(tag, 0.0) + wall
+        return out
+
+    # (a) the two extractions
+    rates = {}
+    for tag, kw in (("octave-1+affine", dict(first_octave=-1,
+                                             estimate_affine_shape=True)),
+                    ("dsp", dict(domain_size_pooling=True))):
+        flags = []
+        for k, v in kw.items():
+            flags += [f"--SiftExtraction.{k}", str(int(v))]
+        _, rates[tag] = _extract_variant(work, scene, tag, flags, kw)
+    # first_octave -1 alone (the 4x table, unshaped taps), two views.
+    _extract_law_only(scene)
+
+    model = work / "sparse" / "0"
+    rec = Reconstruction.read(str(model))
+    tools = work / "tools"
+    tools.mkdir()
+
+    # model_converter (host work): its files equal Reconstruction's own
+    # exports byte for byte, and the BIN model reads back unchanged
+    for ot in ("BIN", "TXT", "PLY", "NVM", "BUNDLER", "CAM", "R3D", "VRML"):
+        d = _mkdir(tools / "conv" / ot)
+        cli(["model_converter", "--input_path", str(model),
+             "--output_path", str(d / "m"), "--output_type", ot])
+        _library_export(rec, ot, str(_mkdir(tools / "conv_lib" / ot) / "m"))
+    require(_same_tree(tools / "conv", tools / "conv_lib"),
+            "model_converter: its files differ from Reconstruction's exports")
+    rt = Reconstruction.read(str(tools / "conv" / "BIN" / "m"))
+    require(sorted(rt.images) == sorted(rec.registered_image_ids)
+            and all(np.array_equal(rt.images[i].qvec, rec.images[i].qvec)
+                    and np.array_equal(rt.images[i].tvec, rec.images[i].tvec)
+                    for i in rt.images)
+            and sorted(rt.points3D) == sorted(rec.points3D)
+            and all(np.array_equal(rt.points3D[p].xyz, rec.points3D[p].xyz)
+                    for p in rt.points3D),
+            "model_converter: the BIN model does not read back unchanged")
+    # model_analyzer
+    out = cli(["model_analyzer", "--input_path", str(model)])
+    want = (f"Registered images: {rec.num_registered_images()}",
+            f"Points: {rec.num_points3d()}",
+            f"Observations: {rec.compute_num_observations()}",
+            f"Mean track length: {rec.compute_mean_track_length():.6f}",
+            "Mean reprojection error: "
+            f"{rec.compute_mean_reprojection_error():.6f}px")
+    require(all(w in out for w in want), f"model_analyzer:\n{out}")
+    # model_aligner + model_comparer against the true model
+    _write_true_model(scene, tools / "truth")
+    cli(["model_aligner", "--input_path", str(model), "--ref_model_path",
+         str(tools / "truth"), "--output_path", str(tools / "aligned")])
+    out = cli(["model_comparer", "--input_path1", str(tools / "aligned"),
+               "--input_path2", str(tools / "truth")])
+    ate = float(re.search(r"ATE mean: (\S+)", out).group(1))
+    scale = float(re.search(r"Alignment scale: (\S+)", out).group(1))
+    require(ate / RING_RADIUS < MAPPER_GATES["max_ate_frac"]
+            and abs(scale - 1) < 1e-6,
+            f"model_aligner/comparer: ATE {ate}, scale {scale}")
+    # model_orientation_aligner: IMAGE-ORIENTATION on the ring
+    cli(["model_orientation_aligner", "--input_path", str(model),
+         "--output_path", str(tools / "upright"), "--method",
+         "IMAGE-ORIENTATION"])
+    g = estimate_gravity_vector_from_image_orientation(rec)
+    R = rotation_from_unit_vectors(g, [0, 1, 0])
+    up = Reconstruction.read(str(tools / "upright"))
+    # transform_reconstruction stores R_c R^T as a quaternion (R is not a
+    # rotation here: see the log line below).
+    pose_err = max(min(float(np.abs(up.images[i].qvec - q).max()),
+                       float(np.abs(up.images[i].qvec + q).max()))
+                   + float(np.abs(up.images[i].tvec
+                                  - rec.images[i].tvec).max())
+                   for i in rec.images
+                   for q in [np_rotmat_to_quat(
+                       np_quat_to_rotmat(rec.images[i].qvec) @ R.T)])
+    g2 = estimate_gravity_vector_from_image_orientation(up)
+    off = float(np.degrees(np.arccos(min(1.0, abs(g2[1])
+                                         / np.linalg.norm(g2)))))
+    log("cli-tools", f"IMAGE-ORIENTATION: consensus axis {g} (norm "
+        f"{np.linalg.norm(g):.6f}); |R R^T - I| "
+        f"{np.abs(R @ R.T - np.eye(3)).max():.4f}; after alignment "
+        f"{off:.3f} deg from the y axis (sba_tpu's rotation of the "
+        f"unnormalized axis, ROADMAP Queue 3); poses against "
+        f"quat(R_c R^T): {pose_err:.2e}")
+    require(pose_err < 1e-6 and off < 5.0,
+            f"model_orientation_aligner IMAGE-ORIENTATION: poses "
+            f"{pose_err}, consensus axis {off} deg off y")
+    # MANHATTAN-WORLD on an axis-aligned grid seen by an identity camera
+    from sba_tpu_torch.io.colmap_models import Camera, Image
+
+    _grid_view(tools / "grid.png")
+    w, h = CLI_TOOLS_GRID["size"]
+    f = CLI_TOOLS_GRID["focal"]
+    grid = Reconstruction()
+    grid.add_camera(Camera(1, 0, w, h, np.array([f, w / 2, h / 2])))
+    grid.add_image(Image(1, np.array([1.0, 0, 0, 0]), np.zeros(3), 1,
+                         "grid.png", np.zeros((0, 2)),
+                         np.zeros(0, np.int64)), registered=True)
+    grid.add_point3d(np.array([0.0, 0, 5.0]), [])
+    grid.write(str(_mkdir(tools / "grid_model")))
+    out = cli(["model_orientation_aligner", "--input_path",
+               str(tools / "grid_model"), "--output_path",
+               str(tools / "grid_aligned"), "--image_path", str(tools),
+               "--method", "MANHATTAN-WORLD"])
+    frame = np_quat_to_rotmat(Reconstruction.read(
+        str(tools / "grid_aligned")).images[1].qvec)
+    dots = (abs(frame[:, 0] @ [1, 0, 0]), abs(frame[:, 1] @ [0, 1, 0]))
+    require("Aligning horizontal and vertical axes" in out
+            and min(dots) > 0.95,
+            f"MANHATTAN-WORLD: |frame axis . true axis| {dots}:\n{out}")
+    # model_transformer on the model and on a PLY, undone by --is_inverse
+    tf = tools / "tf.txt"
+    R = np_quat_to_rotmat(np.array([0.9, 0.1, -0.3, 0.2]))
+    M = np.concatenate([1.3 * R, [[0.4], [-1.2], [2.0]]], 1)
+    tf.write_text("\n".join(" ".join(f"{v:.17g}" for v in r) for r in M))
+    cli(["model_transformer", "--input_path", str(model), "--output_path",
+         str(tools / "tf_fwd"), "--transform_path", str(tf)])
+    cli(["model_transformer", "--input_path", str(tools / "tf_fwd"),
+         "--output_path", str(tools / "tf_back"), "--transform_path",
+         str(tf), "--is_inverse", "1"])
+    back = Reconstruction.read(str(tools / "tf_back"))
+    err = max(float(np.abs(back.points3D[p].xyz - rec.points3D[p].xyz).max())
+              for p in rec.points3D)
+    ply = tools / "conv" / "PLY" / "m"
+    shutil.copy(ply, tools / "model.ply")
+    cli(["model_transformer", "--input_path", str(tools / "model.ply"),
+         "--output_path", str(tools / "fwd.ply"), "--transform_path",
+         str(tf)])
+    cli(["model_transformer", "--input_path", str(tools / "fwd.ply"),
+         "--output_path", str(tools / "back.ply"), "--transform_path",
+         str(tf), "--is_inverse", "1"])
+    p0 = read_ply(str(tools / "model.ply"))["xyz"]
+    p2 = read_ply(str(tools / "back.ply"))["xyz"]
+    ply_err = float(np.abs(p2 - p0).max())
+    require(err < 1e-9 and ply_err < 1e-4 * max(1.0, np.abs(p0).max()),
+            f"model_transformer round trips: model {err}, PLY {ply_err}")
+    # model_cropper and model_splitter
+    cli(["model_cropper", "--input_path", str(model), "--output_path",
+         str(tools / "crop"), "--boundary", "0.1,0.9"])
+    lo, hi = rec.compute_bounding_box(0.1, 0.9)
+    crop = Reconstruction.read(str(tools / "crop"))
+    xyz = np.stack([p.xyz for p in crop.points3D.values()])
+    require(0 < crop.num_points3d() < rec.num_points3d()
+            and (xyz >= lo - 1e-12).all() and (xyz <= hi + 1e-12).all(),
+            f"model_cropper: {crop.num_points3d()} of "
+            f"{rec.num_points3d()} points")
+    lo, hi = rec.compute_bounding_box(0.0, 1.0)
+    ext = hi - lo
+    split = {}
+    for st, sp in (("tiles", f"{ext[0] / 2:.17g},{ext[1] / 2:.17g}"),
+                   ("extent", f"{ext[0] / 2:.17g},{ext[1] / 2:.17g},"
+                              f"{ext[2]:.17g}"),
+                   ("parts", "3")):
+        d = tools / f"split_{st}"
+        cli(["model_splitter", "--input_path", str(model), "--output_path",
+             str(d), "--split_type", st, "--split_params", sp,
+             "--min_reg_images", "1", "--min_num_points", "1"])
+        subs = [Reconstruction.read(str(d / s)) for s in sorted(os.listdir(d))]
+        split[st] = (len(subs), sum(s.num_points3d() for s in subs))
+    # A box's upper edge is lo + k * size in floating point (sba_tpu's
+    # arithmetic), so a point on the bounding box's upper faces can fall
+    # just outside the last box: only such points may be lost.
+    # (ROADMAP Queue 3; tests/test_torch_cli_tools.py::
+    # test_model_splitter_loses_upper_face_points shows sba_tpu losing
+    # the same points.)
+    xyz_all = {tuple(p.xyz) for p in rec.points3D.values()}
+    lost, on_face = {}, {}
+    for st in split:
+        d = tools / f"split_{st}"
+        kept = {tuple(p.xyz) for sd in os.listdir(d)
+                for p in Reconstruction.read(str(d / sd)).points3D.values()}
+        gone = xyz_all - kept
+        lost[st] = [x for x in gone if not any(
+            abs(x[a] - hi[a]) <= 1e-9 * max(1.0, abs(hi[a]))
+            for a in range(3))]
+        on_face[st] = len(gone) - len(lost[st])
+    require(all(n >= 2 for n, _ in split.values())
+            and not any(lost.values()),
+            f"model_splitter (sub-models, points): {split} of "
+            f"{rec.num_points3d()} points; lost off the upper faces: "
+            f"{ {k: len(v) for k, v in lost.items()} }")
+    log("cli-tools", f"model_splitter (sub-models, points) of "
+        f"{rec.num_points3d()} points: {split}; points lost on the "
+        f"bounding box's upper faces: {on_face}")
+    # color_extractor on the ring views, card against CPU
+    for dev in ("cuda", "cpu"):
+        out = cli(["color_extractor", "--input_path", str(model),
+                   "--image_path", str(work / "imgs"), "--output_path",
+                   str(tools / f"colors_{dev}"), "--device", dev],
+                  f"color_extractor [{dev}]")
+    n_col = int(re.search(r"colored (\d+) /", out).group(1))
+    require(_same_tree(tools / "colors_cuda", tools / "colors_cpu")
+            and n_col == rec.num_points3d(),
+            f"color_extractor: {n_col} of {rec.num_points3d()} colored, "
+            "card and CPU models differ")
+    # point_filtering, image_filterer, image_deleter
+    out = cli(["point_filtering", "--input_path", str(model),
+               "--output_path", str(tools / "filtered")])
+    nf = int(re.search(r"Filtered observations: (\d+)", out).group(1))
+    filt = Reconstruction.read(str(tools / "filtered"))
+    require(filt.num_points3d() <= rec.num_points3d() and all(
+        len(p.image_ids) >= 2 for p in filt.points3D.values()),
+        "point_filtering")
+    out = cli(["image_filterer", "--input_path", str(model),
+               "--output_path", str(tools / "img_filtered")])
+    require(f"Filtered 0 images from a total of "
+            f"{rec.num_registered_images()} images" in out,
+            f"image_filterer:\n{out}")
+    keep = [f"view{k:03d}.png" for k in range(CLI_TOOLS_UNDISTORT_VIEWS)]
+    (tools / "delete.txt").write_text("\n".join(
+        rec.images[i].name for i in rec.images
+        if rec.images[i].name not in keep) + "\n")
+    cli(["image_deleter", "--input_path", str(model), "--output_path",
+         str(tools / "kept"), "--image_names_path",
+         str(tools / "delete.txt")])
+    kept = Reconstruction.read(str(tools / "kept"))
+    require(sorted(im.name for im in kept.images.values()) == keep,
+            "image_deleter")
+    # image_undistorter_standalone against image_undistorter's pixels
+    from sba_tpu_torch.geometry import camera_models
+
+    lines = []
+    for im in sorted(kept.images.values(), key=lambda im: im.name):
+        cam = kept.cameras[im.camera_id]
+        lines.append(f"{im.name} "
+                     f"{camera_models.model_by_id(cam.model_id).name} "
+                     f"{cam.width} {cam.height} "
+                     + " ".join(f"{v:.17g}" for v in cam.params))
+    (tools / "cams.txt").write_text("\n".join(lines) + "\n")
+    cli(["image_undistorter", "--image_path", str(work / "imgs"),
+         "--input_path", str(tools / "kept"), "--output_path",
+         str(tools / "und_ws")])
+    cli(["image_undistorter_standalone", "--input_file",
+         str(tools / "cams.txt"), "--image_path", str(work / "imgs"),
+         "--output_path", str(tools / "und_sa")])
+    dmax, dshare = 0, 1.0
+    for n in keep:
+        a = np.asarray(PILImage.open(tools / "und_ws" / "images" / n)
+                       .convert("L"), np.int64)
+        b = np.asarray(PILImage.open(tools / "und_sa" / n).convert("L"),
+                       np.int64)
+        require(a.shape == b.shape, f"undistorted {n}: {a.shape} {b.shape}")
+        dmax = max(dmax, int(np.abs(a - b).max()))
+        dshare = min(dshare, float((a == b).mean()))
+    log("cli-tools", f"image_undistorter_standalone vs image_undistorter on "
+        f"{len(keep)} views: pixels equal {100 * dshare:.3f}% (worst view), "
+        f"max difference {dmax}")
+    require(dmax <= 1, "image_undistorter_standalone: pixels differ from "
+            f"image_undistorter's by {dmax}")
+
+    _cli_tools_matchers(scene, work, tools, cli, seconds)
+    # feature_importer: a round trip of the exhaustive database's features
+    src = Database(str(work / "db.db"))
+    exp = tools / "export"
+    exp.mkdir()
+    want = {}
+    for iid, v in src.read_images().items():
+        if v["name"] not in keep:
+            continue
+        kp, de = src.read_keypoints(iid), src.read_descriptors(iid)
+        want[v["name"]] = (kp, de)
+        rows = [" ".join([f"{x:.9g}" for x in kp[r]]
+                         + [str(int(x)) for x in de[r]])
+                for r in range(len(kp))]
+        (exp / f"{v['name']}.txt").write_text(
+            f"{len(kp)} 128\n" + "\n".join(rows) + "\n")
+    src.close()
+    cli(["feature_importer", "--database_path", str(tools / "imported.db"),
+         "--image_path", str(work / "imgs"), "--import_path", str(exp)])
+    imp = Database(str(tools / "imported.db"))
+    got = {v["name"]: iid for iid, v in imp.read_images().items()}
+    require(sorted(got) == sorted(want) and all(
+        np.array_equal(imp.read_keypoints(got[n]), want[n][0])
+        and np.array_equal(imp.read_descriptors(got[n]), want[n][1])
+        for n in want), "feature_importer: the round trip changed rows")
+    imp.close()
+    # project_generator -> read_project_ini gives the same flags
+    cli(["project_generator", "--output_path", str(tools / "project.ini"),
+         "--database_path", str(work / "db.db"), "--image_path",
+         str(work / "imgs")])
+    flags = flags_from_ini(read_project_ini(str(tools / "project.ini")))
+    top = {"database_path": str(work / "db.db"),
+           "image_path": str(work / "imgs")}
+    expect = dict(top)
+    for sec, obj in (("SiftExtraction", SiftExtractionOptions()),
+                     ("SiftMatching", SiftMatchingOptions()),
+                     ("BundleAdjustment", BAOptions())):
+        # configparser's DEFAULT entries show in every section.
+        expect.update({f"{sec}.{k}": v for k, v in top.items()})
+        for fld in dataclasses.fields(obj):
+            v = getattr(obj, fld.name)
+            if isinstance(v, (bool, int, float, str)):
+                expect[f"{sec}.{fld.name}"] = str(v)
+    require(flags == expect, "project_generator: the ini's flags differ: "
+            f"{sorted(set(flags.items()) ^ set(expect.items()))}")
+    # model_viewer: the page, and its JSON payload parses
+    cli(["model_viewer", "--input_path", str(model), "--output_path",
+         str(tools / "viewer.html")])
+    html = (tools / "viewer.html").read_text()
+    cams = json.loads(html.split("let CAMS = ")[1].split(";\n")[0])
+    pts = json.loads(html.split("let PTS = ")[1].split(";\n")[0])
+    require(len(cams) == rec.num_registered_images()
+            and len(pts) == min(rec.num_points3d(), 50_000),
+            f"model_viewer: {len(cams)} cameras, {len(pts)} points")
+    total = time.perf_counter() - t0
+    log("cli-tools", "feature_extractor images/s: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in rates.items()))
+    log("cli-tools", "command seconds: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in sorted(seconds.items())))
+    log("cli-tools", f"all 19 commands gated; phase wall {total:.1f} s")
+
+
+def _library_export(rec, ot, path):
+    """`rec` written as model_converter's `ot` at `path` through
+    Reconstruction's own writers and exporters."""
+    if ot in ("BIN", "TXT"):
+        rec.write(str(_mkdir(Path(path))), ext="." + ot.lower())
+    elif ot == "PLY":
+        rec.export_ply(path)
+    elif ot == "NVM":
+        require(rec.export_nvm(path), "export_nvm")
+    elif ot == "BUNDLER":
+        require(rec.export_bundler(path + ".bundle.out",
+                                   path + ".list.txt"), "export_bundler")
+    elif ot == "CAM":
+        require(rec.export_cam(str(_mkdir(Path(path)))), "export_cam")
+    elif ot == "R3D":
+        require(rec.export_recon3d(str(_mkdir(Path(path)))),
+                "export_recon3d")
+    else:
+        rec.export_vrml(path + ".images.wrl", path + ".points3D.wrl")
+
+
+def _mkdir(p):
+    p.mkdir(parents=True, exist_ok=True)
+    return p
+
+
+def _extract_law_only(scene):
+    """first_octave -1 alone on a batch of 8 views: each launch
+    bit-equal to its plain version (the 4x table with unshaped taps)."""
+    import numpy as np
+
+    from sba_tpu_torch.features import sift
+
+    imgs = scene["images"][:8].astype(np.float32) / 255.0
+    _, calls = _gather_checked(
+        lambda: sift.extract_sift_batch(imgs, sift.SiftExtractionOptions(
+            first_octave=-1), device="cuda"),
+        {"first_octave": _LAW_LAUNCH["first_octave"][1]})
+    require(len(calls) == 2, f"first_octave -1: {len(calls)} launches")
+    log("cli-tools", f"first_octave -1 alone on {len(imgs)} views: "
+        f"{len(calls)} map_gather launches of {[c[0] for c in calls]} "
+        f"samples over a {calls[0][1]}-word table, bit-equal to "
+        f"map_gather_plain")
+
+
+def phase_timing_sift_laws():
+    """map_gather at the slice's three index laws (first_octave -1's 4x
+    table, an affine Baumberg pass, DSP's ten-scale descriptor launch),
+    each launch as phase_timing_sift times SIFT's default one."""
+    for law in ("first_octave", "affine", "dsp"):
+        require(law in SIFT_LAWS, f"no map_gather launch kept at {law}")
+        SIFT_GATHER.clear()
+        SIFT_GATHER.update(SIFT_LAWS.pop(law))
+        phase_timing_sift(f"the {law} law")
 
 
 def main() -> int:
@@ -5198,6 +6044,7 @@ def main() -> int:
         run("retrieval", phase_retrieval, fe_scene, fe_work)
         init = run("mapper", phase_mapper, fe_scene, fe_work)
         run("twins-mapper", phase_twins_mapper, fe_work, init)
+        run("cli-tools", phase_cli_tools, fe_scene, fe_work)
         run("pose-graph", phase_cli_pose_graph, fe_scene, fe_work)
         run("hierarchical", phase_hierarchical, fe_scene, fe_work)
         run("point_triangulator", phase_point_triangulator, fe_scene,
@@ -5220,6 +6067,7 @@ def main() -> int:
     rows.update(run("timing", phase_timing_sba, probe_in, gather_launches,
                     gather_errs))
     run("timing", phase_timing_sift)
+    run("timing", phase_timing_sift_laws)
     del probe_in
     k1_bound = {"K1": rows["fused_schur"]["bound_ms"]}
     for label, c, ms, parts in (

@@ -429,11 +429,64 @@ def refine_essential_sampson(E, n1, n2, w, num_iterations: int = 8):
     return _linalg.frob_normalize(_e_of_params(p))
 
 
-def estimate_two_view_geometry_multiple(*args, **kwargs):
-    """Recursive multi-model estimation (sba_tpu `..._multiple`): not
-    ported yet."""
-    raise NotImplementedError(
-        "estimate_two_view_geometry_multiple is not ported yet")
+def estimate_two_view_geometry_multiple(
+    xy1, xy2,
+    cam1_fxycxy=None, cam2_fxycxy=None,
+    image_size1=None, image_size2=None,
+    options: Optional[TwoViewGeometryOptions] = None,
+    seed: int = 0,
+    max_models: int = 8,
+    draw_fn=None,
+    dtype=torch.float64,
+    device="cuda",
+):
+    """Recursive multi-model two-view estimation
+    (ref: two_view_geometry.h:158-166 EstimateMultiple, .cc:128):
+    estimate, remove the inliers, re-estimate on the remainder, until
+    too few correspondences survive or a model fails. Each round pads
+    the remainder to sba_tpu's power-of-two bucket (at least 32) and
+    calls `estimate_two_view_geometry` with seed `seed + k`;
+    `draw_fn(seed, num_padded, mask)` gives that round's `samples` (the
+    E, F and H draws). Returns a list of TwoViewGeometryResult; each
+    result's inlier_mask indexes the ORIGINAL correspondences. When more
+    than one model is found every result's config is MULTIPLE (the
+    reference's marker for several rigid motions or a watermark
+    overlay); each keeps its own geometry."""
+    opt = options or TwoViewGeometryOptions()
+    xy1 = np.asarray(xy1)
+    xy2 = np.asarray(xy2)
+    n = len(xy1)
+    remaining = np.ones(n, bool)
+    results = []
+    for k in range(max_models):
+        if remaining.sum() < opt.min_num_inliers:
+            break
+        idx = np.nonzero(remaining)[0]
+        m = len(idx)
+        mpad = 1 << max(5, (m - 1).bit_length())
+        x1 = np.zeros((mpad, 2))
+        x2 = np.zeros((mpad, 2))
+        x1[:m] = xy1[idx]
+        x2[:m] = xy2[idx]
+        mask = np.zeros(mpad, bool)
+        mask[:m] = True
+        tv = estimate_two_view_geometry(
+            x1, x2, cam1_fxycxy, cam2_fxycxy, image_size1, image_size2,
+            options=opt, seed=seed + k, mask=mask,
+            samples=None if draw_fn is None else draw_fn(seed + k, mpad,
+                                                         mask),
+            dtype=dtype, device=device)
+        if (tv.config == int(TwoViewConfig.DEGENERATE)
+                or tv.num_inliers < opt.min_num_inliers):
+            break
+        full_mask = np.zeros(n, bool)
+        full_mask[idx[np.nonzero(np.asarray(tv.inlier_mask)[:m])[0]]] = True
+        results.append(tv._replace(inlier_mask=full_mask))
+        remaining &= ~full_mask
+    if len(results) > 1:
+        results = [r._replace(config=int(TwoViewConfig.MULTIPLE))
+                   for r in results]
+    return results
 
 
 # ---------------------------------------------------------------------------

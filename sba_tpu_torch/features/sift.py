@@ -15,11 +15,16 @@ lib/VLFeat/sift.c) at its default options:
   flat buffer through ``ops/map_gather.map_gather``: the hand-written
   CUDA kernel on the card, its plain twin on the CPU;
 - 36-bin orientation histograms, the 4x4x8 descriptor, L1_ROOT or L2
-  normalization and sba_tpu's uint8 quantization.
-
-`estimate_affine_shape`, `domain_size_pooling`, `first_octave = -1` and
-`build_octave(impl="conv")` are not ported yet: each raises
-``NotImplementedError``.
+  normalization and sba_tpu's uint8 quantization;
+- the options: `first_octave = -1` (a bilinear 2x upsampled base, so
+  the gradient table is about 4x larger), `estimate_affine_shape`
+  (Baumberg iterations of 256 taps per keypoint, then orientation
+  windows and descriptors sampled through each keypoint's 2x2 shape,
+  and `[K, 4]` affine rows), `domain_size_pooling` (the descriptor
+  averaged over `dsp_num_scales` window sizes, all scales in one
+  gather) and `build_octave(impl="conv")` (the incremental conv chain).
+  Every tap of these goes through `map_gather` as well. As in sba_tpu,
+  pooled descriptors ignore the affine shape when both options are on.
 
 Keypoints follow COLMAP (`src/feature/types.h:43-83`): (x, y, scale,
 orientation) in pixels of the input image with the (0.5, 0.5)
@@ -28,6 +33,7 @@ pixel-center origin.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
@@ -95,10 +101,6 @@ def require_fp32_matmul(t) -> None:
             "torch.set_float32_matmul_precision('highest')")
 
 
-def _unported(what: str):
-    raise NotImplementedError(f"SIFT {what} is not ported yet")
-
-
 # ---------------------------------------------------------------------------
 # Gaussian pyramid (banded matmuls)
 # ---------------------------------------------------------------------------
@@ -161,19 +163,74 @@ def _blur_matmul(img, sigma: float):
     return _blur_multi(img, (float(sigma),))[..., 0, :, :]
 
 
+def _blur(img, sigma: float):
+    """Separable Gaussian blur of [..., H, W] by a static sigma: radius
+    ceil(3 sigma), edge padding, rows then columns (the conv chain)."""
+    if sigma < 1e-4:
+        return img
+    radius = max(1, int(math.ceil(3.0 * sigma)))
+    k = torch.as_tensor(_gaussian_kernel1d(sigma, radius), device=img.device)
+    lead = img.shape[:-2]
+    x = img.reshape(-1, 1, *img.shape[-2:])
+    x = torch.nn.functional.pad(x, (radius, radius, radius, radius),
+                                mode="replicate")
+    x = torch.nn.functional.conv2d(x, k.reshape(1, 1, -1, 1))
+    x = torch.nn.functional.conv2d(x, k.reshape(1, 1, 1, -1))
+    return x.reshape(*lead, *x.shape[-2:])
+
+
+def _downsample2(img):
+    return img[..., ::2, ::2].contiguous()
+
+
+def _upsample2(img):
+    """Bilinear 2x upsample of [..., h, w] (first_octave = -1): half-pixel
+    centres, the edge row and column repeated (jax.image.resize's
+    "bilinear"). Output pixel 2k samples k - 1/4, pixel 2k+1 samples
+    k + 1/4."""
+    def axis(x, dim):
+        n = x.shape[dim]
+        lo = torch.cat([x.narrow(dim, 0, 1), x.narrow(dim, 0, n - 1)], dim)
+        hi = torch.cat([x.narrow(dim, 1, n - 1), x.narrow(dim, n - 1, 1)],
+                       dim)
+        even = 0.75 * x + 0.25 * lo
+        odd = 0.75 * x + 0.25 * hi
+        even.narrow(dim, 0, 1).copy_(x.narrow(dim, 0, 1))
+        odd.narrow(dim, n - 1, 1).copy_(x.narrow(dim, n - 1, 1))
+        out = torch.stack([even, odd], dim + 1 if dim >= 0 else dim)
+        shape = list(x.shape)
+        shape[dim] = 2 * n
+        return out.reshape(shape)
+    return axis(axis(img, -2), -1)
+
+
 def build_octave(img, opt: SiftExtractionOptions, impl: str = "matmul"):
     """One octave of [..., H, W]: (gauss [..., S+3, H, W], dog [..., S+2,
-    H, W], next_base [..., H/2, W/2])."""
-    if impl != "matmul":
-        _unported('build_octave(impl="conv")')
+    H, W], next_base [..., H/2, W/2]). impl="matmul": every level blurred
+    directly from the base by the banded matmuls; impl="conv": sba_tpu's
+    incremental conv chain (each level from the one before)."""
     s_levels = opt.octave_resolution
     k = 2.0 ** (1.0 / s_levels)
-    sig_dir = tuple(
-        math.sqrt(max((opt.sigma0 * k ** s) ** 2 - opt.sigma0 ** 2, 0.0))
-        for s in range(1, s_levels + 3))
-    gauss = torch.cat([img[..., None, :, :], _blur_multi(img, sig_dir)], -3)
+    if impl == "matmul":
+        sig_dir = tuple(
+            math.sqrt(max((opt.sigma0 * k ** s) ** 2 - opt.sigma0 ** 2,
+                          0.0))
+            for s in range(1, s_levels + 3))
+        gauss = torch.cat([img[..., None, :, :], _blur_multi(img, sig_dir)],
+                          -3)
+    elif impl == "conv":
+        levels = [img]
+        sigma_prev = opt.sigma0
+        for s in range(1, s_levels + 3):
+            sigma_total = opt.sigma0 * (k ** s)
+            levels.append(_blur(levels[-1], math.sqrt(
+                max(sigma_total ** 2 - sigma_prev ** 2, 1e-8))))
+            sigma_prev = sigma_total
+        gauss = torch.stack(levels, -3)
+    else:
+        raise ValueError(f"build_octave: impl {impl!r}")
     dog = gauss[..., 1:, :, :] - gauss[..., :-1, :, :]
-    next_base = gauss[..., s_levels, ::2, ::2].contiguous()
+    next_base = _downsample2(gauss[..., s_levels, :, :])
     return gauss, dog, next_base
 
 
@@ -367,18 +424,93 @@ def _grid(values, device):
     return gy.reshape(-1), gx.reshape(-1)
 
 
+def _spd2_inv_sqrt(a, b, c):
+    """Inverse square root of the SPD 2x2 [[a, b], [b, c]] in closed form
+    (sqrt(M) = (M + sqrt(det) I) / sqrt(tr + 2 sqrt(det)), then the
+    adjugate inverse), normalized to det = 1."""
+    det = torch.clamp(a * c - b * b, min=1e-20)
+    sd = torch.sqrt(det)
+    s = torch.sqrt(torch.clamp(a + c + 2.0 * sd, min=1e-20))
+    ra = (a + sd) / s
+    rb = b / s
+    rc = (c + sd) / s
+    rdet = torch.clamp(ra * rc - rb * rb, min=1e-20)
+    ia = rc / rdet
+    ib = -rb / rdet
+    ic = ra / rdet
+    n = torch.sqrt(torch.sqrt(torch.clamp(ia * ic - ib * ib, min=1e-20)))
+    return ia / n, ib / n, ic / n
+
+
+def _affine_adapt(flat, kx, ky, ksigma, base, kh, kw, iters: int,
+                  sampling: str):
+    """Baumberg iteration over all keypoints [...] at once: adapt each
+    measurement region until the gradient second-moment matrix in it is
+    isotropic (VLFeat covdet's affine shape, lib/VLFeat/covdet.c). Each
+    iteration samples a 16x16 grid over radius 3 sigma through the
+    current shape, one `map_gather` launch for every keypoint. Returns
+    the symmetric shape S [..., 2, 2] with det S = 1 and the anisotropy
+    (eigenvalue ratio) of the last moment matrix."""
+    oy, ox = _grid(_LIN16, kx.device)
+    w_g = torch.exp(-(ox * ox + oy * oy) / (2 * 0.66 ** 2))
+    sa = torch.ones_like(kx)
+    sb = torch.zeros_like(kx)
+    sc = torch.ones_like(kx)
+    aniso = torch.ones_like(kx)
+    rad = (3.0 * ksigma)[..., None]
+    ky_, kx_ = ky[..., None], kx[..., None]
+    b_, h_, w_ = base[..., None], kh[..., None], kw[..., None]
+    for _ in range(iters):
+        a_, b2, c_ = sa[..., None], sb[..., None], sc[..., None]
+        dx = rad * (a_ * ox + b2 * oy)
+        dy = rad * (b2 * ox + c_ * oy)
+        wm, ang = _gather_ma(flat, ky_ + dy, kx_ + dx, b_, h_, w_, sampling)
+        gx = (wm * torch.cos(ang)).sum(0)
+        gy = (wm * torch.sin(ang)).sum(0)
+        ixx = torch.sum(w_g * gx * gx, -1)
+        ixy = torch.sum(w_g * gx * gy, -1)
+        iyy = torch.sum(w_g * gy * gy, -1)
+        # The moment matrix in the normalized frame: mu_n = S^T mu S.
+        mxx = sa * (sa * ixx + sb * ixy) + sb * (sa * ixy + sb * iyy)
+        mxy = sa * (sb * ixx + sc * ixy) + sb * (sb * ixy + sc * iyy)
+        myy = sb * (sb * ixx + sc * ixy) + sc * (sb * ixy + sc * iyy)
+        tr = mxx + myy + 1e-20
+        det = torch.clamp(mxx * myy - mxy * mxy, min=1e-24)
+        disc = torch.sqrt(torch.clamp(tr * tr - 4 * det, min=0.0))
+        aniso = (tr + disc) / torch.clamp(tr - disc, min=1e-20)
+        wa, wb, wc = _spd2_inv_sqrt(mxx / tr, mxy / tr, myy / tr)
+        # S <- S W, symmetrized (keeping S symmetric fixes the shape's
+        # rotation, as covdet does), back to det 1.
+        na = sa * wa + sb * wb
+        nb = 0.5 * ((sb * wa + sc * wb) + (sa * wb + sb * wc))
+        nc = sb * wb + sc * wc
+        d = torch.sqrt(torch.clamp(na * nc - nb * nb, min=1e-20))
+        sa, sb, sc = na / torch.sqrt(d), nb / torch.sqrt(d), \
+            nc / torch.sqrt(d)
+    S = torch.stack([torch.stack([sa, sb], -1), torch.stack([sb, sc], -1)],
+                    -2)
+    return S, aniso
+
+
 def _orientation_histograms(flat, kx, ky, ksigma, base, kh, kw,
-                            sampling="nearest"):
+                            sampling="nearest", shape=None):
     """36-bin gaussian-weighted orientation histograms, [..., 36], of the
     keypoints [...] (octave pixels, level-relative sigma, plane offset
     `base` into the flat buffer and plane bounds kh/kw): a 16x16 grid
-    over radius 4.5 sigma, linear binning, six circular box passes
-    (lib/VLFeat/sift.c vl_sift_calc_keypoint_orientations)."""
+    over radius 4.5 sigma (through the keypoint's affine `shape` [...,
+    2, 2] when given; the weights stay those of the unshaped grid),
+    linear binning, six circular box passes (lib/VLFeat/sift.c
+    vl_sift_calc_keypoint_orientations)."""
     oy, ox = _grid(_LIN16, kx.device)
     rad = (3.0 * 1.5 * ksigma)[..., None]
     dy = oy * rad
     dx = ox * rad
-    wm, a = _gather_ma(flat, ky[..., None] + dy, kx[..., None] + dx,
+    if shape is None:
+        sy, sx = dy, dx
+    else:
+        sx = rad * (shape[..., 0, 0, None] * ox + shape[..., 0, 1, None] * oy)
+        sy = rad * (shape[..., 1, 0, None] * ox + shape[..., 1, 1, None] * oy)
+    wm, a = _gather_ma(flat, ky[..., None] + sy, kx[..., None] + sx,
                        base[..., None], kh[..., None], kw[..., None],
                        sampling)
     s = 1.5 * ksigma[..., None] + 1e-9
@@ -429,14 +561,28 @@ _D_GRID = 16
 DESC_CHUNK = 16384
 
 
-def _descriptors(flat, kx, ky, ksigma, korient, base, kh, kw, opt=None):
-    """128-D SIFT descriptors of keypoints [B, K]: a rotated 16x16 grid
-    over 4x4 spatial bins of 3 sigma each, trilinear binning into 4x4x8
-    as one product per keypoint (lib/VLFeat/sift.c
-    vl_sift_calc_keypoint_descriptor)."""
+def _descriptors(flat, kx, ky, ksigma, korient, base, kh, kw, opt=None,
+                 shape=None):
+    """128-D SIFT descriptors of keypoints [...]: a rotated 16x16 grid
+    over 4x4 spatial bins of 3 sigma each (then through the keypoint's
+    affine `shape` [..., 2, 2] when given; the gradient angles keep the
+    rotation-only correction), trilinear binning into 4x4x8 as one
+    product per keypoint (lib/VLFeat/sift.c
+    vl_sift_calc_keypoint_descriptor). With `opt.domain_size_pooling`
+    the descriptor is the mean over `dsp_num_scales` window sizes,
+    sampled in one gather; as in sba_tpu, that branch ignores `shape`."""
     sampling = getattr(opt, "grad_sampling", "nearest") if opt else "nearest"
     if opt is not None and opt.domain_size_pooling:
-        _unported("domain_size_pooling")
+        scales = torch.as_tensor(
+            np.linspace(opt.dsp_min_scale, opt.dsp_max_scale,
+                        opt.dsp_num_scales).astype(np.float32),
+            device=kx.device)
+        sc = scales.reshape(-1, *([1] * kx.dim()))
+        rep = lambda a: a.expand(sc.shape[:1] + a.shape)
+        single = dataclasses.replace(opt, domain_size_pooling=False)
+        return torch.mean(_descriptors(
+            flat, rep(kx), rep(ky), ksigma * sc, rep(korient), rep(base),
+            rep(kh), rep(kw), single), 0)
     dev = kx.device
     lin = [(i + 0.5) / _D_GRID * 4.0 - 2.0 for i in range(_D_GRID)]
     by, bx = _grid(lin, dev)
@@ -445,6 +591,9 @@ def _descriptors(flat, kx, ky, ksigma, korient, base, kh, kw, opt=None):
     sa = torch.sin(korient)[..., None]
     rx = ca * bx - sa * by
     ry = sa * bx + ca * by
+    if shape is not None:
+        rx, ry = (shape[..., 0, 0, None] * rx + shape[..., 0, 1, None] * ry,
+                  shape[..., 1, 0, None] * rx + shape[..., 1, 1, None] * ry)
     wm_t, a_t = _gather_ma(flat, ky[..., None] + ry * spb,
                            kx[..., None] + rx * spb, base[..., None],
                            kh[..., None], kw[..., None], sampling)
@@ -555,28 +704,28 @@ def _detect_octave(base, opt: SiftExtractionOptions):
     return cand, packed.reshape(B, -1), (H, W), next_base
 
 
-def _check_options(opt: SiftExtractionOptions):
-    if opt.first_octave <= -1:
-        _unported("first_octave = -1")
-    if opt.estimate_affine_shape:
-        _unported("estimate_affine_shape")
-    if opt.domain_size_pooling:
-        _unported("domain_size_pooling")
-
-
 def extract_sift_tensor(images, options: Optional[SiftExtractionOptions]
                         = None) -> SiftFeatures:
     """SIFT of a [B, H, W] (or [H, W]) float32 image tensor in [0, 1] on
     its own device; SiftFeatures with a leading batch axis (none for a
-    single [H, W] image)."""
+    single [H, W] image). `affine` holds the [..., K, 4] rows (a11, a12,
+    a21, a22) of scale * S @ R(orientation) in input pixels when
+    `estimate_affine_shape` is on, else None."""
     opt = options or SiftExtractionOptions()
-    _check_options(opt)
     single = images.dim() == 2
     img = (images[None] if single else images).to(torch.float32)
     B = img.shape[0]
     dev = img.device
 
-    pre = math.sqrt(max(opt.sigma0 ** 2 - opt.init_sigma ** 2, 0.01))
+    if opt.first_octave <= -1:
+        img = _upsample2(img)
+        octave_scale0 = 0.5
+        # The upsampled image carries about 2 * init_sigma of blur.
+        pre = math.sqrt(max(opt.sigma0 ** 2 - (2 * opt.init_sigma) ** 2,
+                            0.01))
+    else:
+        octave_scale0 = 1.0
+        pre = math.sqrt(max(opt.sigma0 ** 2 - opt.init_sigma ** 2, 0.01))
     base = _blur_matmul(img, pre)
     h, w = base.shape[-2:]
     n_oct = min(opt.num_octaves,
@@ -590,13 +739,14 @@ def extract_sift_tensor(images, options: Optional[SiftExtractionOptions]
         cand["base"] = cand["base"] + offset
         cand["ph"] = torch.full((B, D), H, dtype=torch.int64, device=dev)
         cand["pw"] = torch.full((B, D), W, dtype=torch.int64, device=dev)
-        cand["oscale"] = torch.full((B, D), 2.0 ** o, dtype=torch.float32,
-                                    device=dev)
+        cand["oscale"] = torch.full((B, D), octave_scale0 * 2.0 ** o,
+                                    dtype=torch.float32, device=dev)
         offset += pflat.shape[1]
         parts.append(cand)
         flats.append(pflat)
 
     # One flat table over the batch: image b's words start at b * offset.
+    # The gather's indices are int32: the whole table stays below 2^31.
     flat_all = torch.cat(flats, 1).reshape(-1)
     if flat_all.numel() >= 1 << 31:
         raise ValueError("extract_sift: gradient table past 2^31 words; "
@@ -613,13 +763,25 @@ def extract_sift_tensor(images, options: Optional[SiftExtractionOptions]
     _, cidx = top_k(cscore, k_eff)
     cat = {k: torch.gather(v, 1, cidx) for k, v in cat.items()}
 
+    shapes = None
+    if opt.estimate_affine_shape:
+        shapes, _aniso = _affine_adapt(
+            flat_all, cat["fx"], cat["fy"], cat["sigma"], cat["base"],
+            cat["ph"], cat["pw"], opt.affine_shape_iters, opt.grad_sampling)
+        # Near the border the iteration can overflow (a window with few
+        # in-plane taps has a rank-deficient moment matrix): such a
+        # keypoint's shape is not finite, and it is dropped (sba_tpu
+        # writes its NaN row).
+        cat["valid"] = cat["valid"] & torch.isfinite(shapes).all(-1).all(-1)
+
     if opt.upright:
         orients = torch.zeros((B, k_eff, 1), dtype=torch.float32, device=dev)
         ovalid = torch.ones((B, k_eff, 1), dtype=torch.bool, device=dev)
     else:
         hists = _orientation_histograms(flat_all, cat["fx"], cat["fy"],
                                         cat["sigma"], cat["base"], cat["ph"],
-                                        cat["pw"], opt.grad_sampling)
+                                        cat["pw"], opt.grad_sampling,
+                                        shape=shapes)
         orients, ovalid = _histogram_peaks(hists, opt.max_num_orientations)
 
     n_ori = orients.shape[-1]
@@ -632,12 +794,27 @@ def extract_sift_tensor(images, options: Optional[SiftExtractionOptions]
     row = {k: torch.gather(rep(cat[k]), 1, idx) for k in
            ("fx", "fy", "sigma", "base", "ph", "pw", "oscale")}
     ko = torch.gather(orients.reshape(B, -1), 1, idx)
+    row_shape = None
+    if shapes is not None:
+        rs = shapes[:, :, None].expand(B, k_eff, n_ori, 2, 2).reshape(
+            B, -1, 4)
+        row_shape = torch.gather(rs, 1, idx[..., None].expand(
+            B, k_eff, 4)).reshape(B, k_eff, 2, 2)
     descs = _descriptors(flat_all, row["fx"], row["fy"], row["sigma"], ko,
-                         row["base"], row["ph"], row["pw"], opt)
+                         row["base"], row["ph"], row["pw"], opt,
+                         shape=row_shape)
 
     keypoints = torch.stack([row["fx"] * row["oscale"] + 0.5,
                              row["fy"] * row["oscale"] + 0.5,
                              row["sigma"] * row["oscale"], ko], -1)
+    affine = None
+    if row_shape is not None:
+        # scale * S @ R(ori) in input pixels (COLMAP's affine keypoint).
+        sc = row["sigma"] * row["oscale"]
+        ca, sa = torch.cos(ko), torch.sin(ko)
+        R = torch.stack([torch.stack([ca, -sa], -1),
+                         torch.stack([sa, ca], -1)], -2)
+        affine = (sc[..., None, None] * (row_shape @ R)).reshape(B, k_eff, 4)
     desc = _normalize_descriptors(descs, opt.normalization)
     mask = torch.isfinite(vals)
     if k_eff < K:
@@ -647,10 +824,14 @@ def extract_sift_tensor(images, options: Optional[SiftExtractionOptions]
                                             device=dev)], 1)
         keypoints, desc, mask = pad(keypoints), pad(desc), pad(mask)
         vals = pad(vals, -math.inf)
+        if affine is not None:
+            affine = pad(affine)
     resp = torch.where(mask, vals, torch.zeros_like(vals))
     out = SiftFeatures(keypoints=keypoints, descriptors=desc, mask=mask,
-                       response=resp)
-    return SiftFeatures(*(a[0] for a in out[:4])) if single else out
+                       response=resp, affine=affine)
+    if single:
+        return SiftFeatures(*(None if a is None else a[0] for a in out))
+    return out
 
 
 def extract_sift(image, options: Optional[SiftExtractionOptions] = None,
@@ -667,11 +848,16 @@ def extract_sift_batch(images, options: Optional[SiftExtractionOptions]
                        = None, device="cuda"):
     """Extraction of a [B, H, W] float32 image stack in one pass on
     `device`, quantized there; one read back. Returns host numpy
-    (keypoints [B, K, 4] f32, descriptors [B, K, 128] u8, mask [B, K])."""
+    (keypoints [B, K, 4] f32 -- or [B, K, 6] COLMAP affine rows (x, y,
+    a11, a12, a21, a22) with `estimate_affine_shape` --, descriptors
+    [B, K, 128] u8, mask [B, K])."""
     opt = options or SiftExtractionOptions()
     imgs = torch.as_tensor(np.asarray(images, np.float32), device=device)
     ft = extract_sift_tensor(imgs, opt)
-    return (ft.keypoints.cpu().numpy(),
+    kp = ft.keypoints
+    if ft.affine is not None:
+        kp = torch.cat([kp[..., :2], ft.affine], -1)
+    return (kp.cpu().numpy(),
             descriptors_to_uint8(ft.descriptors).cpu().numpy(),
             ft.mask.cpu().numpy())
 

@@ -8,6 +8,8 @@ Undistortion is Newton iteration whose 2x2 Jacobian comes from
 forward-mode differentiation (``torch.func.jvp``) of the distortion map.
 This is the plain path: the CUDA kernels of ``ops/ba_kernels.py`` carry
 their own analytic heads for the models they support.
+`world_to_image_switch` / `image_to_world_switch` dispatch on a model id
+held as data (a scalar, or one id a row), on zero-padded parameters.
 """
 
 from __future__ import annotations
@@ -52,6 +54,10 @@ def _register(spec: CameraModelSpec) -> CameraModelSpec:
 
 def model_by_id(model_id: int) -> CameraModelSpec:
     return _MODELS_BY_ID[int(model_id)]
+
+
+def all_models():
+    return [_MODELS_BY_ID[i] for i in sorted(_MODELS_BY_ID)]
 
 
 def model_by_name(name: str) -> CameraModelSpec:
@@ -368,3 +374,44 @@ def world_to_image(model_id: int, params, uv):
 def image_to_world(model_id: int, params, xy):
     m = model_by_id(model_id)
     return m.image_to_world(params[..., : m.num_params], xy)
+
+
+# ---------------------------------------------------------------------------
+# Heterogeneous dispatch on a model id held as data (sba_tpu's lax.switch).
+# ---------------------------------------------------------------------------
+
+def pad_params(params_list):
+    """Pad a python list/array of parameters to [MAX_NUM_PARAMS]."""
+    import numpy as np
+
+    out = np.zeros(MAX_NUM_PARAMS, dtype=np.float64)
+    p = np.asarray(params_list, dtype=np.float64)
+    out[: p.shape[0]] = p
+    return out
+
+
+def _switch(fn: str, model_id, params_padded, pts):
+    """`fn` of the model `model_id` names: a scalar (int or 0-d tensor;
+    sba_tpu's `lax.switch`) or a tensor of ids broadcast against the
+    points' leading axes (what the switch gives under a vmap over ids):
+    each model present computes all rows, its own rows are kept."""
+    ids = torch.as_tensor(model_id)
+    if ids.dim() == 0:
+        m = model_by_id(int(ids))
+        return getattr(m, fn)(params_padded[..., : m.num_params], pts)
+    out = None
+    for mid in torch.unique(ids).tolist():
+        m = model_by_id(int(mid))
+        res = getattr(m, fn)(params_padded[..., : m.num_params], pts)
+        out = res if out is None else torch.where(
+            (ids == mid).to(res.device)[..., None], res, out)
+    return out
+
+
+def world_to_image_switch(model_id, params_padded, uv):
+    """Dispatch on a model id held as data; params_padded: [..., 12]."""
+    return _switch("world_to_image", model_id, params_padded, uv)
+
+
+def image_to_world_switch(model_id, params_padded, xy):
+    return _switch("image_to_world", model_id, params_padded, xy)

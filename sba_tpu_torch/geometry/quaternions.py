@@ -251,3 +251,10 @@ def np_quat_to_angle_axis(q):
     if sin_half < 1e-12:
         return 2.0 * axis
     return axis / sin_half * angle
+
+
+def np_quat_conjugate(q):
+    """w-first quaternion [..., 4] -> its conjugate (the inverse rotation
+    of a unit quaternion)."""
+    q = np.asarray(q, np.float64)
+    return q * np.array([1.0, -1.0, -1.0, -1.0])

@@ -327,3 +327,18 @@ def write_model(cameras: Cameras, images: Images, points: Points3D, path, ext=".
         write_cameras_text(cameras, os.path.join(path, "cameras.txt"))
         write_images_text(images, os.path.join(path, "images.txt"))
         write_points3d_text(points, os.path.join(path, "points3D.txt"))
+
+
+def export_ply(points: Points3D, path) -> None:
+    """ASCII PLY point-cloud export (ref capability:
+    src/base/reconstruction.cc ExportPLY)."""
+    with open(path, "w") as f:
+        f.write("ply\nformat ascii 1.0\n")
+        f.write(f"element vertex {len(points)}\n")
+        f.write("property float x\nproperty float y\nproperty float z\n")
+        f.write("property uchar red\nproperty uchar green\n"
+                "property uchar blue\n")
+        f.write("end_header\n")
+        for p in points.values():
+            f.write(f"{p.xyz[0]} {p.xyz[1]} {p.xyz[2]} "
+                    f"{int(p.rgb[0])} {int(p.rgb[1])} {int(p.rgb[2])}\n")

@@ -7,8 +7,9 @@ float map per registered image); `load_depth_semantic_maps` finds them
 as the reference's filename-prefix matching does and returns stacked
 ``[N, H, W]`` arrays.
 
-The reference reads TIFFs through its native C++ decoder first; the
-port reads them with PIL alone.
+TIFFs are read as sba_tpu reads them: through the native C++ decoder
+(``io/native_loader.py``) when it is available, with PIL otherwise and
+for files the decoder does not take (compressed or exotic TIFFs).
 """
 
 from __future__ import annotations
@@ -22,7 +23,15 @@ from PIL import Image as PILImage
 
 
 def read_float_map_tiff(path) -> np.ndarray:
-    """Read a single-channel float TIFF into [H, W] float32."""
+    """Read a single-channel float TIFF into [H, W] float32: the native
+    decoder (the counterpart of ref util/matrix_vis.h:130 readTiffFloat)
+    when it is available and takes the file, PIL otherwise."""
+    from sba_tpu_torch.io import native_loader
+
+    if native_loader.is_available():
+        arr = native_loader.decode_image_native(str(path))
+        if arr is not None:
+            return arr
     arr = np.asarray(PILImage.open(path), dtype=np.float32)
     if arr.ndim == 3:
         arr = arr[..., 0]

@@ -1,11 +1,12 @@
 """Scene model: host `Reconstruction` container + dense `SceneArrays` view.
 
-Port of the part of ``sba_tpu/models/reconstruction.py`` that bundle
-adjustment and the incremental mapper need: construction, registration
-and deregistration, the observation and track edits (add, delete,
-merge), the statistics, reprojection errors, the point and image
-filters, COLMAP IO, the Bundler export (for the PMVS workspace) and the
-dense view.
+Port of ``sba_tpu/models/reconstruction.py``: construction,
+registration and deregistration, the observation and track edits (add,
+delete, merge), the statistics, reprojection errors, the point and image
+filters, the bounding box and crop, color extraction (the pixels are
+sampled and averaged on the device), COLMAP IO, the PLY, NVM, Bundler,
+CAM, Recon3D and VRML exporters (the same files as sba_tpu's, byte for
+byte) and the dense view.
 `Reconstruction` is a host-side dict container; `SceneArrays` is the
 dense struct-of-arrays numpy view the solvers consume.
 """
@@ -376,20 +377,161 @@ class Reconstruction:
         images = {iid: im for iid, im in self.images.items() if iid in reg}
         cm.write_model(self.cameras, images, self.points3D, path, ext)
 
-    # -- Bundler export (the PMVS workspace's bundle.rd.out) -------------
+    def compute_bounding_box(self, p0: float = 0.0, p1: float = 1.0):
+        """Percentile bounding box over the 3D points
+        (ref: reconstruction.cc ComputeBoundingBox)."""
+        if not self.points3D:
+            return np.zeros(3), np.zeros(3)
+        pts = np.stack([p.xyz for p in self.points3D.values()])
+        lo = np.quantile(pts, p0, axis=0)
+        hi = np.quantile(pts, p1, axis=0)
+        return lo, hi
 
-    def _distortion_k(self, camera, skip_distortion):
-        """(k1, k2) of a Bundler camera; None if its model has no
-        Bundler form."""
+    def crop(self, bbox) -> "Reconstruction":
+        """New reconstruction containing the points inside bbox
+        = (lo [3], hi [3]) and the images observing them; images keep
+        their pose, registration limited to images with >= 1 surviving
+        point (ref: reconstruction.cc Crop)."""
+        import copy
+
+        lo, hi = np.asarray(bbox[0]), np.asarray(bbox[1])
+        out = Reconstruction()
+        out.cameras = copy.deepcopy(self.cameras)
+        for iid, im in self.images.items():
+            im2 = copy.deepcopy(im)
+            im2.point3D_ids = np.full_like(im.point3D_ids, -1)
+            out.images[iid] = im2
+        reg = set()
+        for pid, p in self.points3D.items():
+            if np.all(p.xyz >= lo) and np.all(p.xyz <= hi):
+                track = [(int(i), int(ix))
+                         for i, ix in zip(p.image_ids, p.point2D_idxs)]
+                new_pid = out.add_point3d(p.xyz.copy(), track,
+                                          rgb=tuple(p.rgb),
+                                          error=p.error)
+                del new_pid
+                reg.update(int(i) for i in p.image_ids)
+        out.registered_image_ids = [i for i in self.registered_image_ids
+                                    if i in reg]
+        return out
+
+    def extract_colors(self, image_path: str, device="cuda") -> int:
+        """Mean RGB over the track's observations for every 3D point
+        (ref: reconstruction.cc ExtractColorsForAllImages): each
+        registered image's pixels at its triangulated keypoints (nearest
+        pixel) are gathered on `device` and summed per point there in
+        float64 (exact for 8-bit values, so the means equal sba_tpu's).
+        Returns the number of colored points."""
+        import os
+
+        from PIL import Image as PILImage
+
+        pids = list(self.points3D)
+        row_of = {pid: i for i, pid in enumerate(pids)}
+        sums = torch.zeros((len(pids), 3), dtype=torch.float64,
+                           device=device)
+        counts = torch.zeros(len(pids), dtype=torch.float64, device=device)
+        for iid in self.registered_image_ids:
+            im = self.images[iid]
+            path = os.path.join(image_path, im.name)
+            if not os.path.exists(path):
+                continue
+            with PILImage.open(path) as f:
+                rgb = torch.as_tensor(np.array(f.convert("RGB")),
+                                      device=device)
+            h, w = rgb.shape[:2]
+            tri = np.nonzero(im.point3D_ids != -1)[0]
+            rows = [row_of.get(int(im.point3D_ids[i]), -1) for i in tri]
+            keep = np.array([r >= 0 for r in rows], bool)
+            if not keep.any():
+                continue
+            xy = torch.as_tensor(im.xys[tri[keep]], dtype=torch.float64,
+                                 device=device)
+            xi = torch.clamp(torch.round(xy[:, 0] - 0.5), 0, w - 1).long()
+            yi = torch.clamp(torch.round(xy[:, 1] - 0.5), 0, h - 1).long()
+            r = torch.as_tensor(np.asarray(rows)[keep], device=device)
+            sums.index_add_(0, r, rgb[yi, xi].to(torch.float64))
+            counts.index_add_(0, r, torch.ones_like(r, dtype=torch.float64))
+        has = counts > 0
+        mean = torch.clamp(sums / torch.clamp(counts, min=1)[:, None], 0, 255)
+        mean = mean.to(torch.uint8).cpu().numpy()
+        has = has.cpu().numpy()
+        for i, pid in enumerate(pids):
+            if has[i]:
+                self.points3D[pid].rgb = mean[i]
+        return int(has.sum())
+
+    # -- export formats (ref: reconstruction.cc ExportNVM/Bundler/Cam/
+    #    Recon3D/VRML; consumed by VisualSfM / Bundler / MVE / CMVS /
+    #    Capturing Reality / VRML viewers) ---------------------------------
+
+    def _distortion_k(self, camera, skip_distortion, negate=False,
+                      allow_k2=True):
+        """(k1, k2) for the Bundler-family exporters; None if model
+        unsupported."""
         spec = camera_models.model_by_id(camera.model_id)
         if skip_distortion or spec.name in ("SIMPLE_PINHOLE", "PINHOLE"):
             return 0.0, 0.0
         if spec.name == "SIMPLE_RADIAL":
-            return float(camera.params[spec.extra_idxs[0]]), 0.0
-        if spec.name == "RADIAL":
-            return (float(camera.params[spec.extra_idxs[0]]),
-                    float(camera.params[spec.extra_idxs[1]]))
+            k1 = float(camera.params[spec.extra_idxs[0]])
+            return (-k1 if negate else k1), 0.0
+        if allow_k2 and spec.name == "RADIAL":
+            k1 = float(camera.params[spec.extra_idxs[0]])
+            k2 = float(camera.params[spec.extra_idxs[1]])
+            return ((-k1, -k2) if negate else (k1, k2))
         return None
+
+    def _reg_images_and_centers(self):
+        out = []
+        for iid in self.registered_image_ids:
+            im = self.images[iid]
+            q_inv = np.array([im.qvec[0], -im.qvec[1], -im.qvec[2],
+                              -im.qvec[3]])
+            center = -np_quat_rotate(q_inv, im.tvec)
+            R = np_quat_to_rotmat(im.qvec)
+            out.append((iid, im, center, R))
+        return out
+
+    def export_nvm(self, path, skip_distortion=False) -> bool:
+        """VisualSfM NVM_V3 (ref: reconstruction.cc:813-899 ExportNVM)."""
+        rows = self._reg_images_and_centers()
+        idx_of = {}
+        lines = ["NVM_V3 ", " ", f"{len(rows)}  "]
+        for i, (iid, im, center, _R) in enumerate(rows):
+            cam = self.cameras[im.camera_id]
+            k = self._distortion_k(cam, skip_distortion, negate=True,
+                                   allow_k2=False)
+            if k is None:
+                print("WARNING: NVM only supports `SIMPLE_RADIAL` and "
+                      "pinhole camera models.")
+                return False
+            q = im.qvec
+            lines.append(
+                f"{im.name} {cam.mean_focal_length():.17g} "
+                f"{q[0]:.17g} {q[1]:.17g} {q[2]:.17g} {q[3]:.17g} "
+                f"{center[0]:.17g} {center[1]:.17g} {center[2]:.17g} "
+                f"{k[0]:.17g} 0")
+            idx_of[iid] = i
+        lines.append("")
+        lines.append(str(len(self.points3D)))
+        for p in self.points3D.values():
+            obs = []
+            seen = set()
+            for img_id, p2d in zip(p.image_ids, p.point2D_idxs):
+                img_id = int(img_id)
+                if img_id in seen or img_id not in idx_of:
+                    continue
+                seen.add(img_id)
+                xy = self.images[img_id].xys[int(p2d)]
+                obs.append(f"{idx_of[img_id]} {int(p2d)} "
+                           f"{xy[0]:.17g} {xy[1]:.17g}")
+            lines.append(
+                f"{p.xyz[0]:.17g} {p.xyz[1]:.17g} {p.xyz[2]:.17g} "
+                f"{int(p.rgb[0])} {int(p.rgb[1])} {int(p.rgb[2])} "
+                f"{len(obs)} " + " ".join(obs))
+        with open(path, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        return True
 
     def export_bundler(self, path, list_path, skip_distortion=False) -> bool:
         """Bundler v0.3 .out + image list (ref: reconstruction.cc:1087
@@ -438,6 +580,147 @@ class Reconstruction:
         with open(list_path, "w") as f:
             f.write("\n".join(names) + "\n")
         return True
+
+    def export_cam(self, path, skip_distortion=False) -> bool:
+        """Per-image MVE .cam files (ref: reconstruction.cc:901
+        ExportCam)."""
+        import os
+
+        for iid, im, _c, R in self._reg_images_and_centers():
+            cam = self.cameras[im.camera_id]
+            k = self._distortion_k(cam, skip_distortion)
+            if k is None:
+                print("WARNING: CAM only supports `SIMPLE_RADIAL`, "
+                      "`RADIAL`, and pinhole camera models.")
+                return False
+            k1, k2 = k
+            if k1 != 0.0 and k2 == 0.0:
+                k2 = 1e-10
+            spec = camera_models.model_by_id(cam.model_id)
+            fi = spec.focal_idxs
+            fx = float(cam.params[fi[0]])
+            fy = float(cam.params[fi[-1]])
+            if cam.width * fy < cam.height * fx:
+                focal = fy / cam.height
+            else:
+                focal = fx / cam.width
+            cx, cy = (float(cam.params[i]) for i in spec.principal_idxs)
+            name = os.path.join(path,
+                                os.path.splitext(im.name)[0] + ".cam")
+            os.makedirs(os.path.dirname(name) or path, exist_ok=True)
+            t = im.tvec
+            with open(name, "w") as f:
+                f.write(f"{t[0]:.17g} {t[1]:.17g} {t[2]:.17g} "
+                        + " ".join(f"{R[i,j]:.17g}" for i in range(3)
+                                   for j in range(3)) + "\n")
+                f.write(f"{focal:.17g} {k1:.17g} {k2:.17g} "
+                        f"{fy / fx:.17g} {cx / cam.width:.17g} "
+                        f"{cy / cam.height:.17g}\n")
+        return True
+
+    def export_recon3d(self, path, skip_distortion=False) -> bool:
+        """Recon3D directory (ref: reconstruction.cc:974 ExportRecon3D)."""
+        import os
+
+        base = os.path.join(path, "Recon")
+        os.makedirs(base, exist_ok=True)
+        rows = self._reg_images_and_centers()
+        idx_of = {iid: i for i, (iid, *_r) in enumerate(rows)}
+        synth = ["colmap 1.0", f"{len(rows)} {len(self.points3D)}"]
+        img_list, img_map = [], []
+        for i, (iid, im, _c, R) in enumerate(rows):
+            cam = self.cameras[im.camera_id]
+            k = self._distortion_k(cam, skip_distortion, negate=True)
+            if k is None:
+                print("WARNING: Recon3D only supports `SIMPLE_RADIAL`, "
+                      "`RADIAL`, and pinhole camera models.")
+                return False
+            scale = 1.0 / max(cam.width, cam.height)
+            synth.append(f"{scale * cam.mean_focal_length():.17g} "
+                         f"{k[0]:.17g} {k[1]:.17g}")
+            for r in range(3):
+                synth.append(" ".join(f"{R[r,j]:.17g}" for j in range(3)))
+            t = im.tvec
+            synth.append(f"{t[0]:.17g} {t[1]:.17g} {t[2]:.17g}")
+            img_list.append(im.name)
+            img_list.append(f"{cam.width} {cam.height}")
+            img_map.append(str(i))
+        for p in self.points3D.values():
+            synth.append(f"{p.xyz[0]:.17g} {p.xyz[1]:.17g} "
+                         f"{p.xyz[2]:.17g}")
+            synth.append(f"{int(p.rgb[0])} {int(p.rgb[1])} "
+                         f"{int(p.rgb[2])}")
+            obs = []
+            seen = set()
+            for img_id, p2d in zip(p.image_ids, p.point2D_idxs):
+                img_id = int(img_id)
+                if img_id in seen or img_id not in idx_of:
+                    continue
+                seen.add(img_id)
+                im = self.images[img_id]
+                cam = self.cameras[im.camera_id]
+                spec = camera_models.model_by_id(cam.model_id)
+                cx, cy = (cam.params[i] for i in spec.principal_idxs)
+                scale = 1.0 / max(cam.width, cam.height)
+                xy = im.xys[int(p2d)]
+                obs.append(f"{idx_of[img_id]} {int(p2d)} -1.0 "
+                           f"{(xy[0] - cx) * scale:.17g} "
+                           f"{(xy[1] - cy) * scale:.17g}")
+            synth.append(f"{len(obs)} " + " ".join(obs))
+        with open(os.path.join(base, "synth_0.out"), "w") as f:
+            f.write("\n".join(synth) + "\n")
+        with open(os.path.join(base, "urd-images.txt"), "w") as f:
+            f.write("\n".join(img_list) + "\n")
+        with open(os.path.join(base, "imagemap_0.txt"), "w") as f:
+            f.write("\n".join(img_map) + "\n")
+        return True
+
+    def export_vrml(self, images_path, points_path, image_scale=1.0,
+                    image_rgb=(1.0, 0.0, 0.0)) -> None:
+        """VRML camera frusta + colored point cloud
+        (ref: reconstruction.cc:1194 ExportVRML)."""
+        six = image_scale * 0.15
+        siy = image_scale * 0.1
+        frustum = np.array([
+            [-six, -siy, 2 * six], [six, -siy, 2 * six],
+            [six, siy, 2 * six], [-six, siy, 2 * six], [0, 0, 0],
+            [-six / 3, -siy / 3, 2 * six], [six / 3, -siy / 3, 2 * six],
+            [six / 3, siy / 3, 2 * six], [-six / 3, siy / 3, 2 * six]])
+        with open(images_path, "w") as f:
+            for _iid, im, center, R in self._reg_images_and_centers():
+                pts = frustum @ R + center  # camera->world: R^T x + c
+                f.write("Shape{\n appearance Appearance {\n"
+                        "  material DEF Default-ffRffGffB Material {\n"
+                        "  ambientIntensity 0\n"
+                        f"  diffuseColor  {image_rgb[0]} {image_rgb[1]}"
+                        f" {image_rgb[2]}\n"
+                        "  emissiveColor 0.1 0.1 0.1 } }\n"
+                        " geometry IndexedFaceSet {\n solid FALSE \n"
+                        " colorPerVertex TRUE \n ccw TRUE \n"
+                        " coord Coordinate {\n point [\n")
+                for p in pts:
+                    f.write(f" {p[0]:.6g} {p[1]:.6g} {p[2]:.6g}\n")
+                f.write(" ]\n }\n coordIndex [\n"
+                        " 0, 1, 2, 3, -1\n 5, 6, 4, -1\n"
+                        " 6, 7, 4, -1\n 7, 8, 4, -1\n 8, 5, 4, -1\n"
+                        " ]\n }\n}\n")
+        with open(points_path, "w") as f:
+            f.write("#VRML V2.0 utf8\n"
+                    "Background { skyColor [1.0 1.0 1.0] }\n"
+                    "Shape{ appearance Appearance {\n"
+                    " material Material { emissiveColor 1 1 1} }\n"
+                    " geometry PointSet {\n coord Coordinate {\n"
+                    "  point [\n")
+            for p in self.points3D.values():
+                f.write(f"{p.xyz[0]:.6g} {p.xyz[1]:.6g} {p.xyz[2]:.6g}\n")
+            f.write("  ] }\n color Color { color [\n")
+            for p in self.points3D.values():
+                f.write(f"{p.rgb[0]/255:.3g} {p.rgb[1]/255:.3g} "
+                        f"{p.rgb[2]/255:.3g}\n")
+            f.write(" ] } } }\n")
+
+    def export_ply(self, path) -> None:
+        cm.export_ply(self.points3D, path)
 
     # -- dense view --------------------------------------------------------
 

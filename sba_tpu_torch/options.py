@@ -1,8 +1,8 @@
 """Option registry: dot-namespaced CLI flags.
 
-Port of the flag half of ``sba_tpu/options.py`` (a host-only module, kept
-here as the port's own copy so that the port imports nothing of
-``sba_tpu``); the project.ini round-trip is not ported yet.
+Port of ``sba_tpu/options.py`` (a host-only module, kept here as the
+port's own copy so that the port imports nothing of ``sba_tpu``): the
+flags and the project.ini round-trip.
 
 Capability parity with ref: src/util/option_manager.{h,cc}
 (`OptionManager` option_manager.h:90-141): every module contributes a
@@ -18,6 +18,7 @@ generically, so defaults live in exactly one place.
 
 from __future__ import annotations
 
+import configparser
 import dataclasses
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -94,3 +95,50 @@ def apply_flags(obj: Any, section: str, flags: Dict[str, str],
     for k, v in updates.items():
         setattr(obj, k, v)
     return obj
+
+
+def write_project_ini(path: str, sections: Dict[str, Any],
+                      top_level: Optional[Dict[str, str]] = None):
+    """Write a project.ini (ref: option_manager.cc:1095 Write)."""
+    cp = configparser.ConfigParser()
+    cp.optionxform = str  # preserve case
+    if top_level:
+        cp["DEFAULT"] = {k: str(v) for k, v in top_level.items()}
+    for name, obj in sections.items():
+        if dataclasses.is_dataclass(obj):
+            cp[name] = {
+                f.name: str(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)
+                if isinstance(getattr(obj, f.name),
+                              (bool, int, float, str))}
+        else:
+            cp[name] = {k: str(v) for k, v in vars(obj).items()
+                        if isinstance(v, (bool, int, float, str))}
+    with open(path, "w") as f:
+        cp.write(f)
+
+
+def read_project_ini(path: str) -> Dict[str, Dict[str, str]]:
+    """Read a project.ini into {section: {key: value}}
+    (ref: option_manager.cc:1018 Read)."""
+    cp = configparser.ConfigParser()
+    cp.optionxform = str
+    cp.read(path)
+    out: Dict[str, Dict[str, str]] = {}
+    for sec in cp.sections():
+        out[sec] = dict(cp[sec])
+    if cp.defaults():
+        out["DEFAULT"] = dict(cp.defaults())
+    return out
+
+
+def flags_from_ini(ini: Dict[str, Dict[str, str]]) -> Dict[str, str]:
+    """Flatten ini sections back into dot-namespaced flags."""
+    flags = {}
+    for sec, kv in ini.items():
+        if sec == "DEFAULT":
+            flags.update(kv)
+        else:
+            for k, v in kv.items():
+                flags[f"{sec}.{k}"] = v
+    return flags

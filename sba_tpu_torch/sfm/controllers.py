@@ -9,8 +9,9 @@ per-step callback for progress and cancellation.
 `adjust_bundle` builds its problem in the dtype `BAOptions.dtype` names
 (one deliberate difference: ``dtype="float32"`` on CUDA runs the fused
 kernels; the default "float64" is the plain path). The mapper's bundle
-adjustments are float64, as sba_tpu's. `live_viewer_path` needs the
-model viewer, which is not ported yet: it raises.
+adjustments are float64, as sba_tpu's. `live_viewer_path` writes the
+live viewer's page once and its state after every registration, as
+sba_tpu's controller does.
 """
 
 from __future__ import annotations
@@ -56,8 +57,8 @@ class MapperControllerOptions:
     ba_global_max_refinement_change: float = 0.0005
     snapshot_path: Optional[str] = None
     snapshot_images_freq: int = 0
-    # The live model view of sba_tpu (state.json per registration for
-    # its model viewer); the viewer is not ported yet.
+    # The live model view (live.html once, state.json per registration;
+    # `model_viewer --follow <dir>` serves it).
     live_viewer_path: Optional[str] = None
     mapper: IncrementalMapperOptions = field(
         default_factory=IncrementalMapperOptions)
@@ -83,10 +84,6 @@ def reconstruct_incremental(
     `draw_fn` replaces their draws (see `IncrementalMapper`); each
     model's mapper is appended to `mappers` when given (its `stats`)."""
     opt = options or MapperControllerOptions()
-    if opt.live_viewer_path:
-        raise NotImplementedError(
-            "live_viewer_path needs the model viewer (sba_tpu/viewer.py), "
-            "which is not ported yet (ROADMAP Queue 1, item 5)")
     models: List[Reconstruction] = []
 
     def notify(event, **info):
@@ -158,6 +155,9 @@ def reconstruct_incremental(
                     if opt.snapshot_path and opt.snapshot_images_freq and \
                             num_reg % opt.snapshot_images_freq == 0:
                         _write_snapshot(rec, opt.snapshot_path, num_reg)
+                    if opt.live_viewer_path:
+                        _write_live_state(rec, opt.live_viewer_path,
+                                          num_reg)
                     if not notify("registered", model=model_idx,
                                   image_id=image_id, images=num_reg,
                                   points=num_pts):
@@ -238,6 +238,16 @@ def _write_snapshot(rec: Reconstruction, snapshot_path: str, num_reg: int):
     path = os.path.join(snapshot_path, f"snapshot_{num_reg:06d}")
     os.makedirs(path, exist_ok=True)
     rec.write(path)
+
+
+def _write_live_state(rec: Reconstruction, live_path: str, revision: int):
+    """The live viewer's page (once) and its state.json at `revision`."""
+    from sba_tpu_torch.viewer import export_live_viewer, export_viewer_state
+
+    os.makedirs(live_path, exist_ok=True)
+    if not os.path.exists(os.path.join(live_path, "live.html")):
+        export_live_viewer(live_path)
+    export_viewer_state(rec, live_path, revision)
 
 
 def adjust_bundle(reconstruction: Reconstruction,

@@ -10,6 +10,9 @@ same geometry and the same sequence of draws from
 
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import torch
 
@@ -407,7 +410,8 @@ def make_sba_scene(
     semantic = np.zeros((num_images, h, w))
     lut = np.random.default_rng(seed + 1000).integers(0, num_labels,
                                                       size=(97, 89))
-    for i in range(num_images):
+
+    def render(i):
         qc = qvecs[i] * np.array([1.0, -1.0, -1.0, -1.0])
         dirs = dir_cam.reshape(-1, 3)
         d_world = _np_quat_rotate_raw(
@@ -423,6 +427,11 @@ def make_sba_scene(
         ix = np.floor(hit[..., 0] / cell).astype(np.int64) % 97
         iy = np.floor(hit[..., 1] / cell).astype(np.int64) % 89
         semantic[i] = lut[ix, iy].astype(np.float64)
+
+    # The views draw nothing and numpy's ufuncs release the GIL, so the
+    # views march in threads, each with the same arithmetic as in turn.
+    with ThreadPoolExecutor(min(num_images, os.cpu_count() or 1, 8)) as ex:
+        list(ex.map(render, range(num_images)))
 
     q0, t0 = _sba_scene_noise(rng, qvecs, tvecs, pose_noise)
     cam_params = np.tile(cam, (num_images, 1))

@@ -972,6 +972,90 @@ def test_sift_on_card_matches_cpu(cuda):
             >= 0.99
 
 
+# The SIFT options beyond the defaults, and map_gather's launches an
+# image under each: six Baumberg iterations, the orientation windows and
+# the descriptors (affine); one launch for all DSP scales.
+_SIFT_VARIANTS = {"first_octave": (dict(first_octave=-1), 2),
+                  "affine": (dict(estimate_affine_shape=True), 8),
+                  "dsp": (dict(domain_size_pooling=True), 2)}
+
+
+def _affine_rows(k):
+    """[K, 6] affine rows -> [K, 4] (x, y, scale, orientation): scale =
+    sqrt(det A), orientation from A's polar factor (A = scale S R). The
+    padding rows (all zero) come out as zeros."""
+    A = k[:, 2:].double().reshape(-1, 2, 2)
+    sc = torch.sqrt(torch.abs(torch.linalg.det(A)))
+    safe = torch.where(sc > 0, sc, torch.ones_like(sc))
+    A = torch.where((sc > 0)[:, None, None], A,
+                    torch.eye(2, dtype=A.dtype).expand_as(A))
+    u, _, vh = torch.linalg.svd(A / safe[:, None, None])
+    R = u @ vh
+    ori = torch.remainder(torch.atan2(R[:, 1, 0], R[:, 0, 0]), 2 * torch.pi)
+    return torch.stack([k[:, 0].double(), k[:, 1].double(), sc, ori], 1)
+
+
+@pytest.mark.parametrize("variant", list(_SIFT_VARIANTS))
+def test_map_gather_bit_equal_at_sift_option_laws(cuda, variant):
+    """Every map_gather launch of SIFT under first_octave -1, the affine
+    shape and DSP (each a new index law: a 4x table, taps through each
+    keypoint's shape, ten scales in one launch) equals map_gather_plain
+    on the same card tensors bit for bit."""
+    from sba_tpu_torch.features import sift
+    from sba_tpu_torch.ops import map_gather as mg
+
+    kw, launches = _SIFT_VARIANTS[variant]
+    same, calls = [], []
+
+    def checked(table, idx, *args):
+        out = mg.map_gather(table, idx, *args)
+        same.append(torch.equal(out, mg.map_gather_plain(table, idx, *args)))
+        calls.append(idx.numel())
+        return out
+
+    img = _views(1)["images"][0].astype(np.float32) / 255.0
+    orig = sift.map_gather
+    sift.map_gather = checked
+    try:
+        mg.reset_launches()
+        sift.extract_sift(img, sift.SiftExtractionOptions(**kw), device=cuda)
+        torch.cuda.synchronize()
+    finally:
+        sift.map_gather = orig
+    assert mg.LAUNCHES["map_gather"] == launches == len(calls)
+    assert all(same), same
+
+
+@pytest.mark.parametrize("variant", list(_SIFT_VARIANTS))
+def test_sift_options_on_card_match_cpu(cuda, variant):
+    """One 320x240 view under each option on the card against the CPU
+    path: 98% of rows within 1e-3 px / rad (the affine variant 95%: its
+    orientation comes out of six Baumberg iterations that amplify a
+    float32 rounding), u8 descriptors within 1 in 99% (98% affine)."""
+    from sba_tpu_torch.features.sift import (SiftExtractionOptions,
+                                             descriptors_to_uint8,
+                                             extract_sift_batch)
+
+    kw, _ = _SIFT_VARIANTS[variant]
+    img = _views(1)["images"][:1].astype(np.float32) / 255.0
+    opt = SiftExtractionOptions(**kw)
+    kc, uc, mc = (torch.as_tensor(a[0]) for a in
+                  extract_sift_batch(img, opt, device=cuda))
+    kp, up, mp = (torch.as_tensor(a[0]) for a in
+                  extract_sift_batch(img, opt, device="cpu"))
+    assert int(mc.sum()) > 200
+    if variant == "affine":
+        assert kc.shape[1] == 6
+        kc, kp = _affine_rows(kc).float(), _affine_rows(kp).float()
+        assert torch.isfinite(kc[mc]).all()
+    share, idx = _rows_share(kc, mc, kp, mp)
+    assert share >= (0.95 if variant == "affine" else 0.98), share
+    a = uc[mc][idx >= 0].int()
+    b = up[mp][idx[idx >= 0]].int()
+    assert float(((a - b).abs() <= 1).float().mean()) >= (
+        0.98 if variant == "affine" else 0.99)
+
+
 def test_matcher_and_verifier_on_card_match_cpu(cuda):
     """match_pairs_batched on one descriptor stack (rows equal but 0.1%)
     and estimate_two_view_geometry_batch with the same draws

@@ -692,14 +692,64 @@ def test_ransac_impl_same_draws(kind, scoring):
 
 
 def test_two_view_unported_and_rounds():
-    with pytest.raises(NotImplementedError):
-        t_tvg.estimate_two_view_geometry_multiple(np.zeros((20, 2)),
-                                                  np.zeros((20, 2)))
+    """`estimate_two_view_geometry_multiple` computes (it used to raise
+    NotImplementedError): too few correspondences give no model. The
+    trial rounds and counts of both packages agree."""
+    assert t_tvg.estimate_two_view_geometry_multiple(
+        np.zeros((10, 2)), np.zeros((10, 2)), device="cpu") == []
     assert t_tvg.trial_rounds(4096) == [256, 1024, 4096]
     assert t_tvg.trial_rounds(256) == [256]
     for s in (4, 5, 7):
         assert t_ransac.num_required_trials(s, t_ransac.RANSACOptions()) \
             == j_ransac.num_required_trials(s, j_ransac.RANSACOptions())
+
+
+def two_motion_pair(n_per=60):
+    """tests/test_two_view_geometry.py:192's pair: correspondences of two
+    rigid motions, 0.2 px noise."""
+    rng = np.random.default_rng(3)
+    f, cx, cy = 400.0, 320.0, 240.0
+
+    def motion(R, t, seed):
+        r2 = np.random.default_rng(seed)
+        pts = np.stack([r2.uniform(-2, 2, n_per), r2.uniform(-1.5, 1.5, n_per),
+                        r2.uniform(4, 8, n_per)], 1)
+        p2 = pts @ R.T + t
+        return (f * pts[:, :2] / pts[:, 2:] + [cx, cy],
+                f * p2[:, :2] / p2[:, 2:] + [cx, cy])
+
+    def rotz(a):
+        c, s_ = np.cos(a), np.sin(a)
+        return np.array([[c, -s_, 0], [s_, c, 0], [0, 0, 1.0]])
+
+    a1, a2 = motion(rotz(0.05), np.array([0.8, 0.0, 0.1]), 1)
+    b1, b2 = motion(rotz(-0.25), np.array([-0.3, 0.9, -0.4]), 2)
+    xy1 = np.concatenate([a1, b1]) + rng.normal(0, 0.2, (2 * n_per, 2))
+    xy2 = np.concatenate([a2, b2]) + rng.normal(0, 0.2, (2 * n_per, 2))
+    return xy1, xy2, (f, f, cx, cy)
+
+
+def test_estimate_two_view_geometry_multiple_same_draws():
+    """The recursive multi-model estimate with sba_tpu's draws in every
+    round: the same models (same_result's 1e-6), the same disjoint inlier
+    sets but one correspondence, every config MULTIPLE."""
+    xy1, xy2, K = two_motion_pair()
+    jopt = j_tvg.TwoViewGeometryOptions(max_num_trials=TRIALS,
+                                        detect_watermark=False)
+    topt = t_tvg.TwoViewGeometryOptions(max_num_trials=TRIALS,
+                                        detect_watermark=False)
+    rj = j_tvg.estimate_two_view_geometry_multiple(
+        xy1, xy2, K, K, (640, 480), (640, 480), options=jopt, seed=2)
+    rt = t_tvg.estimate_two_view_geometry_multiple(
+        xy1, xy2, K, K, (640, 480), (640, 480), options=topt, seed=2,
+        draw_fn=lambda sd, n, m: _jax_single_draws(sd, n, m, jopt),
+        device="cpu")
+    assert len(rt) == len(rj) >= 2
+    for a, b in zip(rt, rj):
+        same_result(a, b)
+        assert a.config == int(t_tvg.TwoViewConfig.MULTIPLE)
+        assert (a.inlier_mask != b.inlier_mask).sum() <= 1
+    assert not (rt[0].inlier_mask & rt[1].inlier_mask).any()
 
 
 # ---------------------------------------------------------------------------

@@ -114,6 +114,43 @@ def test_camera_model_matches_sba_tpu(model_id):
     _close(back_t, back_j)
 
 
+def test_camera_model_switch_matches_sba_tpu():
+    """The dispatch on a model id held as data (sba_tpu's `lax.switch`):
+    each of the 11 models by a scalar id, and a batch of rows of mixed
+    models (the switch under sba_tpu's vmap over ids), both directions,
+    on zero-padded parameters."""
+    import jax
+
+    rng = np.random.default_rng(11)
+    P = np.stack([tcm.pad_params(jcm.model_by_id(m).init_params(
+        500.0, 640, 480)) for m in range(11)])
+    for m, d in _DISTORT.items():
+        for i, v in d.items():
+            P[m, i] = v
+    np.testing.assert_array_equal(P[3], jcm.pad_params(P[3][:6]))
+    uv = rng.uniform(-0.4, 0.4, size=(11, 8, 2))
+    for m in range(11):
+        xy_t = tcm.world_to_image_switch(torch.tensor(m), _t(P[m]),
+                                         _t(uv[m]))
+        xy_j = jcm.world_to_image_switch(m, jnp.asarray(P[m]),
+                                         jnp.asarray(uv[m]))
+        _close(xy_t, xy_j)
+        _close(tcm.image_to_world_switch(m, _t(P[m]), xy_t),
+               jcm.image_to_world_switch(m, jnp.asarray(P[m]), xy_j))
+    ids = np.array([0, 10, 4, 4, 7, 2, 9, 1])
+    rows = uv[ids, np.arange(8)]
+    xy_j = jax.vmap(jcm.world_to_image_switch)(jnp.asarray(ids),
+                                               jnp.asarray(P[ids]),
+                                               jnp.asarray(rows))
+    xy_t = tcm.world_to_image_switch(torch.as_tensor(ids), _t(P[ids]),
+                                     _t(rows))
+    _close(xy_t, xy_j)
+    _close(tcm.image_to_world_switch(torch.as_tensor(ids), _t(P[ids]),
+                                     xy_t),
+           jax.vmap(jcm.image_to_world_switch)(jnp.asarray(ids),
+                                               jnp.asarray(P[ids]), xy_j))
+
+
 @pytest.mark.parametrize("name", ["trivial", "huber", "soft_l1", "cauchy"])
 def test_loss_matches_sba_tpu(name):
     s = np.concatenate([np.linspace(0.0, 10.0, 41), [1e-30, 0.5, 3.9]])

@@ -86,6 +86,14 @@ def test_port_and_chip_smoke_import_without_jax():
                  "sba_tpu_torch.parallel.distributed_ba",
                  "sba_tpu_torch.parallel.sba_spmd",
                  "sba_tpu_torch.parallel.gsba_spmd",
+                 "sba_tpu_torch.estimators.coordinate_frame",
+                 "sba_tpu_torch.features.lines",
+                 "sba_tpu_torch.geometry.gps",
+                 "sba_tpu_torch.io.native_loader",
+                 "sba_tpu_torch.io.ply",
+                 "sba_tpu_torch.utils.host",
+                 "sba_tpu_torch.utils.profiling",
+                 "sba_tpu_torch.viewer",
                  "sba_tpu_torch.cli"):
         assert name in modules, name
     from sba_tpu_torch import cli
@@ -97,9 +105,11 @@ def test_port_and_chip_smoke_import_without_jax():
                 "pose_graph_optimizer", "rig_bundle_adjuster",
                 "poisson_mesher", "delaunay_mesher", "stereo_fusion",
                 "image_rectifier", "vocab_tree_builder",
-                "vocab_tree_matcher", "vocab_tree_retriever"):
+                "vocab_tree_matcher", "vocab_tree_retriever",
+                "spatial_matcher", "model_converter", "model_viewer",
+                "project_generator"):
         assert cmd in cli.COMMANDS, cmd
-    assert len(cli.COMMANDS) == 27
+    assert len(cli.COMMANDS) == 46
     import sba_tpu_torch.parallel as par
 
     for name in ("make_mesh", "shard_problem", "shard_problem_by_points",
@@ -116,3 +126,25 @@ def test_port_and_chip_smoke_import_without_jax():
         capture_output=True, text=True, timeout=120, cwd=ROOT)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == f"clean {len(modules)}"
+
+
+def test_port_has_every_command_and_module_of_sba_tpu():
+    """The port's CLI lists sba_tpu's 46 command names, and every module
+    of sba_tpu has a counterpart of the same path in the port."""
+    import sba_tpu
+    from sba_tpu import cli as jcli
+    from sba_tpu_torch import cli as tcli
+
+    assert sorted(tcli.COMMANDS) == sorted(jcli.COMMANDS)
+    assert len(tcli.COMMANDS) == 46
+    res = subprocess.run([sys.executable, "-m", "sba_tpu_torch.cli",
+                          "--help"], capture_output=True, text=True,
+                         timeout=120, cwd=ROOT)
+    listed = [l.strip() for l in res.stdout.splitlines()
+              if l.startswith("  ")]
+    assert listed == sorted(jcli.COMMANDS)
+    ours = {m.name.split(".", 1)[1] for m in pkgutil.walk_packages(
+        sba_tpu_torch.__path__, "sba_tpu_torch.")}
+    theirs = {m.name.split(".", 1)[1] for m in pkgutil.walk_packages(
+        sba_tpu.__path__, "sba_tpu.")}
+    assert not theirs - ours, sorted(theirs - ours)

@@ -333,7 +333,35 @@ def test_new_commands_need_a_card(command, ws, tmp_path, monkeypatch):
     assert not out.exists()
 
 
-def test_live_viewer_path_raises():
-    opt = t_ctl.MapperControllerOptions(live_viewer_path="/nonexistent")
-    with pytest.raises(NotImplementedError, match="viewer"):
-        t_ctl.reconstruct_incremental(None, opt)
+def test_live_viewer_path_raises(tmp_path):
+    """`Mapper.live_viewer_path` (which used to raise NotImplementedError)
+    writes the live page once and the state after every registration, as
+    sba_tpu's controller does: sba_tpu's page, and a last state whose
+    revision and registered count are the model's. sba_tpu's mapper
+    command rejects the flag (its `apply_flags` takes it for an
+    IncrementalMapperOptions field); the port's takes it."""
+    import json
+
+    from sba_tpu import viewer as j_viewer
+
+    db = j_db.Database(str(tmp_path / "db.db"))
+    write_ring_scene(db, n_images=5, n_points=120)
+    db.close()
+    flags = dict(MAPPER_FLAGS, database_path=str(tmp_path / "db.db"),
+                 output_path=str(tmp_path / "sparse"),
+                 **{"Mapper.live_viewer_path": str(tmp_path / "live")})
+    with pytest.raises(ValueError, match="live_viewer_path"):
+        j_cli.run_mapper(flags)
+    args = ["mapper", "--device", "cpu"]
+    for k, v in flags.items():
+        args += ["--" + k, v]
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert t_cli.main(args) == 0
+    j_viewer.export_live_viewer(str(tmp_path))
+    assert (tmp_path / "live" / "live.html").read_bytes() == \
+        (tmp_path / "live.html").read_bytes()
+    st = json.loads((tmp_path / "live" / "state.json").read_text())
+    rec = TRec.read(str(tmp_path / "sparse" / "0"))
+    assert st["num_registered"] == st["revision"] \
+        == rec.num_registered_images() >= 4
+    assert len(st["cameras"]) == rec.num_registered_images()
